@@ -1,0 +1,93 @@
+"""Carry gitax weights into the port.
+
+`params_from_gitax(tree, cfg)` takes a gitax params tree as numpy arrays
+(fp, or int8-quantized by `gitax.ops.quant.quantize_git_params` or
+`gitax_torch.ops.quant.quantize_git_params`) and returns a filled
+`GitModel`.  The port's parameters are named after the reference torch
+state dict, so for an fp tree `model.state_dict()` equals
+`gitax.ckpt.export_git_state_dict(tree, cfg)` key for key, and published
+`model.pt` state dicts load with `load_state_dict` and no converter.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.config import GitConfig
+from .models.git import GitModel
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _fill_linear(lin, p, i=None, cols=None):
+    """Fill a port Linear from a gitax {'kernel' [in, out] | 'kernel_q8',
+    'kernel_scale', 'bias'} entry; `i` picks a layer of a stacked entry,
+    `cols` a column slice of a fused one."""
+    pick = (lambda a: np.asarray(a)[i]) if i is not None else np.asarray
+    sl = cols if cols is not None else slice(None)
+    if "kernel_q8" in p:
+        lin.set_int8(torch.from_numpy(np.array(pick(p["kernel_q8"])[:, sl], np.int8)),
+                     _t(pick(p["kernel_scale"])[sl]))
+    else:
+        lin.weight.copy_(_t(pick(p["kernel"])[:, sl].T))
+    lin.bias.copy_(_t(pick(p["bias"])[sl]))
+
+
+def _fill_ln(ln, p, i=None):
+    pick = (lambda a: np.asarray(a)[i]) if i is not None else np.asarray
+    ln.weight.copy_(_t(pick(p["scale"])))
+    ln.bias.copy_(_t(pick(p["bias"])))
+
+
+@torch.no_grad()
+def params_from_gitax(tree: dict, cfg: GitConfig, device=None,
+                      dtype=torch.float32) -> GitModel:
+    """gitax params tree (numpy) -> GitModel on `device` in `dtype`
+    (int8 values and f32 scales keep their types)."""
+    model = GitModel(cfg, device=device, dtype=dtype)
+
+    ie, vit = tree["image_encoder"], model.image_encoder
+    p, w = cfg.encoder.patch_size, cfg.encoder.width
+    vit.conv1.weight.copy_(
+        _t(np.asarray(ie["patch_kernel"], np.float32).reshape(p, p, 3, w)
+           .transpose(3, 2, 0, 1))
+    )
+    vit.class_embedding.copy_(_t(ie["class_embedding"]))
+    vit.positional_embedding.copy_(_t(ie["positional_embedding"]))
+    _fill_ln(vit.ln_pre, ie["ln_pre"])
+    _fill_ln(vit.ln_post, ie["ln_post"])
+    blocks = ie["blocks"]
+    for i, blk in enumerate(vit.transformer.resblocks):
+        _fill_ln(blk.ln_1, blocks["ln_1"], i)
+        _fill_ln(blk.ln_2, blocks["ln_2"], i)
+        blk.attn.in_proj_weight.copy_(_t(np.asarray(blocks["attn"]["qkv"]["kernel"])[i].T))
+        blk.attn.in_proj_bias.copy_(_t(np.asarray(blocks["attn"]["qkv"]["bias"])[i]))
+        _fill_linear(blk.attn.out_proj, blocks["attn"]["out"], i)
+        _fill_linear(blk.mlp.c_fc, blocks["mlp"]["c_fc"], i)
+        _fill_linear(blk.mlp.c_proj, blocks["mlp"]["c_proj"], i)
+
+    tx, head = tree["textual"], model.textual
+    _fill_linear(head.visual_projection[0], tx["visual_projection"]["linear"])
+    _fill_ln(head.visual_projection[1], tx["visual_projection"]["ln"])
+    head.embedding.words.weight.copy_(_t(tx["embedding"]["words"]))
+    head.embedding.positions.weight.copy_(_t(tx["embedding"]["positions"]))
+    _fill_ln(head.embedding.layer_norm, tx["embedding"]["ln"])
+    tb = tx["blocks"]
+    d = cfg.hidden_size
+    for i, layer in enumerate(head.layers()):
+        sa = layer.attention.qkv
+        for j, lin in enumerate((sa.query, sa.key, sa.value)):
+            _fill_linear(lin, tb["attn"]["qkv"], i, slice(j * d, (j + 1) * d))
+        _fill_linear(layer.attention.output.dense, tb["attn"]["out"], i)
+        _fill_ln(layer.attention.output.LayerNorm, tb["attn_ln"], i)
+        _fill_linear(layer.intermediate.dense, tb["mlp"]["intermediate"], i)
+        _fill_linear(layer.output.dense, tb["mlp"]["output"], i)
+        _fill_ln(layer.output.LayerNorm, tb["mlp_ln"], i)
+    head.output.bias.copy_(_t(tx["output_bias"]))
+    if "output_words_q8_t" in tx:
+        head.output.set_int8(torch.from_numpy(np.array(tx["output_words_q8_t"], np.int8)),
+                             _t(tx["output_words_scale"]))
+    return model

@@ -1,0 +1,131 @@
+"""GIT model assembly: ViT encoder + unified decoder, the counterpart of
+`gitax.models.git`.
+
+`GitModel` is an nn.Module whose state dict uses the reference names
+(`image_encoder.*`, `textual.*`), so `gitax.ckpt.export_git_state_dict`
+of a gitax tree and this module's `state_dict()` agree key for key (see
+`gitax_torch.ckpt`).  Ported: single-image encoding, memory with no text
+context, and beam-search generation.  Greedy, trie, video and text
+context are later work; video configs and frame stacks raise.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..decode.beam import BeamSearchConfig, beam_search
+from . import textual as T
+from .config import GitConfig
+from .vit import VisualTransformer, vit_forward
+
+
+class GitModel(nn.Module):
+    """Inference-only GIT: parameters are created with
+    requires_grad=False on `device` in `dtype` (random values until
+    `init_params` or `ckpt.params_from_gitax` fills them)."""
+
+    def __init__(self, cfg: GitConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        if cfg.num_image_with_embedding:
+            raise NotImplementedError("video models are not ported yet")
+        self.cfg = cfg
+        self.image_encoder = VisualTransformer(cfg.encoder, device, dtype)
+        self.textual = T.TextualHead(cfg, device, dtype)
+        # decode steps run through this model (beam iterations summed over
+        # calls); read by chip_smoke.py to match kernel launches
+        self.decode_step_calls = 0
+
+    def init_params(self, generator: torch.Generator):
+        """Random weights with gitax's shapes and scales, from a CPU
+        generator."""
+        self.image_encoder.init_params(generator)
+        self.textual.init_params(generator)
+        return self
+
+    # -- encoder ---------------------------------------------------------
+    def encode_images(self, images, dtype=torch.float32, fast=None):
+        """images [B, H, W, 3] (one image per element) -> tokens."""
+        if images.dim() != 4:
+            raise NotImplementedError("multi-frame (video) input is not ported yet")
+        return vit_forward(self.image_encoder, images, dtype, fast=fast)
+
+    def build_memory(self, images, dtype=torch.float32, fast=None):
+        """(memory, memory_valid): the image tokens, all valid (the text
+        context memory is not ported yet)."""
+        return self.encode_images(images, dtype, fast=fast), None
+
+    # -- decode glue -------------------------------------------------------
+    def prefill(self, visual_features, prefix_tokens, max_text_len,
+                memory_valid=None, dtype=torch.float32, fast=False,
+                kernel_memory=False):
+        return T.prefill(self.textual, visual_features, prefix_tokens, self.cfg,
+                         max_text_len, memory_valid=memory_valid, dtype=dtype,
+                         fast=fast, kernel_memory=kernel_memory)
+
+    def decode_step(self, tokens, cache, dtype=torch.float32, kernel=False):
+        self.decode_step_calls += 1
+        return T.decode_step(self.textual, tokens, cache, self.cfg, dtype=dtype,
+                             kernel=kernel)
+
+    # -- generation --------------------------------------------------------
+    @torch.inference_mode()
+    def generate(self, images, prefix_tokens=None, beam: Optional[BeamSearchConfig] = None,
+                 dtype=torch.float32, sos_id=101, mode="beam", fast_prefill=False,
+                 decode_kernel=False):
+        """Caption generation by beam search (reference decoder.py:977-1011).
+
+        prefix_tokens [B, Tp] defaults to [CLS]; an explicit prefix is
+        stripped from the output.  With num_keep_best == 1 the keep axis
+        is squeezed.  decode_kernel: False (the plain decode path), True
+        (the decode-attention kernel path) or 'int8' (the kernel path
+        with int8 memory K/V).  Returns (sequences, logprobs).  Only
+        mode='beam' is ported; gitax's 'greedy' and 'trie' raise."""
+        if mode != "beam":
+            raise NotImplementedError("generate mode {!r} is not ported yet".format(mode))
+        visual, memory_valid = self.build_memory(images, dtype=dtype)
+        bsz = visual.shape[0]
+        strip = prefix_tokens is not None
+        if prefix_tokens is None:
+            prefix_tokens = torch.full((bsz, 1), sos_id, dtype=torch.long,
+                                       device=visual.device)
+        tp = prefix_tokens.shape[1] if strip else 0
+        beam = beam or BeamSearchConfig()
+        logits, cache = self.prefill(visual, prefix_tokens, beam.max_steps,
+                                     memory_valid, dtype, fast=fast_prefill,
+                                     kernel_memory=decode_kernel)
+
+        def step(tokens, cache):
+            return self.decode_step(tokens, cache, dtype, kernel=bool(decode_kernel))
+
+        decoded, logprobs = beam_search(step, logits, cache, prefix_tokens, beam)
+        decoded = decoded[:, :, tp:]
+        if beam.num_keep_best == 1:
+            decoded, logprobs = decoded[:, 0], logprobs[:, 0]
+        return decoded, logprobs
+
+
+def eos_gate_params(words, positions, eos_id=102, gate=12):
+    """numpy [V, D] word table -> a copy whose EOS row points along the
+    late-position direction of the positional table [P, D].  Through the
+    tied head this suppresses EOS before position `gate` and makes it
+    dominant after, so random weights decode ~gate-token captions and
+    the search's is_done early exit fires (gitax bench.py:95-113)."""
+    words = np.array(words, np.float32)
+    pos = np.asarray(positions, np.float32)
+    d = pos[gate:gate + 8].mean(0) - pos[:gate].mean(0)
+    words[eos_id] = 10.0 * d / np.linalg.norm(d)
+    return words
+
+
+@torch.no_grad()
+def eos_gate_(model: GitModel, eos_id=102, gate=12):
+    """Apply `eos_gate_params` to a model's word table in place."""
+    emb = model.textual.embedding
+    words = eos_gate_params(emb.words.weight.float().cpu().numpy(),
+                            emb.positions.weight.float().cpu().numpy(), eos_id, gate)
+    emb.words.weight.copy_(torch.from_numpy(words))
+    return model

@@ -1,0 +1,151 @@
+"""Shared NN primitives: parameter-holding modules and plain tensor
+functions, the counterpart of `gitax.models.nn`.
+
+Layout convention: `Linear.weight` is `[out, in]`, as in torch and the
+reference state dict.  A weight-only int8 `Linear` (ops/quant.py) holds
+`weight_q8_t [in, out]` int8 and a per-output-channel `weight_scale`,
+the same values gitax stores as `kernel_q8` / `kernel_scale`.  LayerNorm
+and the decoder's softmax accumulate in float32, so the bf16 activation
+mode keeps the parity-critical numerics.
+
+Inference only: every parameter is created with `requires_grad=False`.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def empty_param(shape, device=None, dtype=None):
+    """An uninitialized inference-only Parameter."""
+    return nn.Parameter(
+        torch.empty(shape, device=device, dtype=dtype), requires_grad=False
+    )
+
+
+class LayerNorm(nn.Module):
+    """Parameters of a LayerNorm (`weight`, `bias`); see `layer_norm`."""
+
+    def __init__(self, width, eps, device=None, dtype=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = empty_param((width,), device, dtype)
+        self.bias = empty_param((width,), device, dtype)
+
+    def forward(self, x):
+        return layer_norm(x, self.weight, self.bias, self.eps)
+
+
+class Linear(nn.Module):
+    """Parameters of an affine map; `forward` is `linear(x, self)`.
+
+    `weight` may be a Parameter shared with another module (the tied
+    output head).  After `set_int8` the fp weight is dropped and the
+    module holds the int8 values and scales instead."""
+
+    def __init__(self, in_features, out_features, bias=True, device=None,
+                 dtype=None):
+        super().__init__()
+        self.weight = empty_param((out_features, in_features), device, dtype)
+        self.bias = empty_param((out_features,), device, dtype) if bias else None
+        self.register_buffer("weight_q8_t", None)
+        self.register_buffer("weight_scale", None)
+
+    @property
+    def quantized(self):
+        return self.weight_q8_t is not None
+
+    def set_int8(self, q8_t, scale):
+        """Replace the fp weight with int8 `q8_t [in, out]` and f32
+        `scale [out]` (see ops/quant.py)."""
+        device = self.weight.device
+        del self._parameters["weight"]
+        self.register_buffer("weight_q8_t", q8_t.to(device=device, dtype=torch.int8))
+        self.register_buffer(
+            "weight_scale", scale.to(device=device, dtype=torch.float32)
+        )
+
+    def forward(self, x):
+        return linear(x, self)
+
+
+def layer_norm(x, weight, bias, eps):
+    """LayerNorm with float32 statistics, cast back to x's dtype."""
+    dtype = x.dtype
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    y = y * weight.float() + bias.float()
+    return y.to(dtype)
+
+
+def linear(x, lin: Linear):
+    """fp: x @ W^T + b in x's dtype.  Weight-only int8: the int8 weight
+    is converted to x's dtype, multiplied, and the per-output-channel
+    scale applied after the matmul (gitax nn.py:36-43)."""
+    if lin.quantized:
+        y = torch.matmul(x, lin.weight_q8_t.to(x.dtype))
+        y = y * lin.weight_scale.to(x.dtype)
+    else:
+        y = F.linear(x, lin.weight.to(x.dtype))
+    if lin.bias is not None:
+        y = y + lin.bias.to(x.dtype)
+    return y
+
+
+def quick_gelu(x):
+    """CLIP's QuickGELU: x * sigmoid(1.702 x)."""
+    return x * torch.sigmoid(1.702 * x)
+
+
+def gelu_erf(x):
+    """Exact-erf gelu, the decoder's activation."""
+    return x * 0.5 * (1.0 + torch.erf(x / math.sqrt(2.0)))
+
+
+def split_heads(x, num_heads):
+    """[B, T, D] -> [B, H, T, Dh]."""
+    b, t, d = x.shape
+    return x.reshape(b, t, num_heads, d // num_heads).permute(0, 2, 1, 3)
+
+
+def merge_heads(x):
+    """[B, H, T, Dh] -> [B, T, H*Dh]."""
+    b, h, t, dh = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b, t, h * dh)
+
+
+def attention_weights(q, k, mask=None, fast=False):
+    """softmax(q k^T / sqrt(d) + mask); float32 score math by default,
+    the activation dtype when fast=True.
+
+    q: [B,H,Tq,Dh], k: [B,H,Tk,Dh], mask: additive, broadcastable to
+    [B,H,Tq,Tk] (0 = attend, large negative = blocked).
+    """
+    dh = q.shape[-1]
+    acc = q.dtype if fast else torch.float32
+    scale = torch.tensor(1.0 / (dh ** 0.5), dtype=acc)  # 0-dim CPU: a scalar
+    scores = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
+    if mask is not None:
+        scores = scores + mask.to(acc)
+    return torch.softmax(scores, dim=-1)
+
+
+def qkv_project(x, attn, num_heads):
+    """Per-head q, k, v ([B,H,T,Dh] each) from an attention module's
+    `project(x) -> (q, k, v)`."""
+    return tuple(split_heads(t, num_heads) for t in attn.project(x))
+
+
+def self_attention(x, attn, num_heads, mask=None, fast=False):
+    """Multi-head self-attention: projections from `attn.project`, the
+    output map `attn.out_proj`."""
+    q, k, v = qkv_project(x, attn, num_heads)
+    probs = attention_weights(q, k, mask, fast=fast).to(v.dtype)
+    ctx = torch.matmul(probs, v)
+    return linear(merge_heads(ctx), attn.out_proj)

@@ -1,0 +1,432 @@
+"""GIT's unified [image; text] transformer decoder, the counterpart of
+`gitax.models.textual`.
+
+Parameter names follow the reference state dict (`textual.` prefix in a
+GIT checkpoint): `visual_projection.{0,1}` ('linearLn'),
+`embedding.{words,positions,layer_norm}`,
+`transformer.encoder.layer.{i}` as BERT layers
+(`attention.self.{query,key,value}`, `attention.output.{dense,LayerNorm}`,
+`intermediate.dense`, `output.{dense,LayerNorm}`), and the tied head
+`output` whose weight IS `embedding.words.weight`.
+
+Decoding uses a static KV cache (`KVCache`): memory K/V are computed once
+at prefill, stored once per batch element and broadcast over beams; the
+text K/V live in per-layer time-major `[T_max, B*K, H*2Dh]` buffers with
+k|v interleaved per head.  Unlike gitax (functional JAX), the port
+updates the text cache IN PLACE: each step writes one row per layer, and
+a `KVCache` returned by `decode_step` shares its buffers with the one
+passed in.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import torch
+from torch import nn
+
+from ..ops.decode_attention import decode_attention, quantize_memory
+from .config import GitConfig
+from .nn import (
+    LayerNorm,
+    Linear,
+    empty_param,
+    attention_weights,
+    gelu_erf,
+    layer_norm,
+    linear,
+    merge_heads,
+    qkv_project,
+)
+
+NEG_INF = -1e18  # additive-mask "blocked"; avoids inf-inf NaN edge cases
+
+
+# ---------------------------------------------------------------------------
+# modules
+# ---------------------------------------------------------------------------
+
+
+class BertSelfAttention(nn.Module):
+    def __init__(self, d, device=None, dtype=None):
+        super().__init__()
+        self.query = Linear(d, d, device=device, dtype=dtype)
+        self.key = Linear(d, d, device=device, dtype=dtype)
+        self.value = Linear(d, d, device=device, dtype=dtype)
+
+    def project(self, x):
+        return linear(x, self.query), linear(x, self.key), linear(x, self.value)
+
+
+class _DenseLN(nn.Module):
+    def __init__(self, d_in, d_out, eps, device=None, dtype=None):
+        super().__init__()
+        self.dense = Linear(d_in, d_out, device=device, dtype=dtype)
+        self.LayerNorm = LayerNorm(d_out, eps, device, dtype)
+
+
+class BertAttention(nn.Module):
+    def __init__(self, cfg: GitConfig, device=None, dtype=None):
+        super().__init__()
+        d = cfg.hidden_size
+        # the reference's submodule is named `self`
+        self.add_module("self", BertSelfAttention(d, device, dtype))
+        self.output = _DenseLN(d, d, cfg.bert_ln_eps, device, dtype)
+
+    @property
+    def qkv(self) -> BertSelfAttention:
+        return self._modules["self"]
+
+
+class BertLayer(nn.Module):
+    """Post-norm BERT layer (modeling_bert.py:269-297)."""
+
+    def __init__(self, cfg: GitConfig, device=None, dtype=None):
+        super().__init__()
+        d, f = cfg.hidden_size, cfg.feedforward_size
+        self.attention = BertAttention(cfg, device, dtype)
+        self.intermediate = nn.Module()
+        self.intermediate.dense = Linear(d, f, device=device, dtype=dtype)
+        self.output = _DenseLN(f, d, cfg.bert_ln_eps, device, dtype)
+
+    def linears(self):
+        sa = self.attention.qkv
+        return (sa.query, sa.key, sa.value, self.attention.output.dense,
+                self.intermediate.dense, self.output.dense)
+
+
+class TextualHead(nn.Module):
+    def __init__(self, cfg: GitConfig, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        d, v = cfg.hidden_size, cfg.vocab_size
+        self.visual_projection = nn.ModuleList([
+            Linear(cfg.visual_feature_size, d, device=device, dtype=dtype),
+            LayerNorm(d, cfg.projection_ln_eps, device, dtype),
+        ])
+        self.embedding = nn.Module()
+        self.embedding.words = nn.Module()
+        self.embedding.words.weight = empty_param((v, d), device, dtype)
+        self.embedding.positions = nn.Module()
+        self.embedding.positions.weight = empty_param((cfg.max_caption_length, d), device, dtype)
+        self.embedding.layer_norm = LayerNorm(d, cfg.embedding_ln_eps, device, dtype)
+        self.transformer = nn.Module()
+        self.transformer.encoder = nn.Module()
+        self.transformer.encoder.layer = nn.ModuleList(
+            BertLayer(cfg, device, dtype) for _ in range(cfg.num_layers)
+        )
+        # tied head: logits = h @ words^T + bias (decoder.py:500-505)
+        self.output = Linear(d, v, device=device, dtype=dtype)
+        self.output.weight = self.embedding.words.weight
+
+    def layers(self) -> List[BertLayer]:
+        return list(self.transformer.encoder.layer)
+
+    @torch.no_grad()
+    def init_params(self, generator):
+        """Random init with gitax's scheme: normal std 0.02 for matmul
+        weights and both embedding tables, LayerNorm ones/zeros, zero
+        biases; drawn from `generator` on the CPU."""
+        for name, p in self.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+            elif "LayerNorm" in name or "layer_norm" in name or name == "visual_projection.1.weight":
+                p.fill_(1.0)
+            else:
+                p.copy_(torch.randn(p.shape, generator=generator) * 0.02)
+
+
+# ---------------------------------------------------------------------------
+# sub-modules
+# ---------------------------------------------------------------------------
+
+
+def project_visual(tx: TextualHead, feats, cfg: GitConfig):
+    """'linearLn' projection of encoder tokens into decoder space."""
+    lin, ln = tx.visual_projection
+    return layer_norm(linear(feats, lin), ln.weight, ln.bias, cfg.projection_ln_eps)
+
+
+def embed_captions(tx: TextualHead, tokens, cfg: GitConfig, position_offset=0):
+    """Word + positional embedding with LN(eps 1e-8); tokens [B, T]."""
+    e = tx.embedding
+    t = tokens.shape[-1]
+    word = e.words.weight[tokens]
+    pos_idx = position_offset + torch.arange(t, device=tokens.device)
+    pos = e.positions.weight[pos_idx]
+    ln = e.layer_norm
+    return layer_norm(word + pos, ln.weight, ln.bias, cfg.embedding_ln_eps)
+
+
+def output_logits(tx: TextualHead, hidden, acc_dtype=None):
+    """Weight-tied output projection.  acc_dtype=float32 (the decode
+    path) keeps the products of the activation-dtype operands in f32:
+    both operands are cast up exactly, so the beam's logits are never
+    rounded to bf16.  The int8 head applies its per-vocab scale to the
+    logits."""
+    out = tx.output
+    out_dtype = acc_dtype or hidden.dtype
+    h = hidden.to(out_dtype)
+    if out.quantized:
+        logits = torch.matmul(h, out.weight_q8_t.to(out_dtype))
+        logits = logits * out.weight_scale.to(out_dtype)
+    else:
+        w = out.weight.to(hidden.dtype).to(out_dtype)
+        logits = torch.matmul(h, w.t())
+    return logits + out.bias.to(out_dtype)
+
+
+def build_unified_mask(num_memory: int, num_text: int, memory_valid=None,
+                       bi_valid_mask=None, batch: int = 1, device=None):
+    """Additive attention mask [B, 1, M+T, M+T] (decoder.py:114-146):
+    mem->mem 0, mem->text blocked, text->mem 0, text->text causal;
+    padded memory columns blocked everywhere; `bi_valid_mask` columns
+    forced open for all rows."""
+    m, t = num_memory, num_text
+    s = m + t
+    row = torch.arange(s, device=device)[:, None]
+    col = torch.arange(s, device=device)[None, :]
+    is_text_col = col >= m
+    is_text_row = row >= m
+    causal_block = (col > row) & is_text_col & is_text_row
+    mem_to_text = (~is_text_row) & is_text_col
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    blocked = torch.full((), NEG_INF, dtype=torch.float32, device=device)
+    mask = torch.where(causal_block | mem_to_text, blocked, zero)
+    mask = mask.expand(batch, s, s)
+    if memory_valid is not None:
+        col_block = torch.cat(
+            [~memory_valid, torch.zeros((batch, t), dtype=torch.bool, device=device)], 1
+        )
+        mask = mask + torch.where(col_block[:, None, :], blocked, zero)
+    if bi_valid_mask is not None:
+        tv = bi_valid_mask.shape[1]
+        open_cols = torch.cat([
+            torch.zeros((batch, m), dtype=torch.bool, device=device),
+            bi_valid_mask,
+            torch.zeros((batch, t - tv), dtype=torch.bool, device=device),
+        ], 1)
+        mask = torch.where(open_cols[:, None, :], zero, mask)
+    return mask[:, None, :, :]
+
+
+def _attn_tail(xcur, ctx_merged, layer: BertLayer, cfg: GitConfig):
+    """Out-projection + residual post-norm + MLP + residual post-norm;
+    the one home of this sequence for the full forward, the prefill and
+    both decode-step paths."""
+    ln1 = layer.attention.output.LayerNorm
+    attn_out = linear(ctx_merged, layer.attention.output.dense)
+    x = layer_norm(attn_out + xcur, ln1.weight, ln1.bias, cfg.bert_ln_eps)
+    inter = gelu_erf(linear(x, layer.intermediate.dense))
+    ln2 = layer.output.LayerNorm
+    return layer_norm(linear(inter, layer.output.dense) + x, ln2.weight, ln2.bias,
+                      cfg.bert_ln_eps)
+
+
+def _bert_layer(x, layer: BertLayer, cfg: GitConfig, mask, fast=False):
+    q, k, v = qkv_project(x, layer.attention.qkv, cfg.num_heads)
+    probs = attention_weights(q, k, mask, fast=fast).to(v.dtype)
+    ctx = torch.matmul(probs, v)
+    return _attn_tail(x, merge_heads(ctx), layer, cfg), (q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# full (parity) forward
+# ---------------------------------------------------------------------------
+
+
+def textual_forward(tx: TextualHead, visual_features, caption_tokens, cfg: GitConfig,
+                    memory_valid=None, bi_valid_mask=None, dtype=torch.float32,
+                    fast=False):
+    """Full unified forward -> logits [B, T, vocab]."""
+    b, t = caption_tokens.shape
+    text = embed_captions(tx, caption_tokens, cfg).to(dtype)
+    if visual_features is not None:
+        mem = project_visual(tx, visual_features.to(dtype), cfg)
+        m = mem.shape[1]
+        x = torch.cat([mem, text], 1)
+    else:
+        m = 0
+        x = text
+    mask = build_unified_mask(m, t, memory_valid, bi_valid_mask, batch=b,
+                              device=x.device)
+    for layer in tx.layers():
+        x, _ = _bert_layer(x, layer, cfg, mask, fast=fast)
+    return output_logits(tx, x[:, m:])
+
+
+# ---------------------------------------------------------------------------
+# incremental decode: prefill + step with a static KV cache
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Decode state.
+
+    mem_kv: per-layer [B, H, M, 2Dh] memory k|v interleaved per head,
+      stored once per batch element (beams share it); the activation
+      dtype, or int8 with per-layer `mem_scale` [B, H, 2] f32 k|v scales.
+      Both decode paths read this one layout.
+    txt_kv: per-layer [T_max, B*beams, H*2Dh] text k|v, time-major,
+      updated in place one row per step.
+    length: number of text positions already cached (the next position).
+    mem_bias: [B, M] f32 additive memory bias (0 valid / NEG_INF padded),
+      built once at prefill from memory_valid; None when all are valid.
+    anc: [B*beams, T_max] int32 beam ancestry, or None: slot t of beam k
+      lives in cache row b*K + anc[b*K+k, t].  With it, beam search never
+      reorders the cache.
+    """
+
+    mem_kv: list
+    txt_kv: list
+    length: int
+    mem_bias: Optional[torch.Tensor] = None
+    mem_scale: Optional[list] = None
+    anc: Optional[torch.Tensor] = None
+
+    @property
+    def max_text_len(self):
+        return self.txt_kv[0].shape[0]
+
+    @property
+    def num_layers(self):
+        return len(self.txt_kv)
+
+    @property
+    def batch(self):
+        return self.mem_kv[0].shape[0]
+
+
+def prefill(tx: TextualHead, visual_features, prefix_tokens, cfg: GitConfig,
+            max_text_len: int, memory_valid=None, dtype=torch.float32, fast=False,
+            kernel_memory=False):
+    """Run [memory; prefix] once; return last-position f32 logits and a
+    cache ready for single-token steps.  fast=True keeps the attention
+    score math in the activation dtype.  kernel_memory='int8' stores the
+    memory k|v as int8 with per-(batch, head) scales, read only by the
+    decode-attention kernel path; any other value keeps the activation
+    dtype."""
+    b, tp = prefix_tokens.shape
+    mem = project_visual(tx, visual_features.to(dtype), cfg)
+    m = mem.shape[1]
+    text = embed_captions(tx, prefix_tokens, cfg).to(dtype)
+    x = torch.cat([mem, text], 1)
+    mask = build_unified_mask(m, tp, memory_valid, batch=b, device=x.device)
+    h, dh = cfg.num_heads, cfg.head_dim
+    if max_text_len < tp:
+        raise ValueError("prefix of {} tokens exceeds max_text_len {}".format(tp, max_text_len))
+    mem_kv, mem_scale, txt_kv = [], [], []
+    for layer in tx.layers():
+        x, (_, k, v) = _bert_layer(x, layer, cfg, mask, fast=fast)
+        tkv = torch.cat([k[:, :, m:], v[:, :, m:]], -1).permute(2, 0, 1, 3)
+        buf = torch.zeros((max_text_len, b, h * 2 * dh), dtype=dtype, device=x.device)
+        buf[:tp] = tkv.reshape(tp, b, h * 2 * dh)
+        txt_kv.append(buf)
+        kv_mem = torch.cat([k[:, :, :m], v[:, :, :m]], -1)
+        if kernel_memory == "int8":
+            q8, scale = quantize_memory(kv_mem)
+            mem_kv.append(q8)
+            mem_scale.append(scale)
+        else:
+            mem_kv.append(kv_mem)
+    logits = output_logits(tx, x[:, m + tp - 1], acc_dtype=torch.float32)
+    mem_bias = None
+    if memory_valid is not None:
+        mem_bias = torch.where(memory_valid, 0.0, NEG_INF).float()
+    cache = KVCache(
+        mem_kv=mem_kv, txt_kv=txt_kv, length=tp, mem_bias=mem_bias, mem_scale=mem_scale if kernel_memory == "int8" else None,
+    )
+    return logits, cache
+
+
+def decode_step(tx: TextualHead, tokens, cache: KVCache, cfg: GitConfig,
+                dtype=torch.float32, kernel=False):
+    """One incremental step: tokens [B*beams] at text position
+    cache.length.  Returns (f32 logits [B*beams, vocab], the cache with
+    length+1); the text cache is updated in place.
+
+    kernel=True routes each layer's attention through
+    `ops.decode_attention.decode_attention`: the CUDA kernel for CUDA
+    tensors, its plain version for CPU tensors.  A cache without an
+    ancestry table (a prefill not tiled for beam search) gets the
+    identity ancestry, each row reading its own slots, which is what the
+    plain path reads then.  kernel=False takes the plain path below
+    (gitax textual.py:618-675), which scores against all beam rows and
+    selects through the ancestry one-hot.  Score math is f32 in both; in
+    f32 they agree to rounding, in bf16 the kernel sums both contexts in
+    f32 before one cast."""
+    bk = tokens.shape[0]
+    b = cache.batch
+    beams = bk // b
+    if beams * b != bk:
+        raise ValueError("{} tokens for a batch of {}".format(bk, b))
+    pos = cache.length
+    x = embed_captions(tx, tokens[:, None], cfg, position_offset=pos).to(dtype)
+    h, dh = cfg.num_heads, cfg.head_dim
+    t_max = cache.max_text_len
+    # a 0-dim CPU tensor acts as a scalar in device ops: no upload per step
+    scale = (1.0 / torch.sqrt(torch.tensor(float(dh)))).to(dtype)
+    if cache.mem_scale is not None and not kernel:
+        raise ValueError("int8 memory is read only by the decode-attention kernel path")
+
+    if kernel:
+        anc = cache.anc
+        if anc is None:
+            anc = (torch.arange(bk, dtype=torch.int32, device=x.device) % beams)[:, None]
+            anc = anc.expand(bk, t_max).contiguous()
+
+        def attend(xcur, layer, mem_kv, mem_scale, txt_kv):
+            q, k_new, v_new = qkv_project(xcur, layer.attention.qkv, h)
+            qs = (q[:, :, 0] * scale).reshape(bk, h * dh)
+            kvn = torch.cat([k_new[:, :, 0], v_new[:, :, 0]], -1).reshape(bk, h * 2 * dh)
+            ctx = decode_attention(
+                qs, kvn, txt_kv, anc, pos, mem_kv, cache.mem_bias, mem_scale,
+                beams=beams, num_heads=h, head_dim=dh,
+            )
+            return ctx.reshape(bk, 1, h * dh)
+    else:
+        txt_bias = torch.where(
+            torch.arange(t_max, device=x.device) <= pos, 0.0, NEG_INF
+        ).float()
+        anc_onehot = None
+        if cache.anc is not None:
+            anc_onehot = nn.functional.one_hot(
+                cache.anc.long().reshape(b, beams, t_max), beams
+            ).float()
+
+        def attend(xcur, layer, mem_kv, mem_scale, txt_kv):
+            q, k_new, v_new = qkv_project(xcur, layer.attention.qkv, h)
+            new_row = torch.cat([k_new, v_new], -1).permute(2, 0, 1, 3)
+            txt_kv[pos] = new_row.reshape(bk, h * 2 * dh)
+            qb = (q[:, :, 0] * scale).reshape(b, beams, h, dh).float()
+            m = mem_kv.shape[2]
+            mem_scores = torch.einsum("bkhd,bhmd->bkhm", qb, mem_kv[..., :dh].float())
+            if cache.mem_bias is not None:
+                mem_scores = mem_scores + cache.mem_bias[:, None, None, :]
+            kvb = txt_kv.reshape(t_max, b, beams, h, 2 * dh)
+            txt_kb, txt_vb = kvb[..., :dh], kvb[..., dh:]
+            if anc_onehot is None:
+                txt_scores = torch.einsum("bkhd,tbkhd->bkht", qb, txt_kb.float())
+            else:
+                scores_all = torch.einsum("bkhd,tbjhd->bkjht", qb, txt_kb.float())
+                txt_scores = torch.einsum("bkjht,bktj->bkht", scores_all, anc_onehot)
+            txt_scores = txt_scores + txt_bias
+            scores = torch.cat([mem_scores, txt_scores], -1)
+            probs = torch.softmax(scores, -1).to(xcur.dtype)
+            ctx_mem = torch.einsum("bkhm,bhmd->bkhd", probs[..., :m], mem_kv[..., dh:])
+            if anc_onehot is None:
+                ctx_txt = torch.einsum("bkht,tbkhd->bkhd", probs[..., m:], txt_vb)
+            else:
+                pe = torch.einsum("bkht,bktj->bkjht", probs[..., m:],
+                                  anc_onehot.to(xcur.dtype))
+                ctx_txt = torch.einsum("bkjht,tbjhd->bkhd", pe, txt_vb)
+            return (ctx_mem + ctx_txt).reshape(bk, 1, h * dh)
+
+    mem_scale = cache.mem_scale or [None] * cache.num_layers
+    for li, layer in enumerate(tx.layers()):
+        ctx = attend(x, layer, cache.mem_kv[li], mem_scale[li], cache.txt_kv[li])
+        x = _attn_tail(x, ctx, layer, cfg)
+    logits = output_logits(tx, x[:, 0], acc_dtype=torch.float32)
+    return logits, dataclasses.replace(cache, length=pos + 1)

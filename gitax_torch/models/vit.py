@@ -1,0 +1,132 @@
+"""CLIP-style ViT image encoder, the counterpart of `gitax.models.vit`.
+
+Parameter names follow the reference VisualTransformer
+(CLIP/model.py:215-274): `conv1.weight`, `class_embedding`,
+`positional_embedding`, `ln_pre`, `transformer.resblocks.{i}` with
+`ln_1`, `attn.in_proj_weight`, `attn.out_proj`, `ln_2`, `mlp.c_fc`,
+`mlp.c_proj`, and `ln_post`.
+
+`vit_forward` patchifies by space-to-depth and one matmul, not a conv, so
+cuDNN's TF32 default never applies; pre-norm blocks with QuickGELU;
+`ln_post` over ALL tokens (GIT's output_grid mode).  Only the square
+grid of the configured resolution is ported: the positional-embedding
+interpolation for other grids is later work and raises here.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .config import ViTConfig
+from .nn import LayerNorm, Linear, empty_param, linear, quick_gelu, self_attention
+
+
+class MultiheadSelfAttention(nn.Module):
+    """Fused-qkv self-attention parameters, named as torch's
+    nn.MultiheadAttention (`in_proj_weight [3D, D]`, `in_proj_bias`,
+    `out_proj`)."""
+
+    def __init__(self, width, device=None, dtype=None):
+        super().__init__()
+        self.in_proj_weight = empty_param((3 * width, width), device, dtype)
+        self.in_proj_bias = empty_param((3 * width,), device, dtype)
+        self.out_proj = Linear(width, width, device=device, dtype=dtype)
+
+    def project(self, x):
+        qkv = F.linear(x, self.in_proj_weight.to(x.dtype)) + self.in_proj_bias.to(x.dtype)
+        return qkv.chunk(3, dim=-1)
+
+
+class Mlp(nn.Module):
+    def __init__(self, width, device=None, dtype=None):
+        super().__init__()
+        self.c_fc = Linear(width, 4 * width, device=device, dtype=dtype)
+        self.c_proj = Linear(4 * width, width, device=device, dtype=dtype)
+
+
+class ResidualAttentionBlock(nn.Module):
+    def __init__(self, cfg: ViTConfig, device=None, dtype=None):
+        super().__init__()
+        w = cfg.width
+        self.ln_1 = LayerNorm(w, cfg.ln_eps, device, dtype)
+        self.attn = MultiheadSelfAttention(w, device, dtype)
+        self.ln_2 = LayerNorm(w, cfg.ln_eps, device, dtype)
+        self.mlp = Mlp(w, device, dtype)
+
+
+class Transformer(nn.Module):
+    def __init__(self, cfg: ViTConfig, device=None, dtype=None):
+        super().__init__()
+        self.resblocks = nn.ModuleList(
+            ResidualAttentionBlock(cfg, device, dtype) for _ in range(cfg.layers)
+        )
+
+
+class VisualTransformer(nn.Module):
+    def __init__(self, cfg: ViTConfig, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        w, p = cfg.width, cfg.patch_size
+        self.conv1 = nn.Module()
+        self.conv1.weight = empty_param((w, 3, p, p), device, dtype)
+        self.class_embedding = empty_param((w,), device, dtype)
+        self.positional_embedding = empty_param((cfg.num_tokens, w), device, dtype)
+        self.ln_pre = LayerNorm(w, cfg.ln_eps, device, dtype)
+        self.transformer = Transformer(cfg, device, dtype)
+        self.ln_post = LayerNorm(w, cfg.ln_eps, device, dtype)
+
+    @torch.no_grad()
+    def init_params(self, generator):
+        """Random init with gitax's scheme (normal std 0.02 for matmul
+        weights, width**-0.5 for the embeddings, LayerNorm ones/zeros,
+        zero biases), drawn from `generator` on the CPU."""
+        scale = self.cfg.width ** -0.5
+        for name, p in self.named_parameters():
+            if name in ("class_embedding", "positional_embedding"):
+                std = scale
+            elif name.endswith("bias") or ".ln_" in name or name.startswith("ln_"):
+                p.fill_(0.0 if name.endswith("bias") else 1.0)
+                continue
+            else:
+                std = 0.02
+            p.copy_(torch.randn(p.shape, generator=generator) * std)
+
+
+def _block(x, blk: ResidualAttentionBlock, num_heads, fast):
+    h1 = blk.ln_1(x)
+    x = x + self_attention(h1, blk.attn, num_heads, fast=fast)
+    h = blk.ln_2(x)
+    h = linear(quick_gelu(linear(h, blk.mlp.c_fc)), blk.mlp.c_proj)
+    return x + h
+
+
+def vit_forward(vit: VisualTransformer, images, dtype=torch.float32, fast=None):
+    """images [B, H, W, 3] (NHWC, normalized) -> tokens [B, 1+g*g, width]."""
+    cfg = vit.cfg
+    if fast is None:
+        fast = cfg.fast_softmax
+    b, h, w, c = images.shape
+    p = cfg.patch_size
+    if (h, w) != (cfg.input_resolution, cfg.input_resolution):
+        raise NotImplementedError(
+            "only the configured square {0}x{0} grid is ported, got {1}x{2}".format(
+                cfg.input_resolution, h, w
+            )
+        )
+    gh, gw = h // p, w // p
+    x = images.to(dtype)
+    # space-to-depth patchify: [B, gh, gw, P*P*3] then one matmul with the
+    # conv weight laid out as [P*P*3, width] (the (kh, kw, c) order)
+    x = x.reshape(b, gh, p, gw, p, c).permute(0, 1, 3, 2, 4, 5)
+    x = x.reshape(b, gh * gw, p * p * c)
+    kernel = vit.conv1.weight.permute(2, 3, 1, 0).reshape(p * p * c, cfg.width)
+    x = torch.matmul(x, kernel.to(dtype))
+    cls = vit.class_embedding.to(dtype).expand(b, 1, cfg.width)
+    x = torch.cat([cls, x], dim=1)
+    x = x + vit.positional_embedding.to(dtype)
+    x = vit.ln_pre(x)
+    for blk in vit.transformer.resblocks:
+        x = _block(x, blk, cfg.heads, fast)
+    return vit.ln_post(x)

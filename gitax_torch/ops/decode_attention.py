@@ -1,0 +1,190 @@
+"""Decode-step attention: one decoder layer's attention for one beam step.
+
+Replaces the TPU kernel `gitax/ops/decode_attention.py::_kernel` with a
+CUDA kernel written for Hopper (`gitax_torch/csrc/decode_attention.cu`,
+which carries the design note: what it computes, its bound on the H100
+and what the design does about it).  Beside it, `decode_attention_reference`
+is the plain PyTorch version of the same function.
+
+`decode_attention` is the public entry: for CPU tensors it runs the plain
+version; for CUDA tensors it launches the kernel or raises.  There is no
+fallback.  `decode_attention.launches` counts kernel launches.
+
+Layouts are gitax's at the public function:
+  q        [BK, H*Dh]      pre-scaled queries (no zero extension)
+  kv_new   [BK, H*2Dh]     the step's k|v rows, interleaved per head
+  txt_kv   [T, BK, H*2Dh]  time-major text cache, updated IN PLACE at pos
+  anc      [BK, T] int32   beam ancestry: slot t of beam k reads row
+                           b*K + anc[b*K+k, t]
+  mem_kv   [B, H, M, 2Dh]  memory k|v shared by a batch element's beams;
+                           the activation dtype, or int8 with
+  mem_scale [B, H, 2] f32  per-(batch, head) k and v scales
+  mem_bias [B, M] f32      additive memory bias, or None
+Returns ctx [BK, H*Dh] in the activation dtype.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import cuda_build
+
+NEG_INF = -1e30
+
+# the smem per block a kernel launch may take on sm_90 (227 KB)
+_MAX_SMEM = 232448
+
+
+def decode_attention_reference(q, kv_new, txt_kv, anc, pos, mem_kv,
+                               mem_bias=None, mem_scale=None, *, beams,
+                               num_heads, head_dim):
+    """Plain PyTorch version with the kernel's numerics: f32 scores, one
+    f32 softmax over [memory ; live text], probabilities rounded to the
+    activation dtype, both contexts summed in f32 and cast once.  Writes
+    kv_new into txt_kv[pos] in place."""
+    t_max, bk, _ = txt_kv.shape
+    b, k, h, dh = bk // beams, beams, num_heads, head_dim
+    dt = q.dtype
+    txt_kv[pos] = kv_new
+    qf = q.float().reshape(b, k, h, dh)
+    if mem_kv.dtype == torch.int8:
+        scale = mem_scale.to(dt)  # [B, H, 2]
+        scl = torch.cat(
+            [scale[..., :1].expand(b, h, dh), scale[..., 1:].expand(b, h, dh)], -1
+        )
+        mem = (mem_kv.to(dt) * scl[:, :, None, :]).float()
+    else:
+        mem = mem_kv.float()
+    m = mem.shape[2]
+    mem_s = torch.einsum("bkhd,bhmd->bkhm", qf, mem[..., :dh])
+    if mem_bias is not None:
+        mem_s = mem_s + mem_bias.float()[:, None, None, :]
+    # the ancestry-selected text rows: sel[b, k, t] = cache[t, b*K + anc]
+    dev = txt_kv.device
+    rows = (torch.arange(b, device=dev)[:, None, None] * k
+            + anc.long().reshape(b, k, t_max))
+    sel = txt_kv[torch.arange(t_max, device=dev)[None, None, :], rows]
+    sel = sel.reshape(b, k, t_max, h, 2 * dh).float()
+    txt_s = torch.einsum("bkhd,bkthd->bkht", qf, sel[..., :dh])
+    live = torch.arange(t_max, device=dev) <= pos
+    txt_s = txt_s.masked_fill(~live, NEG_INF)
+    scores = torch.cat([mem_s, txt_s], -1)
+    e = torch.exp(scores - scores.amax(-1, keepdim=True))
+    p = (e * (1.0 / e.sum(-1, keepdim=True))).to(dt).float()
+    ctx = torch.einsum("bkhm,bhmd->bkhd", p[..., :m], mem[..., dh:])
+    ctx = ctx + torch.einsum("bkht,bkthd->bkhd", p[..., m:], sel[..., dh:])
+    return ctx.to(dt).reshape(bk, h * dh)
+
+
+def smem_bytes(beams, head_dim, mem_len, t_max):
+    """Shared memory one block of the kernel takes: f32 queries [K, Dh]
+    and scores [K, M+T], int32 cache rows [K, T].  The same formula as
+    the C side's `gitax_decode_attention_smem`."""
+    return 4 * (beams * head_dim + beams * (mem_len + t_max)) + 4 * beams * t_max
+
+
+# (launch function, largest head_dim), bound at the first launch
+_KERNEL = None
+
+
+def _bind():
+    global _KERNEL
+    if _KERNEL is None:
+        lib = cuda_build.load("decode_attention")
+        fn = lib.gitax_decode_attention
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.gitax_decode_attention_max_head_dim.restype = ctypes.c_int
+        _KERNEL = (fn, lib.gitax_decode_attention_max_head_dim())
+    return _KERNEL
+
+
+def _check(cond, msg):
+    if not cond:
+        raise ValueError("decode_attention: " + msg)
+
+
+def decode_attention_cuda(q, kv_new, txt_kv, anc, pos, mem_kv, mem_bias=None,
+                          mem_scale=None, *, beams, num_heads, head_dim):
+    """Launch the CUDA kernel on PyTorch's current stream.  Validates
+    device, dtypes, shapes and contiguity and raises on anything the
+    kernel does not take."""
+    t_max, bk, width = txt_kv.shape
+    k, h, dh = beams, num_heads, head_dim
+    _check(bk % k == 0, "B*K={} rows do not split into beams={}".format(bk, k))
+    b = bk // k
+    tensors = dict(q=q, kv_new=kv_new, txt_kv=txt_kv, anc=anc, mem_kv=mem_kv,
+                   mem_bias=mem_bias, mem_scale=mem_scale)
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        _check(t.is_cuda and t.device == txt_kv.device,
+               "{} must be on the CUDA device of txt_kv, got {}".format(name, t.device))
+        _check(t.is_contiguous(), "{} must be contiguous".format(name))
+    dt = txt_kv.dtype
+    _check(dt in (torch.float32, torch.bfloat16),
+           "activations must be float32 or bfloat16, got {}".format(dt))
+    _check(q.dtype == dt and kv_new.dtype == dt, "q, kv_new and txt_kv dtypes differ")
+    _check(width == h * 2 * dh, "txt_kv width {} != H*2Dh".format(width))
+    _check(tuple(q.shape) == (bk, h * dh), "q shape {}".format(tuple(q.shape)))
+    _check(tuple(kv_new.shape) == (bk, width), "kv_new shape {}".format(tuple(kv_new.shape)))
+    _check(anc.dtype == torch.int32 and tuple(anc.shape) == (bk, t_max),
+           "anc must be int32 [BK, T]")
+    _check(mem_kv.dim() == 4 and tuple(mem_kv.shape[:2]) == (b, h)
+           and mem_kv.shape[3] == 2 * dh, "mem_kv shape {}".format(tuple(mem_kv.shape)))
+    m = mem_kv.shape[2]
+    mem_int8 = mem_kv.dtype == torch.int8
+    if mem_int8:
+        _check(mem_scale is not None and mem_scale.dtype == torch.float32
+               and tuple(mem_scale.shape) == (b, h, 2), "int8 mem_kv needs f32 mem_scale [B, H, 2]")
+    else:
+        _check(mem_kv.dtype == dt, "mem_kv dtype {} != activations".format(mem_kv.dtype))
+    if mem_bias is not None:
+        _check(mem_bias.dtype == torch.float32 and tuple(mem_bias.shape) == (b, m),
+               "mem_bias must be f32 [B, M]")
+    _check(0 <= pos < t_max, "pos {} outside [0, {})".format(pos, t_max))
+    launch, max_dh = _bind()
+    _check(dh <= max_dh, "head_dim {} too large".format(dh))
+    smem = smem_bytes(k, dh, m, t_max)
+    _check(smem <= _MAX_SMEM, "needs {} bytes of shared memory per block".format(smem))
+
+    ctx = torch.empty((bk, h * dh), dtype=dt, device=txt_kv.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = launch(
+        ptr(q), ptr(kv_new), ptr(txt_kv), ptr(anc), ptr(mem_kv), ptr(mem_bias),
+        ptr(mem_scale), ptr(ctx), b, k, h, dh, m, t_max, int(pos),
+        int(dt == torch.bfloat16), int(mem_int8),
+        torch.cuda.current_stream(txt_kv.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError("decode_attention kernel launch failed: cudaError {}".format(rc))
+    decode_attention.launches += 1
+    return ctx
+
+
+def decode_attention(q, kv_new, txt_kv, anc, pos, mem_kv, mem_bias=None,
+                     mem_scale=None, *, beams, num_heads, head_dim):
+    """Fused decode attention (see the module docstring).  CPU tensors
+    run the plain version; CUDA tensors launch the kernel."""
+    fn = decode_attention_cuda if txt_kv.is_cuda else decode_attention_reference
+    return fn(q, kv_new, txt_kv, anc, pos, mem_kv, mem_bias, mem_scale,
+              beams=beams, num_heads=num_heads, head_dim=head_dim)
+
+
+decode_attention.launches = 0
+
+
+def quantize_memory(mem_kv):
+    """[B, H, M, 2Dh] float memory k|v -> (int8 values, [B, H, 2] f32
+    per-(batch, head) scales for the k and v halves); gitax's rule."""
+    dh = mem_kv.shape[-1] // 2
+    x = mem_kv.float()
+    kk, vv = x[..., :dh], x[..., dh:]
+    sk = torch.clamp(kk.abs().amax(dim=(2, 3)), min=1e-12) / 127.0
+    sv = torch.clamp(vv.abs().amax(dim=(2, 3)), min=1e-12) / 127.0
+    qk = torch.clamp(torch.round(kk / sk[:, :, None, None]), -127, 127)
+    qv = torch.clamp(torch.round(vv / sv[:, :, None, None]), -127, 127)
+    q = torch.cat([qk, qv], dim=-1).to(torch.int8)
+    return q, torch.stack([sk, sv], dim=-1)

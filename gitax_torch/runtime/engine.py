@@ -1,0 +1,124 @@
+"""Batched caption engine, the counterpart of the batch-serving part of
+`gitax.runtime.pipeline.CaptionEngine`.
+
+Ported: the constructor's int8 / fast-prefill / decode-kernel rules, the
+per-prefix-length beam settings (`_caption_fn`), uint8 upload with
+normalization on the device, `dispatch_device_batch`, `_dispatch_batch`,
+`generate_batch` and `resolve`.  The TSV loops, JPEG decode, VQA
+buckets, variable-resolution batches, float image input and the device
+mesh are later work.  Detokenization takes a
+`gitax_torch.tokenization.BertTokenizer`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..decode.beam import BeamSearchConfig
+from ..models.git import GitModel
+from ..ops.quant import quantize_git_model_
+
+# CLIP's normalization constants (the reference's image transform)
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+class CaptionEngine(object):
+    """Batched captioning around a port GitModel, whose parameters set the
+    device.  `dispatch` runs the search batch by batch and returns a
+    handle to the device sequences; `resolve` copies them to the host and
+    detokenizes.  (The beam loop reads the host once per step, so
+    `dispatch` returns when the device is nearly done.)"""
+
+    def __init__(self, model: GitModel, tokenizer, batch_size: int = 32,
+                 beam: Optional[BeamSearchConfig] = None, dtype=torch.bfloat16,
+                 max_text_len: int = 40, int8: bool = False,
+                 fast_prefill: Optional[bool] = None, decode_kernel=None):
+        if int8:
+            # weight-only int8 decoder and head matmuls (ops/quant.py); the
+            # model is quantized in place
+            quantize_git_model_(model)
+        self.model = model
+        # bf16 prefill score math rides with int8 (both trade exactness);
+        # pass fast_prefill=True with a model quantized beforehand
+        self._fast_prefill = bool(int8) if fast_prefill is None else bool(fast_prefill)
+        # the decode-attention kernel path is the default: the CUDA kernel
+        # on a CUDA device, its plain version on the CPU
+        self._decode_kernel = True if decode_kernel is None else decode_kernel
+        self.device = model.textual.output.bias.device
+        self.tokenizer = tokenizer
+        self.batch_size = batch_size
+        self.beam = beam or BeamSearchConfig(num_beams=4, max_steps=40)
+        self.dtype = dtype
+        self.max_text_len = max_text_len
+        self.mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=self.device)
+        self.std = torch.tensor(CLIP_STD, dtype=torch.float32, device=self.device)
+
+    def _caption_fn(self, prefix_len: int):
+        """The batch program for a prefix length: the beam buffer holds
+        the prefix plus max_text_len tokens; the length norm keeps the
+        reference's 1024 for is_done parity."""
+        beam = dataclasses.replace(
+            self.beam,
+            max_steps=max(self.beam.max_steps, prefix_len + self.max_text_len),
+            norm_max_length=self.beam.norm_max_length or max(self.beam.max_steps, 1024),
+        )
+        dtype = self.dtype
+
+        def fn(images, prefix):
+            x = images.to(dtype) / 255.0
+            images = (x - self.mean.to(dtype)) / self.std.to(dtype)
+            return self.model.generate(
+                images, prefix, beam=beam, dtype=dtype,
+                fast_prefill=self._fast_prefill, decode_kernel=self._decode_kernel,
+            )
+
+        return fn
+
+    def dispatch_device_batch(self, imgs: np.ndarray, pref: np.ndarray):
+        """Upload ONE same-shape batch ([B,H,W,3] uint8, normalized on the
+        device) with prefixes [B,Tp] and run the search.  Returns the
+        device sequences [B, L]."""
+        if imgs.dtype != np.uint8:
+            raise ValueError("images must be uint8 HWC, got {}".format(imgs.dtype))
+        pref = torch.from_numpy(np.asarray(pref, np.int64)).to(self.device)
+        fn = self._caption_fn(pref.shape[1])
+        seqs, _ = fn(torch.from_numpy(imgs).to(self.device), pref)
+        return seqs
+
+    def _dispatch_batch(self, images: List[np.ndarray], prefixes: List[List[int]]):
+        """Same-shape images -> list of device sequence tensors covering
+        >= len(images) rows (the tail batch is padded with its last
+        image)."""
+        n = len(images)
+        if n == 0:
+            raise ValueError("no images")
+        b = self.batch_size
+        tp = len(prefixes[0])
+        if any(len(p) != tp for p in prefixes):
+            raise ValueError("prefixes of one dispatch must have one length")
+        pad_n = (-n) % b
+        imgs = np.stack(images + [images[-1]] * pad_n)
+        pref = np.asarray(prefixes + [prefixes[-1]] * pad_n, np.int64)
+        return [self.dispatch_device_batch(imgs[i:i + b], pref[i:i + b])
+                for i in range(0, len(imgs), b)]
+
+    def dispatch(self, images: List[np.ndarray], prefixes: List[List[int]]):
+        """Run generation; returns a handle for `resolve`."""
+        return len(images), self._dispatch_batch(images, prefixes)
+
+    def resolve(self, handle):
+        """Wait for a dispatched handle and detokenize its rows."""
+        n, seqs = handle
+        arr = torch.cat([s.cpu() for s in seqs], dim=0)[:n].numpy()
+        return [self.tokenizer.decode(row.tolist(), skip_special_tokens=True)
+                for row in arr]
+
+    def generate_batch(self, images: List[np.ndarray], prefixes: List[List[int]]):
+        """images: list of same-shape HWC arrays; prefixes: token lists of
+        one length.  Returns the decoded strings."""
+        return self.resolve(self.dispatch(images, prefixes))
