@@ -6,21 +6,39 @@
 Phases, each of which fails the run (non-zero exit) if it fails:
   1. device: the card's name and power limit; TF32 off for the parity
      phases;
-  2. build: the decode-attention CUDA kernel from gitax_torch/csrc;
-  3. kernel against its plain PyTorch version at the main path's shapes
-     (GIT_LARGE beam-4, B=32: K=4, H=12, Dh=64, M=257, T=41), f32, bf16
-     and int8 memory, and the time per call of both;
-  4. the slice: GIT_LARGE_COCO at full width with random EOS-gated
+  2. build: both CUDA kernels from gitax_torch/csrc (one nvcc each, in
+     parallel), their compile reports, and the wrappers' shared-memory
+     formulas against the C side's;
+  3. decode attention against its plain PyTorch version at the COCO
+     path's shapes (GIT_LARGE beam-4, B=32: K=4, H=12, Dh=64, M=257,
+     T=41), f32, bf16 and int8 memory, and the time per call of both;
+  4. fused attention against its plain version at the VQA path's shapes
+     (encoder B=32 H=16 S 901/1201; prefill B=32 H=12 M=1201 Tp 1/12; a
+     video-length M=1542), f32 and bf16; its time per call beside the
+     plain version's and beside the encoder's fast bf16 path (the A/B of
+     the S >= 640 gate, at S 257/901/1201);
+  5. the COCO slice: GIT_LARGE_COCO at full width with random EOS-gated
      weights through the port's CaptionEngine (bf16, weight-only int8,
      fast prefill, fast encoder softmax, beam 4) on 3 batches of 32
-     random 224x224 images, counting kernel launches;
-  5. f32 parity: the same f32 weights decoded through the kernel path
-     and the plain path give identical tokens.
+     random 224x224 images, counting kernel launches (S=257: the fused
+     attention stays off);
+  6. COCO f32 parity: the decode kernel path and the plain path give
+     identical tokens;
+  7. the VQA slice: GIT_LARGE_VQAv2 at full width and depth through the
+     same engine: 128 (image, question) pairs, uint8 images MinMax-sized
+     from 1:1, 4:3, 3:4 and 16:9 sources (grids 30x30, 30x40, 40x30,
+     22x40), two question lengths, each through `generate_varshape`;
+     pairs/s, encode, prefill and beam-step times, and both kernels'
+     launches against the batches and steps;
+  8. VQA f32 parity: the encoder and the prefill with the fused
+     attention against without it, then beam search from each side with
+     the decode kernel on and off: identical tokens.
 Prints one JSON line describing the kernels, then, last, the JSON line
 {"ok": true, "device": {...}}.  Imports nothing of JAX and nothing of
 the gitax package.
 """
 
+import collections
 import ctypes
 import json
 import os
@@ -29,11 +47,25 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SRC = "gitax_torch/csrc/decode_attention.cu"
-KERNEL_REPLACES = "gitax/ops/decode_attention.py:147"
+KERNELS = {
+    "decode_attention": ("gitax_torch/csrc/decode_attention.cu",
+                         "gitax/ops/decode_attention.py:147"),
+    "flash_attention": ("gitax_torch/csrc/flash_attention.cu",
+                        "gitax/ops/flash_attention.py:88"),
+}
 
-# main-path shapes of the decode-attention call (GIT_LARGE_COCO, B=32)
+# COCO path shapes of the decode-attention call (GIT_LARGE_COCO, B=32)
 B, K, H, DH, M, T = 32, 4, 12, 64, 257, 41
+# VQA path: the encoder's heads, the longest grid's sequence, the prefill
+# shape of the long question bucket
+ENC_H, ENC_S, PRE_M, PRE_TP = 16, 1201, 1201, 12
+VQA_QUESTIONS = ("what is in the picture?",  # [CLS] + 6 tokens
+                 "what color is the shirt of the man on the left side?")  # [CLS] + 13
+VQA_WORDS = ["what", "is", "in", "the", "picture", "color", "shirt", "of", "man",
+             "on", "left", "side"]
+# MinMax sources (w, h) -> (question, grid): 30x30, 22x40 (315x560 cut to
+# 308x560), 30x40, 40x30 at GIT_LARGE_VQAv2's 420/560
+VQA_SOURCES = (((500, 500), 0), ((1920, 1080), 0), ((640, 480), 1), ((480, 640), 1))
 
 
 def check(cond, msg):
@@ -69,8 +101,77 @@ def cuda_time_ms(fn, iters, warmup=10):
     return start.elapsed_time(end) / iters
 
 
-def phase_kernel(card):
-    """Kernel against the plain version on the same inputs."""
+def in_turns(plain, kernel, plain_iters, kernel_iters, warmup=10):
+    """Times per call, plain/kernel/kernel/plain; (plain ms, kernel ms,
+    the four readings)."""
+    t = [cuda_time_ms(plain, plain_iters, warmup), cuda_time_ms(kernel, kernel_iters, warmup),
+         cuda_time_ms(kernel, kernel_iters, warmup), cuda_time_ms(plain, plain_iters, warmup)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
+class DeviceSpans(object):
+    """Records CUDA events around every call of a model method until
+    `remove`; `ms()` gives each call's device span."""
+
+    def __init__(self, model, name):
+        import torch
+
+        self.model, self.name, self.events = model, name, []
+        orig = getattr(model, name)
+
+        def timed(*a, **kw):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = orig(*a, **kw)
+            e.record()
+            self.events.append((s, e))
+            return out
+
+        setattr(model, name, timed)
+
+    def ms(self):
+        return [s.elapsed_time(e) for s, e in self.events]
+
+    def remove(self):
+        delattr(self.model, self.name)
+
+
+def phase_build(card):
+    import torch  # noqa: F401  (the ctypes libraries need the CUDA runtime loaded)
+
+    from gitax_torch.ops import cuda_build
+    from gitax_torch.ops import decode_attention as da
+    from gitax_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    cuda_build.build_all(list(KERNELS))
+    log("build: {} in parallel in {:.1f} s ({})".format(
+        " and ".join(KERNELS), time.perf_counter() - t0,
+        ", ".join("{} {:.1f} s".format(n, cuda_build.build_seconds(n)) for n in KERNELS)))
+    for name in KERNELS:
+        for line in cuda_build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log("build: {}: {}".format(name, line.strip()))
+    # the wrappers size shared memory in Python; the launches size it in C
+    lib = cuda_build.load("decode_attention")
+    lib.gitax_decode_attention_smem.restype = ctypes.c_size_t
+    for m in (M, 1542):
+        c_bytes = lib.gitax_decode_attention_smem(K, DH, m, T)
+        check(da.smem_bytes(K, DH, m, T) == c_bytes, "decode_attention shared memory: "
+              "wrapper {} != kernel {}".format(da.smem_bytes(K, DH, m, T), c_bytes))
+    lib = cuda_build.load("flash_attention")
+    lib.gitax_flash_attention_smem.restype = ctypes.c_size_t
+    for bf16 in (False, True):
+        c_bytes = lib.gitax_flash_attention_smem(int(bf16))
+        check(fa.smem_bytes(bf16) == c_bytes, "flash_attention shared memory: "
+              "wrapper {} != kernel {}".format(fa.smem_bytes(bf16), c_bytes))
+        log("build: flash_attention {} shared memory {} bytes per block, wrapper = kernel, "
+            "the same at S=901, 1240 and 1600 (it does not depend on S)".format(
+                "bf16" if bf16 else "f32", c_bytes))
+
+
+def phase_decode_kernel(card):
+    """Decode attention against the plain version on the same inputs."""
     import torch
 
     from gitax_torch.ops.decode_attention import (
@@ -105,15 +206,16 @@ def phase_kernel(card):
         return a
 
     worst_main = 0.0
-    # the main path's cases; the fourth build variant (f32 with int8
-    # memory); one video-length memory (M=1542, the same function's later
-    # caller) to show no fixed tile is assumed
+    # the COCO path's cases; the fourth build variant (f32 with int8
+    # memory); the VQA path's memory (M=1201) and a video-length one
+    # (M=1542) to show no fixed tile is assumed
     cases = [(name, dtype, mem_int8, M, pos)
              for name, dtype, mem_int8 in (("f32", torch.float32, False),
                                            ("bf16", torch.bfloat16, False),
                                            ("bf16+int8mem", torch.bfloat16, True))
              for pos in (0, 1, 20, 40)]
     cases += [("f32+int8mem", torch.float32, True, M, 20),
+              ("bf16 M=1201", torch.bfloat16, False, 1201, 20),
               ("bf16 M=1542", torch.bfloat16, False, 1542, 20)]
     for name, dtype, mem_int8, m, pos in cases:
         a = inputs(dtype, mem_int8, pos, m)
@@ -127,7 +229,7 @@ def phase_kernel(card):
             err = (ctx - ref).abs().max().item()
             check(torch.allclose(ctx, ref, atol=1e-5, rtol=1e-5),
                   "{} pos={}: ctx err {}".format(name, pos, err))
-            log("kernel {:13s} pos={:2d}: cache bit-equal, max|ctx-plain| {:.3e} "
+            log("decode kernel {:13s} pos={:2d}: cache bit-equal, max|ctx-plain| {:.3e} "
                 "(tol 1e-5 abs + 1e-5 rel)".format(name, pos, err))
             continue
         # bf16: against the plain version run in f32 on the same bf16
@@ -148,11 +250,11 @@ def phase_kernel(card):
               "{} pos={}: ctx err {} vs f32 plain".format(name, pos, err))
         if name == "bf16":
             worst_main = max(worst_main, err)
-        log("kernel {:13s} pos={:2d}: cache bit-equal, max|ctx-plain_f32| {:.3e} "
+        log("decode kernel {:13s} pos={:2d}: cache bit-equal, max|ctx-plain_f32| {:.3e} "
             "(tol {:.3e} abs + 2^-7 rel), max|ctx-plain_bf16| {:.3e}".format(
                 name, pos, err, atol, same))
 
-    # time per call at the main path's bf16 shapes, pos=12 (a caption of
+    # time per call at the COCO path's bf16 shapes, pos=12 (a caption of
     # ~12 tokens); 6 memory buffers in turn, as the 6 decoder layers read
     # them, so the 150 MB of memory K/V do not sit in the 50 MB L2
     layers = [inputs(torch.bfloat16, False, 12) for _ in range(6)]
@@ -165,17 +267,110 @@ def phase_kernel(card):
             fn(**a, **kw)
         return call
 
-    t = [cuda_time_ms(run(decode_attention_reference), 60),
-         cuda_time_ms(run(decode_attention_cuda), 300),
-         cuda_time_ms(run(decode_attention_cuda), 300),
-         cuda_time_ms(run(decode_attention_reference), 60)]
-    plain_ms, ker_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
-    log("kernel time per call, bf16 B={} K={} H={} Dh={} M={} T={} pos=12: "
+    plain_ms, ker_ms, t = in_turns(run(decode_attention_reference), run(decode_attention_cuda),
+                                   60, 300)
+    log("decode kernel time per call, bf16 B={} K={} H={} Dh={} M={} T={} pos=12: "
         "kernel {:.4f} ms, plain {:.4f} ms (plain,kernel,kernel,plain = {}) [{}]".format(
             B, K, H, DH, M, T, ker_ms, plain_ms, ["%.4f" % x for x in t], card))
     mem_bytes = B * H * M * 2 * DH * 2
-    log("kernel memory K/V stream {:.1f} MB per call -> {:.0f} GB/s achieved [{}]".format(
+    log("decode kernel memory K/V stream {:.1f} MB per call -> {:.0f} GB/s achieved [{}]".format(
         mem_bytes / 1e6, mem_bytes / (ker_ms * 1e-3) / 1e9, card))
+    return dict(max_abs_err=worst_main, ms=ker_ms, plain_ms=plain_ms)
+
+
+def phase_flash_kernel(card):
+    """Fused attention against the plain version on the same inputs, and
+    its time beside the plain version's and the fast bf16 path's."""
+    import torch
+
+    from gitax_torch.models.nn import attention_weights, merge_heads, split_heads
+    from gitax_torch.ops import flash_attention as fa
+
+    g = torch.Generator().manual_seed(1)
+
+    def qkv_input(b, s, h, dtype):
+        return (torch.randn(b, s, 3 * h * DH, generator=g) * 0.5).cuda().to(dtype)
+
+    def heads(qkv, h):
+        return [x.transpose(1, 2) for x in qkv.unflatten(2, (3, h, DH)).unbind(2)]
+
+    def masked_input(b, h, t, dtype):
+        return [(torch.randn(b, t, h * DH, generator=g) * 0.5).cuda().to(dtype)
+                .unflatten(2, (h, DH)).transpose(1, 2) for _ in range(3)]
+
+    worst_main = 0.0
+    cases = [("encoder S={}".format(s), "qkv", B, ENC_H, s, 0) for s in (901, ENC_S)]
+    cases += [("prefill M={} Tp={}".format(PRE_M, tp), "masked", B, H, PRE_M + tp, PRE_M)
+              for tp in (1, PRE_TP)]
+    cases += [("video M=1542 Tp=1", "masked", B, H, 1543, 1542)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, entry, b, h, s, m in cases:
+            if entry == "qkv":
+                qkv = qkv_input(b, s, h, dtype)
+                out = fa.flash_qkv_attention(qkv, h).unflatten(2, (h, DH)).transpose(1, 2)
+                q, k, v = heads(qkv, h)
+            else:
+                q, k, v = masked_input(b, h, s, dtype)
+                out = fa.fused_attention(q, k, v, m, True)
+            torch.cuda.synchronize()
+            ref32 = fa.attention_reference(q.float(), k.float(), v.float(), m, entry == "masked")
+            err = (out.float() - ref32).abs().max().item()
+            if dtype == torch.float32:
+                # same f32 math, other summation order
+                check(torch.allclose(out, ref32, atol=1e-5, rtol=1e-5),
+                      "flash {} f32: err {}".format(name, err))
+                log("flash kernel f32  {:20s}: max|out-plain| {:.3e} (tol 1e-5 abs + 1e-5 rel)".format(
+                    name, err))
+            else:
+                # against the plain version run in f32 on the same bf16
+                # inputs: the kernel rounds each probability and the
+                # context to bf16 once each (rel 2^-9), so 2^-7 of max|v|
+                # abs + 2^-7 rel covers them twice over
+                ref = fa.attention_reference(q, k, v, m, entry == "masked")
+                same = (out.float() - ref.float()).abs().max().item()
+                atol = v.float().abs().max().item() / 128
+                check(torch.allclose(out.float(), ref32, atol=atol, rtol=1 / 128),
+                      "flash {} bf16: err {} vs f32 plain".format(name, err))
+                if "video" not in name:
+                    worst_main = max(worst_main, err)
+                log("flash kernel bf16 {:20s}: max|out-plain_f32| {:.3e} (tol {:.3e} abs + 2^-7 rel), "
+                    "max|out-plain_bf16| {:.3e}".format(name, err, atol, same))
+            del q, k, v, out, ref32
+    torch.cuda.empty_cache()
+
+    # times per call in bf16 at the VQA path's shapes
+    qkv = qkv_input(B, ENC_S, ENC_H, torch.bfloat16)
+    q, k, v = heads(qkv, ENC_H)
+    plain_ms, ker_ms, t = in_turns(lambda: fa.attention_reference(q, k, v),
+                                   lambda: fa.flash_qkv_attention(qkv, ENC_H), 5, 20, warmup=3)
+    flop = 4 * B * ENC_H * ENC_S * ENC_S * DH
+    log("flash kernel time per call, bf16 encoder B={} H={} S={} Dh={}: kernel {:.4f} ms, plain "
+        "{:.4f} ms (plain,kernel,kernel,plain = {}), kernel {:.1f} TFLOP/s of attention [{}]".format(
+            B, ENC_H, ENC_S, DH, ker_ms, plain_ms, ["%.4f" % x for x in t],
+            flop / (ker_ms * 1e-3) / 1e12, card))
+    s = PRE_M + PRE_TP
+    qm, km, vm = masked_input(B, H, s, torch.bfloat16)
+    pplain, pker, t = in_turns(lambda: fa.attention_reference(qm, km, vm, PRE_M, True),
+                               lambda: fa.fused_attention(qm, km, vm, PRE_M, True), 5, 20, warmup=3)
+    log("flash kernel time per call, bf16 prefill B={} H={} M={} Tp={}: kernel {:.4f} ms, plain "
+        "{:.4f} ms (plain,kernel,kernel,plain = {}) [{}]".format(
+            B, H, PRE_M, PRE_TP, pker, pplain, ["%.4f" % x for x in t], card))
+
+    # the A/B of the S >= 640 gate: the kernel against the encoder's other
+    # path, the fast bf16 scores and softmax (nn.self_attention, fast=True),
+    # both from the fused projection to the merged context
+    for s in (257, 901, ENC_S):
+        qkv = qkv_input(B, s, ENC_H, torch.bfloat16)
+
+        def fast_path():
+            q, k, v = (split_heads(x, ENC_H) for x in qkv.chunk(3, dim=-1))
+            return merge_heads(torch.matmul(attention_weights(q, k, fast=True).to(v.dtype), v))
+
+        fast_ms, gker, t = in_turns(fast_path, lambda: fa.flash_qkv_attention(qkv, ENC_H), 20, 20,
+                                    warmup=3)
+        log("gate A/B, bf16 encoder B={} H={} S={}: kernel {:.4f} ms, fast bf16 path {:.4f} ms "
+            "(fast,kernel,kernel,fast = {}) [{}]".format(B, ENC_H, s, gker, fast_ms,
+                                                         ["%.4f" % x for x in t], card))
     return dict(max_abs_err=worst_main, ms=ker_ms, plain_ms=plain_ms)
 
 
@@ -187,12 +382,30 @@ def build_model(device, dtype, cpu_model):
     return model
 
 
-def phase_slice(card, cpu_model, tok):
+def random_model(name, seed, gate):
+    """Random weights whose EOS row dominates from text position `gate`
+    on (positions count the prefix)."""
+    import torch
+
+    from gitax_torch.models.config import config_from_param, get_model_param
+    from gitax_torch.models.git import GitModel, eos_gate_
+
+    cfg = config_from_param(dict(get_model_param(name), fast_softmax=True))
+    t0 = time.perf_counter()
+    model = GitModel(cfg).init_params(torch.Generator().manual_seed(seed))
+    eos_gate_(model, gate=gate)
+    log("weights: {} random init + EOS gate at {} in {:.1f} s".format(
+        name, gate, time.perf_counter() - t0))
+    return model
+
+
+def phase_coco_slice(card, cpu_model, tok):
     """GIT_LARGE_COCO through the port's CaptionEngine, as served."""
     import numpy as np
     import torch
 
     from gitax_torch.decode.beam import BeamSearchConfig
+    from gitax_torch.ops import flash_attention as fa
     from gitax_torch.ops.decode_attention import decode_attention
     from gitax_torch.runtime.engine import CaptionEngine
 
@@ -207,30 +420,19 @@ def phase_slice(card, cpu_model, tok):
     engine.generate_batch(images[:32], prefixes[:32])  # warm-up: cuBLAS, allocator
     torch.cuda.synchronize()
 
-    # device time of each decode step (6 layers + head)
-    step_events = []
-    orig_step = model.decode_step
-
-    def timed_step(*a, **kw):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        out = orig_step(*a, **kw)
-        e.record()
-        step_events.append((s, e))
-        return out
-
-    model.decode_step = timed_step
+    steps_t = DeviceSpans(model, "decode_step")  # 6 layers + head each
     decode_attention.launches = 0
+    fa.launches = 0
     model.decode_step_calls = 0
     t0 = time.perf_counter()
     handle = engine.dispatch(images, prefixes)
     captions = engine.resolve(handle)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches, steps = decode_attention.launches, model.decode_step_calls
-    del model.decode_step
+    launches, flash_launches, steps = decode_attention.launches, fa.launches, model.decode_step_calls
+    steps_t.remove()
 
-    seqs = torch.cat([s.cpu() for s in handle[1]])
+    seqs = torch.cat([s.cpu() for _, bucket in handle[1] for s in bucket])
     # T_max 41 = [CLS] + max_text_len 40; the [CLS] prefix is stripped
     check(seqs.shape == (96, 40), "sequences shape {}".format(tuple(seqs.shape)))
     lengths = (seqs != engine.beam.eos_id).sum(1).float()
@@ -239,31 +441,43 @@ def phase_slice(card, cpu_model, tok):
     n_layers = model.cfg.num_layers
     check(steps > 0 and launches == n_layers * steps,
           "decode_attention launches {} != {} layers x {} steps".format(launches, n_layers, steps))
-    step_ms = sum(s.elapsed_time(e) for s, e in step_events) / len(step_events)
-    log("slice: 3 batches x 32 GIT_LARGE_COCO captions, {} beam steps, decode_attention "
-        "launches {} = {} x {}".format(steps, launches, n_layers, steps))
-    log("slice: {:.2f} images/s, mean decode length {:.2f} tokens, {:.3f} ms per beam "
+    # S=257 < 640: the fused attention's gate leaves the 224 px path alone
+    check(flash_launches == 0, "flash_attention launched {} times at S=257".format(flash_launches))
+    step_ms = sum(steps_t.ms()) / len(steps_t.events)
+    log("coco slice: 3 batches x 32 GIT_LARGE_COCO captions, {} beam steps, decode_attention "
+        "launches {} = {} x {}, flash_attention launches 0 (S=257)".format(
+            steps, launches, n_layers, steps))
+    log("coco slice: {:.2f} images/s, mean decode length {:.2f} tokens, {:.3f} ms per beam "
         "step (device, 6 layers + head) [{}]".format(96 / seconds, lengths.mean().item(),
                                                      step_ms, card))
-    log("slice: sample captions: {}".format(captions[:2]))
+    log("coco slice: sample captions: {}".format(captions[:2]))
     del engine, model
     torch.cuda.empty_cache()
     return launches, images
 
 
-def phase_f32_parity(cpu_model, images):
-    """f32 weights: kernel path and plain path, identical tokens.  Uses
-    bench.py's search setting (a 24-token buffer whose length norm lets
-    is_done stop the loop early), the other side of the engine's rule."""
+def normalized(images, dtype):
     import numpy as np
     import torch
 
-    from gitax_torch.decode.beam import BeamSearchConfig
     from gitax_torch.runtime.engine import CLIP_MEAN, CLIP_STD
 
+    x = torch.from_numpy(np.stack(images)).cuda().to(dtype) / 255.0
+    return (x - torch.tensor(CLIP_MEAN, device="cuda", dtype=dtype)) / torch.tensor(
+        CLIP_STD, device="cuda", dtype=dtype)
+
+
+def phase_coco_f32_parity(cpu_model, images):
+    """f32 weights: decode kernel path and plain path, identical tokens.
+    Uses bench.py's search setting (a 24-token buffer whose length norm
+    lets is_done stop the loop early), the other side of the engine's
+    rule."""
+    import torch
+
+    from gitax_torch.decode.beam import BeamSearchConfig
+
     model = build_model("cuda", torch.float32, cpu_model)
-    x = torch.from_numpy(np.stack(images[:16])).cuda().float() / 255.0
-    x = (x - torch.tensor(CLIP_MEAN, device="cuda")) / torch.tensor(CLIP_STD, device="cuda")
+    x = normalized(images[:16], torch.float32)
     beam = BeamSearchConfig(num_beams=4, max_steps=24)
     out, steps = {}, {}
     for kernel in (True, False):
@@ -276,9 +490,171 @@ def phase_f32_parity(cpu_model, images):
     check(torch.equal(seq_k, seq_p), "f32 tokens differ between kernel and plain paths")
     err = (lp_k - lp_p).abs().max().item()
     check(err <= 1e-4, "f32 logprobs differ by {}".format(err))
-    log("f32 parity: 16 images, kernel and plain paths: tokens identical, logprobs within "
+    log("coco f32 parity: 16 images, kernel and plain paths: tokens identical, logprobs within "
         "{:.2e} (tol 1e-4), {} beam steps each (buffer 24), mean length {:.2f}".format(
             err, steps[True], (seq_k != 102).sum(1).float().mean().item()))
+    del model
+    torch.cuda.empty_cache()
+
+
+def vqa_pairs(engine, cfg):
+    """128 (uint8 image, prefix) pairs: 32 per MinMax source, questions by
+    source, sized by the reference's MinMaxResizeForTest."""
+    import numpy as np
+
+    from gitax_torch.preprocess.transforms import min_max_resize_size
+
+    rng = np.random.RandomState(1)
+    crop, ratio_max = 420, 560  # GIT_LARGE_VQAv2's test_crop_size, test_respect_ratio_max
+    check(cfg.encoder.input_resolution == crop, "not the 420 px config")
+    pairs = []
+    for source, qi in VQA_SOURCES:
+        h, w = min_max_resize_size(source, crop, ratio_max)
+        prefix = engine.encode_prefix(VQA_QUESTIONS[qi])
+        pairs += [(rng.randint(0, 256, (h, w, 3), dtype=np.uint8), prefix) for _ in range(32)]
+    return pairs
+
+
+def run_vqa(engine, pairs):
+    """Group the pairs by prefix length (one length per dispatch, as
+    gitax's run_vqa_tsv buckets them) and run each group through
+    `generate_varshape`'s two halves; (answers in pair order, handles)."""
+    groups = collections.defaultdict(list)
+    for i, (_, prefix) in enumerate(pairs):
+        groups[len(prefix)].append(i)
+    answers, handles = [None] * len(pairs), []
+    for tp, idx in sorted(groups.items()):
+        handle = engine.dispatch_varshape([pairs[i][0] for i in idx], [pairs[i][1] for i in idx])
+        for i, answer in zip(idx, engine.resolve(handle)):
+            answers[i] = answer
+        handles.append((tp, handle))
+    return answers, handles
+
+
+def phase_vqa_slice(card, cpu_model, tok):
+    """GIT_LARGE_VQAv2 high-res VQA through the port's CaptionEngine."""
+    import torch
+
+    from gitax_torch.decode.beam import BeamSearchConfig
+    from gitax_torch.ops import flash_attention as fa
+    from gitax_torch.ops.decode_attention import decode_attention
+    from gitax_torch.runtime.engine import CaptionEngine
+
+    model = build_model("cuda", torch.bfloat16, cpu_model)
+    cfg = model.cfg
+    engine = CaptionEngine(model, tok, batch_size=32, beam=BeamSearchConfig(num_beams=4, max_steps=40),
+                           dtype=torch.bfloat16, int8=True, fast_prefill=True, decode_kernel=True)
+    pairs = vqa_pairs(engine, cfg)
+    p = cfg.encoder.patch_size
+    grids = sorted({(a.shape[0] // p, a.shape[1] // p) for a, _ in pairs})
+    check(grids == [(22, 40), (30, 30), (30, 40), (40, 30)], "grids {}".format(grids))
+    run_vqa(engine, pairs)  # warm-up at every grid: cuBLAS, allocator
+    torch.cuda.synchronize()
+
+    spans = {name: DeviceSpans(model, name) for name in ("encode_images", "prefill", "decode_step")}
+    decode_attention.launches = 0
+    fa.launches = 0
+    model.decode_step_calls = 0
+    t0 = time.perf_counter()
+    answers, handles = run_vqa(engine, pairs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    d_launches, f_launches, steps = decode_attention.launches, fa.launches, model.decode_step_calls
+    times = {name: s.ms() for name, s in spans.items()}
+    for s in spans.values():
+        s.remove()
+
+    n_enc, n_pre = len(times["encode_images"]), len(times["prefill"])
+    check(n_enc == n_pre == 4, "{} encoder and {} prefill batches, not 4".format(n_enc, n_pre))
+    want_f = cfg.encoder.layers * n_enc + cfg.num_layers * n_pre
+    check(f_launches == want_f, "flash_attention launches {} != {} x {} encoder + {} x {} prefill "
+          "batches".format(f_launches, cfg.encoder.layers, n_enc, cfg.num_layers, n_pre))
+    check(steps > 0 and d_launches == cfg.num_layers * steps,
+          "decode_attention launches {} != {} layers x {} steps".format(
+              d_launches, cfg.num_layers, steps))
+    lengths = []
+    for tp, (n, dispatched) in handles:
+        for idxs, seqs in dispatched:
+            for s in seqs:
+                # buffer max(40, tp + 40), the prefix stripped
+                check(tuple(s.shape) == (32, 40), "tp={} sequences {}".format(tp, tuple(s.shape)))
+                lengths.append((s != engine.beam.eos_id).sum(1).float().cpu())
+    lengths = torch.cat(lengths)
+    check(len(answers) == len(pairs) and all(isinstance(a, str) and a for a in answers),
+          "empty or missing answers")
+    log("vqa slice: {} GIT_LARGE_VQAv2 pairs, grids {}, prefix lengths {}, {} encoder and {} "
+        "prefill batches of 32, {} beam steps".format(
+            len(pairs), ["{}x{}".format(*g) for g in grids], [tp for tp, _ in handles],
+            n_enc, n_pre, steps))
+    log("vqa slice: flash_attention launches {} = 24 x {} + 6 x {}; decode_attention launches "
+        "{} = 6 x {}".format(f_launches, n_enc, n_pre, d_launches, steps))
+    log("vqa slice: {:.2f} pairs/s, encode {:.2f} ms and prefill {:.2f} ms per batch of 32, "
+        "{:.3f} ms per beam step (device events), mean answer length {:.2f} tokens [{}]".format(
+            len(pairs) / seconds, sum(times["encode_images"]) / n_enc,
+            sum(times["prefill"]) / n_pre, sum(times["decode_step"]) / len(times["decode_step"]),
+            lengths.mean().item(), card))
+    log("vqa slice: encode ms per batch {}, prefill ms per batch {}".format(
+        ["%.2f" % x for x in times["encode_images"]], ["%.2f" % x for x in times["prefill"]]))
+    log("vqa slice: sample answers: {}".format([answers[0], answers[-1]]))
+    del engine, model
+    torch.cuda.empty_cache()
+    return d_launches, f_launches, pairs
+
+
+def phase_vqa_f32_parity(cpu_model, pairs):
+    """f32 weights, 8 images at 420x560 with one prefix: the encoder and
+    the prefill with the fused attention (explicit flash=True, which gitax
+    allows in f32) against without it; then beam search from each side,
+    the decode kernel on and off: identical tokens."""
+    import torch
+
+    from gitax_torch.decode.beam import BeamSearchConfig
+    from gitax_torch.ops import flash_attention as fa
+
+    model = build_model("cuda", torch.float32, cpu_model)
+    chosen = [(a, p) for a, p in pairs if a.shape[:2] == (420, 560)][:8]
+    check(len(chosen) == 8, "8 images at 420x560")
+    x = normalized([a for a, _ in chosen], torch.float32)
+    prefix = torch.tensor([p for _, p in chosen], device="cuda")
+    tp = prefix.shape[1]
+    fa.launches = 0
+    with torch.inference_mode():
+        feats = {flash: model.encode_images(x, flash=flash) for flash in (True, False)}
+        enc_err = (feats[True] - feats[False]).abs().max().item()
+        check(enc_err <= 1e-4, "encoder flash vs plain: {}".format(enc_err))
+        pre = {flash: model.prefill(feats[False], prefix, tp + 40, flash=flash, kernel_memory=True)
+               for flash in (True, False)}
+    check(fa.launches == model.cfg.encoder.layers + model.cfg.num_layers,
+          "flash launches {} in the f32 parity calls".format(fa.launches))
+    (lg_f, c_f), (lg_p, c_p) = pre[True], pre[False]
+    lg_err = (lg_f - lg_p).abs().max().item()
+    check(lg_err <= 1e-4, "prefill logits flash vs plain: {}".format(lg_err))
+    # the first layer's k|v come before any attention: the two paths cache
+    # the same rows bit for bit; later layers carry the attention's rounding
+    check(torch.equal(c_f.txt_kv[0], c_p.txt_kv[0]) and torch.equal(c_f.mem_kv[0], c_p.mem_kv[0]),
+          "prefill layer-0 cache differs between flash and plain")
+    cache_err = max(max((a - b).abs().max().item() for a, b in zip(c_f.txt_kv, c_p.txt_kv)),
+                    max((a - b).abs().max().item() for a, b in zip(c_f.mem_kv, c_p.mem_kv)))
+    check(cache_err <= 1e-4, "prefill cache flash vs plain: {}".format(cache_err))
+    log("vqa f32 parity: 8 images 420x560, Tp={}: encoder flash vs plain max|diff| {:.3e}, prefill "
+        "logits {:.3e}, cache layer 0 bit-equal and all layers within {:.3e} (tol 1e-4)".format(
+            tp, enc_err, lg_err, cache_err))
+    beam = BeamSearchConfig(num_beams=4, max_steps=tp + 40, norm_max_length=1024)  # the engine's rule
+    out = {}
+    for flash in (True, False):
+        for kernel in (True, False):
+            out[flash, kernel] = model.generate(x, prefix, beam=beam, decode_kernel=kernel, flash=flash)
+    seq0, lp0 = out[True, True]
+    check(seq0.shape == (8, 40) and torch.isfinite(lp0).all().item(),
+          "f32 output shape {} or non-finite logprobs".format(tuple(seq0.shape)))
+    lp_err = 0.0
+    for key, (seq, lp) in out.items():
+        check(torch.equal(seq, seq0), "f32 tokens differ, flash/decode kernel {}".format(key))
+        lp_err = max(lp_err, (lp - lp0).abs().max().item())
+    check(lp_err <= 1e-4, "f32 logprobs differ by {}".format(lp_err))
+    log("vqa f32 parity: beam 4 from the flash and the plain encoder+prefill, decode kernel on "
+        "and off: tokens identical in all 4 runs, logprobs within {:.2e} (tol 1e-4), mean answer "
+        "length {:.2f}".format(lp_err, (seq0 != 102).sum(1).float().mean().item()))
 
 
 def main():
@@ -287,10 +663,6 @@ def main():
     check(os.path.isdir(os.path.join(ROOT, "gitax_torch")),
           "gitax_torch/ not found beside chip_smoke.py")
     check(torch.cuda.is_available(), "no CUDA device")
-    from gitax_torch.models.config import get_model_param, config_from_param
-    from gitax_torch.models.git import GitModel, eos_gate_
-    from gitax_torch.ops import cuda_build
-    from gitax_torch.ops.decode_attention import smem_bytes
     from gitax_torch.tokenization import BertTokenizer, build_tiny_vocab
 
     # 1. device
@@ -299,38 +671,33 @@ def main():
         card, torch.__version__, torch.version.cuda, torch.cuda.device_count()))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
-    # 2. build
-    t0 = time.perf_counter()
-    lib = cuda_build.load("decode_attention")
-    log("build: decode_attention in {:.1f} s ({:.1f} s compiling)".format(
-        time.perf_counter() - t0, cuda_build.build_seconds("decode_attention")))
-    # the wrapper sizes shared memory in Python; the launch sizes it in C
-    lib.gitax_decode_attention_smem.restype = ctypes.c_size_t
-    for m in (M, 1542):
-        c_bytes = lib.gitax_decode_attention_smem(K, DH, m, T)
-        check(smem_bytes(K, DH, m, T) == c_bytes,
-              "shared memory size: wrapper {} != kernel {}".format(smem_bytes(K, DH, m, T), c_bytes))
-    for line in cuda_build.build_log("decode_attention").splitlines():
-        if "registers" in line or "spill" in line:
-            log("build: " + line.strip())
+    phase_build(card)  # 2
+    stats = {"decode_attention": phase_decode_kernel(card),  # 3
+             "flash_attention": phase_flash_kernel(card)}  # 4
 
-    # 3. kernel against plain
-    kstats = phase_kernel(card)
+    # 5, 6: the COCO path
+    coco = random_model("GIT_LARGE_COCO", seed=0, gate=12)
+    coco_launches, images = phase_coco_slice(card, coco, BertTokenizer(build_tiny_vocab()))
+    phase_coco_f32_parity(coco, images)
+    del coco
 
-    # 4. the slice, and 5. f32 parity, on one set of random weights
-    cfg = config_from_param(dict(get_model_param("GIT_LARGE_COCO"), fast_softmax=True))
-    t0 = time.perf_counter()
-    cpu_model = GitModel(cfg).init_params(torch.Generator().manual_seed(0))
-    eos_gate_(cpu_model)
-    log("weights: GIT_LARGE_COCO random init + EOS gate in {:.1f} s".format(time.perf_counter() - t0))
-    tok = BertTokenizer(build_tiny_vocab())
-    launches, images = phase_slice(card, cpu_model, tok)
-    phase_f32_parity(cpu_model, images)
+    # 7, 8: the VQA path
+    # past the 14-token question prefix: answers of ~2 and ~9 tokens
+    vqa = random_model("GIT_LARGE_VQAv2", seed=1, gate=16)
+    vqa_d, vqa_f, pairs = phase_vqa_slice(card, vqa, BertTokenizer(build_tiny_vocab(VQA_WORDS)))
+    phase_vqa_f32_parity(vqa, pairs)
 
+    launches = {"decode_attention": coco_launches + vqa_d, "flash_attention": vqa_f}
+    log("main-path launches: decode_attention {} (COCO {} + VQA {}), flash_attention {} (VQA); "
+        "all phases {:.1f} s".format(launches["decode_attention"], coco_launches, vqa_d, vqa_f,
+                                     time.perf_counter() - t_start))
     log(card)
-    log(json.dumps({"kernels": [dict(name="decode_attention", route="cuda", source=KERNEL_SRC,
-                                     replaces=KERNEL_REPLACES, launches=launches, **kstats)]}))
+    log(json.dumps({"kernels": [
+        dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],
+             **stats[name])
+        for name, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -56,7 +56,13 @@ def params_from_gitax(tree: dict, cfg: GitConfig, device=None,
            .transpose(3, 2, 0, 1))
     )
     vit.class_embedding.copy_(_t(ie["class_embedding"]))
-    vit.positional_embedding.copy_(_t(ie["positional_embedding"]))
+    # the stored table is the configured square grid's (901 rows for
+    # ViT-L/14 at 420 px); other grids interpolate it at run time
+    pos = np.asarray(ie["positional_embedding"])
+    if pos.shape != tuple(vit.positional_embedding.shape):
+        raise ValueError("positional table {} does not fit the {} px config, which needs {}".format(
+            pos.shape, cfg.encoder.input_resolution, tuple(vit.positional_embedding.shape)))
+    vit.positional_embedding.copy_(_t(pos))
     _fill_ln(vit.ln_pre, ie["ln_pre"])
     _fill_ln(vit.ln_post, ie["ln_post"])
     blocks = ie["blocks"]

@@ -4,9 +4,12 @@
 `GitModel` is an nn.Module whose state dict uses the reference names
 (`image_encoder.*`, `textual.*`), so `gitax.ckpt.export_git_state_dict`
 of a gitax tree and this module's `state_dict()` agree key for key (see
-`gitax_torch.ckpt`).  Ported: single-image encoding, memory with no text
-context, and beam-search generation.  Greedy, trie, video and text
-context are later work; video configs and frame stacks raise.
+`gitax_torch.ckpt`).  Ported: single-image encoding at any grid of whole
+patches (the MinMax high-res inputs included), memory with no text
+context, and beam-search generation with or without a question prefix,
+the encoder and the prefill taking the fused-attention kernel by gitax's
+auto rule.  Greedy, trie, video and text context are not ported; video
+configs and frame stacks raise.
 """
 
 from __future__ import annotations
@@ -47,24 +50,25 @@ class GitModel(nn.Module):
         return self
 
     # -- encoder ---------------------------------------------------------
-    def encode_images(self, images, dtype=torch.float32, fast=None):
-        """images [B, H, W, 3] (one image per element) -> tokens."""
+    def encode_images(self, images, dtype=torch.float32, fast=None, flash=None):
+        """images [B, H, W, 3] (one image per element) -> tokens.  flash:
+        the fused-attention switch of `vit_forward` (None: auto)."""
         if images.dim() != 4:
             raise NotImplementedError("multi-frame (video) input is not ported yet")
-        return vit_forward(self.image_encoder, images, dtype, fast=fast)
+        return vit_forward(self.image_encoder, images, dtype, fast=fast, flash=flash)
 
-    def build_memory(self, images, dtype=torch.float32, fast=None):
+    def build_memory(self, images, dtype=torch.float32, fast=None, flash=None):
         """(memory, memory_valid): the image tokens, all valid (the text
         context memory is not ported yet)."""
-        return self.encode_images(images, dtype, fast=fast), None
+        return self.encode_images(images, dtype, fast=fast, flash=flash), None
 
     # -- decode glue -------------------------------------------------------
     def prefill(self, visual_features, prefix_tokens, max_text_len,
                 memory_valid=None, dtype=torch.float32, fast=False,
-                kernel_memory=False):
+                kernel_memory=False, flash=None):
         return T.prefill(self.textual, visual_features, prefix_tokens, self.cfg,
                          max_text_len, memory_valid=memory_valid, dtype=dtype,
-                         fast=fast, kernel_memory=kernel_memory)
+                         fast=fast, kernel_memory=kernel_memory, flash=flash)
 
     def decode_step(self, tokens, cache, dtype=torch.float32, kernel=False):
         self.decode_step_calls += 1
@@ -75,18 +79,20 @@ class GitModel(nn.Module):
     @torch.inference_mode()
     def generate(self, images, prefix_tokens=None, beam: Optional[BeamSearchConfig] = None,
                  dtype=torch.float32, sos_id=101, mode="beam", fast_prefill=False,
-                 decode_kernel=False):
+                 decode_kernel=False, flash=None):
         """Caption generation by beam search (reference decoder.py:977-1011).
 
         prefix_tokens [B, Tp] defaults to [CLS]; an explicit prefix is
         stripped from the output.  With num_keep_best == 1 the keep axis
         is squeezed.  decode_kernel: False (the plain decode path), True
         (the decode-attention kernel path) or 'int8' (the kernel path
-        with int8 memory K/V).  Returns (sequences, logprobs).  Only
+        with int8 memory K/V).  flash: the encoder's and the prefill's
+        fused-attention switch; None, gitax's only setting, applies the
+        auto rule to each.  Returns (sequences, logprobs).  Only
         mode='beam' is ported; gitax's 'greedy' and 'trie' raise."""
         if mode != "beam":
             raise NotImplementedError("generate mode {!r} is not ported yet".format(mode))
-        visual, memory_valid = self.build_memory(images, dtype=dtype)
+        visual, memory_valid = self.build_memory(images, dtype=dtype, flash=flash)
         bsz = visual.shape[0]
         strip = prefix_tokens is not None
         if prefix_tokens is None:
@@ -96,7 +102,7 @@ class GitModel(nn.Module):
         beam = beam or BeamSearchConfig()
         logits, cache = self.prefill(visual, prefix_tokens, beam.max_steps,
                                      memory_valid, dtype, fast=fast_prefill,
-                                     kernel_memory=decode_kernel)
+                                     kernel_memory=decode_kernel, flash=flash)
 
         def step(tokens, cache):
             return self.decode_step(tokens, cache, dtype, kernel=bool(decode_kernel))

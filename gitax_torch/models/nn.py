@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.flash_attention import flash_qkv_attention
+
 
 def empty_param(shape, device=None, dtype=None):
     """An uninitialized inference-only Parameter."""
@@ -142,9 +144,14 @@ def qkv_project(x, attn, num_heads):
     return tuple(split_heads(t, num_heads) for t in attn.project(x))
 
 
-def self_attention(x, attn, num_heads, mask=None, fast=False):
+def self_attention(x, attn, num_heads, mask=None, fast=False, flash=False):
     """Multi-head self-attention: projections from `attn.project`, the
-    output map `attn.out_proj`."""
+    output map `attn.out_proj`.  flash=True (unmasked only) runs the fused
+    attention (ops/flash_attention.py) straight off `attn.fused_qkv(x)`,
+    the [B, T, 3D] projection; `fast` does not apply there (the kernel's
+    softmax is f32), as in gitax (nn.py:127-133)."""
+    if flash and mask is None:
+        return linear(flash_qkv_attention(attn.fused_qkv(x), num_heads), attn.out_proj)
     q, k, v = qkv_project(x, attn, num_heads)
     probs = attention_weights(q, k, mask, fast=fast).to(v.dtype)
     ctx = torch.matmul(probs, v)

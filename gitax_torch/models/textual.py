@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from ..ops.decode_attention import decode_attention, quantize_memory
+from ..ops.flash_attention import auto_flash, fused_attention
 from .config import GitConfig
 from .nn import (
     LayerNorm,
@@ -224,10 +225,17 @@ def _attn_tail(xcur, ctx_merged, layer: BertLayer, cfg: GitConfig):
                       cfg.bert_ln_eps)
 
 
-def _bert_layer(x, layer: BertLayer, cfg: GitConfig, mask, fast=False):
+def _bert_layer(x, layer: BertLayer, cfg: GitConfig, mask, fast=False, flash_memory=None):
+    """One decoder layer; returns (output, (q, k, v)).  flash_memory=M
+    runs the attention through `ops.flash_attention.fused_attention` with
+    GIT's block mask over M leading memory tokens (built in the kernel
+    from indices; `mask` and `fast` are not read), else the plain path
+    with the additive `mask`."""
     q, k, v = qkv_project(x, layer.attention.qkv, cfg.num_heads)
-    probs = attention_weights(q, k, mask, fast=fast).to(v.dtype)
-    ctx = torch.matmul(probs, v)
+    if flash_memory is not None:
+        ctx = fused_attention(q, k, v, num_memory=flash_memory, masked=True)
+    else:
+        ctx = torch.matmul(attention_weights(q, k, mask, fast=fast).to(v.dtype), v)
     return _attn_tail(x, merge_heads(ctx), layer, cfg), (q, k, v)
 
 
@@ -301,25 +309,37 @@ class KVCache:
 
 def prefill(tx: TextualHead, visual_features, prefix_tokens, cfg: GitConfig,
             max_text_len: int, memory_valid=None, dtype=torch.float32, fast=False,
-            kernel_memory=False):
+            kernel_memory=False, flash=None):
     """Run [memory; prefix] once; return last-position f32 logits and a
     cache ready for single-token steps.  fast=True keeps the attention
     score math in the activation dtype.  kernel_memory='int8' stores the
     memory k|v as int8 with per-(batch, head) scales, read only by the
     decode-attention kernel path; any other value keeps the activation
-    dtype."""
+    dtype.
+
+    flash routes the attention through the fused-attention kernel with
+    the block mask built in the kernel (gitax textual.py:369-386): None
+    applies gitax's auto rule to M + Tp; either way only for a fully valid
+    memory (the kernel has no validity input).  The cache is built from
+    the same k and v on both paths."""
     b, tp = prefix_tokens.shape
     mem = project_visual(tx, visual_features.to(dtype), cfg)
     m = mem.shape[1]
     text = embed_captions(tx, prefix_tokens, cfg).to(dtype)
     x = torch.cat([mem, text], 1)
-    mask = build_unified_mask(m, tp, memory_valid, batch=b, device=x.device)
+    if flash is None:
+        flash = auto_flash(m + tp, dtype, x.device)
+    flash = flash and memory_valid is None
+    # the additive mask is [B, 1, S, S] f32 (197 MB at B=32, S=1240): only
+    # the plain path builds it
+    mask = None if flash else build_unified_mask(m, tp, memory_valid, batch=b, device=x.device)
     h, dh = cfg.num_heads, cfg.head_dim
     if max_text_len < tp:
         raise ValueError("prefix of {} tokens exceeds max_text_len {}".format(tp, max_text_len))
     mem_kv, mem_scale, txt_kv = [], [], []
     for layer in tx.layers():
-        x, (_, k, v) = _bert_layer(x, layer, cfg, mask, fast=fast)
+        x, (_, k, v) = _bert_layer(x, layer, cfg, mask, fast=fast,
+                                   flash_memory=m if flash else None)
         tkv = torch.cat([k[:, :, m:], v[:, :, m:]], -1).permute(2, 0, 1, 3)
         buf = torch.zeros((max_text_len, b, h * 2 * dh), dtype=dtype, device=x.device)
         buf[:tp] = tkv.reshape(tp, b, h * 2 * dh)

@@ -8,9 +8,11 @@ Parameter names follow the reference VisualTransformer
 
 `vit_forward` patchifies by space-to-depth and one matmul, not a conv, so
 cuDNN's TF32 default never applies; pre-norm blocks with QuickGELU;
-`ln_post` over ALL tokens (GIT's output_grid mode).  Only the square
-grid of the configured resolution is ported: the positional-embedding
-interpolation for other grids is later work and raises here.
+`ln_post` over ALL tokens (GIT's output_grid mode).  Any grid of whole
+patches runs: the stored positional table serves the configured square
+grid, and other grids (the MinMax high-res inputs) interpolate it
+bicubically (`_pos_embed_for`, CLIP/model.py:245-251).  Attention takes
+the fused-attention kernel (ops/flash_attention.py) by gitax's auto rule.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.flash_attention import auto_flash
 from .config import ViTConfig
 from .nn import LayerNorm, Linear, empty_param, linear, quick_gelu, self_attention
 
@@ -34,9 +37,12 @@ class MultiheadSelfAttention(nn.Module):
         self.in_proj_bias = empty_param((3 * width,), device, dtype)
         self.out_proj = Linear(width, width, device=device, dtype=dtype)
 
+    def fused_qkv(self, x):
+        """The fused projection [B, T, 3D] (q | k | v)."""
+        return F.linear(x, self.in_proj_weight.to(x.dtype)) + self.in_proj_bias.to(x.dtype)
+
     def project(self, x):
-        qkv = F.linear(x, self.in_proj_weight.to(x.dtype)) + self.in_proj_bias.to(x.dtype)
-        return qkv.chunk(3, dim=-1)
+        return self.fused_qkv(x).chunk(3, dim=-1)
 
 
 class Mlp(nn.Module):
@@ -94,28 +100,45 @@ class VisualTransformer(nn.Module):
             p.copy_(torch.randn(p.shape, generator=generator) * std)
 
 
-def _block(x, blk: ResidualAttentionBlock, num_heads, fast):
+def _block(x, blk: ResidualAttentionBlock, num_heads, fast, flash):
     h1 = blk.ln_1(x)
-    x = x + self_attention(h1, blk.attn, num_heads, fast=fast)
+    x = x + self_attention(h1, blk.attn, num_heads, fast=fast, flash=flash)
     h = blk.ln_2(x)
     h = linear(quick_gelu(linear(h, blk.mlp.c_fc)), blk.mlp.c_proj)
     return x + h
 
 
-def vit_forward(vit: VisualTransformer, images, dtype=torch.float32, fast=None):
-    """images [B, H, W, 3] (NHWC, normalized) -> tokens [B, 1+g*g, width]."""
+def _pos_embed_for(vit: VisualTransformer, gh, gw, dtype):
+    """Positional table for a (gh, gw) patch grid: the stored table for
+    the configured square grid, else its spatial rows [g, g, W]
+    interpolated as [1, W, g, g] with torch's bicubic (a = -0.75, edges
+    clamped: the kernel gitax's `ops/interp.py` matches), in the activation
+    dtype as gitax does (vit.py:91-100); the class row is kept."""
+    cfg = vit.cfg
+    pos = vit.positional_embedding.to(dtype)
+    g = cfg.grid
+    if (gh, gw) == (g, g):
+        return pos
+    spatial = pos[1:].reshape(g, g, cfg.width).permute(2, 0, 1)[None]
+    resized = F.interpolate(spatial, size=(gh, gw), mode="bicubic", align_corners=False)
+    return torch.cat([pos[:1], resized[0].permute(1, 2, 0).reshape(gh * gw, cfg.width)], 0)
+
+
+def vit_forward(vit: VisualTransformer, images, dtype=torch.float32, fast=None, flash=None):
+    """images [B, H, W, 3] (NHWC, normalized; H and W whole patches) ->
+    tokens [B, 1 + gh*gw, width].  flash=None applies gitax's auto rule
+    (`ops.flash_attention.auto_flash`: S >= 640, not f32, on a CUDA
+    device); True or False forces the fused-attention kernel on or off."""
     cfg = vit.cfg
     if fast is None:
         fast = cfg.fast_softmax
     b, h, w, c = images.shape
     p = cfg.patch_size
-    if (h, w) != (cfg.input_resolution, cfg.input_resolution):
-        raise NotImplementedError(
-            "only the configured square {0}x{0} grid is ported, got {1}x{2}".format(
-                cfg.input_resolution, h, w
-            )
-        )
+    if h % p or w % p:
+        raise ValueError("image {}x{} is not whole {}-pixel patches".format(h, w, p))
     gh, gw = h // p, w // p
+    if flash is None:
+        flash = auto_flash(gh * gw + 1, dtype, images.device)
     x = images.to(dtype)
     # space-to-depth patchify: [B, gh, gw, P*P*3] then one matmul with the
     # conv weight laid out as [P*P*3, width] (the (kh, kw, c) order)
@@ -125,8 +148,8 @@ def vit_forward(vit: VisualTransformer, images, dtype=torch.float32, fast=None):
     x = torch.matmul(x, kernel.to(dtype))
     cls = vit.class_embedding.to(dtype).expand(b, 1, cfg.width)
     x = torch.cat([cls, x], dim=1)
-    x = x + vit.positional_embedding.to(dtype)
+    x = x + _pos_embed_for(vit, gh, gw, dtype)
     x = vit.ln_pre(x)
     for blk in vit.transformer.resblocks:
-        x = _block(x, blk, cfg.heads, fast)
+        x = _block(x, blk, cfg.heads, fast, flash)
     return vit.ln_post(x)

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels from `gitax_torch/csrc` at first use.
 
 Each kernel is one `.cu` file with a plain C entry point, compiled by
-`nvcc` for `sm_90a` into a shared library and loaded with ctypes.  The
+`nvcc` for `sm_90a` into a shared library and loaded with ctypes;
+`build_all` compiles several sources at once, one nvcc each.  The
 library is keyed by a hash of the source and the flags and written to
 `build/gitax_torch/` at the root of the checkout, so a changed source
 rebuilds and an unchanged one loads in milliseconds.  Nothing is built
@@ -28,8 +29,10 @@ NVCC_FLAGS = (
 
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
-# name -> (loaded library, seconds the build took, 0.0 if it was cached)
+# name -> loaded library
 _LOADED = {}
+# name -> seconds its compile took in this process
+_BUILT = {}
 
 
 def find_nvcc() -> str:
@@ -56,42 +59,56 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / "lib{}-{}.so".format(name, digest)
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless the library for this source exists.
-    The compiler's report (registers, shared memory, spills) is kept
-    beside the library as `<lib>.log`."""
-    out = library_path(name)
-    if out.exists():
-        return out
+def build_all(names) -> None:
+    """Compile each csrc/<name>.cu whose library for this source does not
+    exist yet: one nvcc per source, all started together.  The compiler's
+    report (registers, shared memory, spills) is kept beside each library
+    as `<lib>.log`.  Raises, naming every source that failed."""
+    pending = [n for n in dict.fromkeys(names) if not library_path(n).exists()]
+    if not pending:
+        return
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(out.name + ".{}.tmp".format(os.getpid()))
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / (name + ".cu"))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            "nvcc failed on {} (exit {}):\n{}{}".format(
-                name, proc.returncode, proc.stdout, proc.stderr
-            )
-        )
-    out.with_name(out.name + ".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
+    t0 = time.perf_counter()
+    procs = {}
+    for name in pending:
+        out = library_path(name)
+        tmp = out.with_name(out.name + ".{}.tmp".format(os.getpid()))
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / (name + ".cu"))]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                        text=True), tmp, out)
+    errors = []
+    for name, (proc, tmp, out) in procs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            errors.append("nvcc failed on {} (exit {}):\n{}{}".format(
+                name, proc.returncode, stdout, stderr))
+            continue
+        out.with_name(out.name + ".log").write_text(stdout + stderr)
+        os.replace(tmp, out)
+        _BUILT[name] = time.perf_counter() - t0
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu unless the library for this source exists."""
+    build_all([name])
+    return library_path(name)
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, built on first use."""
     if name not in _LOADED:
-        t0 = time.perf_counter()
-        existed = library_path(name).exists()
-        lib = ctypes.CDLL(str(build(name)))
-        _LOADED[name] = (lib, 0.0 if existed else time.perf_counter() - t0)
-    return _LOADED[name][0]
+        _LOADED[name] = ctypes.CDLL(str(build(name)))
+    return _LOADED[name]
 
 
 def build_seconds(name: str) -> float:
-    """Seconds the first `load(name)` of this process spent compiling."""
-    return _LOADED[name][1]
+    """Seconds from the start of this process's compile of `name` (with
+    the sources built beside it) to its end; 0.0 if it was not compiled
+    here."""
+    return _BUILT.get(name, 0.0)
 
 
 def build_log(name: str) -> str:

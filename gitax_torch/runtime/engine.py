@@ -1,17 +1,20 @@
-"""Batched caption engine, the counterpart of the batch-serving part of
-`gitax.runtime.pipeline.CaptionEngine`.
+"""Batched caption and VQA engine, the counterpart of the batch-serving
+part of `gitax.runtime.pipeline.CaptionEngine`.
 
 Ported: the constructor's int8 / fast-prefill / decode-kernel rules, the
 per-prefix-length beam settings (`_caption_fn`), uint8 upload with
 normalization on the device, `dispatch_device_batch`, `_dispatch_batch`,
-`generate_batch` and `resolve`.  The TSV loops, JPEG decode, VQA
-buckets, variable-resolution batches, float image input and the device
-mesh are later work.  Detokenization takes a
-`gitax_torch.tokenization.BertTokenizer`.
+`generate_batch`, the VQA question prefix (`encode_prefix`), the
+variable-resolution batches of the MinMax high-res models
+(`dispatch_varshape`, `generate_varshape`: images cut to whole patches
+and grouped into exact-grid buckets) and `resolve`.  Not ported: the TSV
+loops (they need a JPEG decode), float image input and the device mesh.
+Detokenization takes a `gitax_torch.tokenization.BertTokenizer`.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import List, Optional
 
@@ -21,6 +24,7 @@ import torch
 from ..decode.beam import BeamSearchConfig
 from ..models.git import GitModel
 from ..ops.quant import quantize_git_model_
+from ..tokenization import encode_prefix
 
 # CLIP's normalization constants (the reference's image transform)
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -108,17 +112,49 @@ class CaptionEngine(object):
                 for i in range(0, len(imgs), b)]
 
     def dispatch(self, images: List[np.ndarray], prefixes: List[List[int]]):
-        """Run generation; returns a handle for `resolve`."""
-        return len(images), self._dispatch_batch(images, prefixes)
+        """Run generation over same-shape images; returns a handle for
+        `resolve`, of the form `dispatch_varshape` returns (one bucket)."""
+        return len(images), [(list(range(len(images))), self._dispatch_batch(images, prefixes))]
+
+    def encode_prefix(self, text: str) -> List[int]:
+        """[CLS] + the last (max_text_len - 2) question tokens."""
+        return encode_prefix(self.tokenizer, text, self.max_text_len)
+
+    def dispatch_varshape(self, images: List[np.ndarray], prefixes: List[List[int]]):
+        """Run generation over images of varying shapes (the MinMax
+        high-res models, reference inference.py:29-64): each image is cut
+        to whole patches, as the reference's strided patchify drops the
+        remainder pixels, and the images are grouped into exact-grid
+        buckets, one batch program each (gitax pipeline.py:296-319).  The
+        prefixes of one call share one length.  Returns a handle for
+        `resolve`."""
+        p = self.model.cfg.encoder.patch_size
+        groups = collections.defaultdict(list)
+        for i, a in enumerate(images):
+            groups[((a.shape[0] // p) * p, (a.shape[1] // p) * p)].append(i)
+        dispatched = []
+        for (h, w), idxs in sorted(groups.items()):
+            seqs = self._dispatch_batch([images[i][:h, :w] for i in idxs],
+                                        [prefixes[i] for i in idxs])
+            dispatched.append((idxs, seqs))
+        return len(images), dispatched
 
     def resolve(self, handle):
-        """Wait for a dispatched handle and detokenize its rows."""
-        n, seqs = handle
-        arr = torch.cat([s.cpu() for s in seqs], dim=0)[:n].numpy()
-        return [self.tokenizer.decode(row.tolist(), skip_special_tokens=True)
-                for row in arr]
+        """Copy a dispatched handle's sequences to the host and detokenize
+        them, in the order the images were given."""
+        n, dispatched = handle
+        results = [None] * n
+        for idxs, seqs in dispatched:
+            arr = torch.cat([s.cpu() for s in seqs], dim=0)[:len(idxs)].numpy()
+            for i, row in zip(idxs, arr):
+                results[i] = self.tokenizer.decode(row.tolist(), skip_special_tokens=True)
+        return results
 
     def generate_batch(self, images: List[np.ndarray], prefixes: List[List[int]]):
         """images: list of same-shape HWC arrays; prefixes: token lists of
         one length.  Returns the decoded strings."""
         return self.resolve(self.dispatch(images, prefixes))
+
+    def generate_varshape(self, images: List[np.ndarray], prefixes: List[List[int]]):
+        """`dispatch_varshape` then `resolve`: the decoded strings."""
+        return self.resolve(self.dispatch_varshape(images, prefixes))

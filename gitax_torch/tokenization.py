@@ -8,10 +8,10 @@ lower-casing and accent stripping) then greedy longest-match WordPiece,
 as defined by the original BERT repo; ids and decodes equal HuggingFace's
 slow BertTokenizer for the same vocab.
 
-`build_tiny_vocab` makes a small deterministic vocabulary with
-bert-base-uncased's special-token ids, for runs without a vocab file.
-Left out of the copy until a caller needs them: the search for a vocab
-file in user caches and `encode_prefix`.
+`encode_prefix` builds a VQA question prefix.  `build_tiny_vocab` makes a
+small deterministic vocabulary with bert-base-uncased's special-token
+ids, for runs without a vocab file.  Left out of the copy until a caller
+needs it: the search for a vocab file in user caches.
 """
 
 from __future__ import annotations
@@ -303,6 +303,22 @@ class BertTokenizer(object):
         if clean_up_tokenization_spaces:
             text = self.clean_up_tokenization(text)
         return text
+
+
+def encode_prefix(tokenizer, text: str, max_text_len: int = 40):
+    """[CLS] + the last (max_text_len - 2) question tokens: the
+    reference's prefix rule (inference.py:92-101), as gitax's
+    `encode_prefix`."""
+    payload = tokenizer(
+        text,
+        padding="do_not_pad",
+        truncation=True,
+        add_special_tokens=False,
+        max_length=max_text_len,
+    )["input_ids"]
+    if len(payload) > max_text_len - 2:
+        payload = payload[-(max_text_len - 2):]
+    return [tokenizer.cls_token_id] + payload
 
 
 def build_tiny_vocab(words=(), size=30522):

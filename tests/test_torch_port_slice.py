@@ -74,9 +74,13 @@ def test_vit_forward_matches_gitax(fast):
 
 
 def test_vit_forward_rejects_other_grids():
+    """Any grid of whole patches runs (non-square ones interpolate the
+    positional table); an image that is not whole patches raises."""
     _, model = _weights(sharpen=False)
-    with pytest.raises(NotImplementedError):
-        vit_forward(model.image_encoder, torch.zeros(1, 48, 32, 3))
+    assert vit_forward(model.image_encoder, torch.zeros(1, 48, 32, 3)).shape == (1, 7, 32)
+    for h, w in ((40, 32), (32, 47)):
+        with pytest.raises(ValueError, match="whole 16-pixel patches"):
+            vit_forward(model.image_encoder, torch.zeros(1, h, w, 3))
 
 
 @pytest.mark.parametrize("masks", ["none", "memory_valid", "bi_valid"])
