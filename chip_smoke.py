@@ -6,8 +6,8 @@
 Phases, each of which fails the run (non-zero exit) if it fails:
   1. device: the card's name and power limit; TF32 off for the parity
      phases;
-  2. build: both CUDA kernels from gitax_torch/csrc (one nvcc each, in
-     parallel), their compile reports, and the wrappers' shared-memory
+  2. build: the three CUDA kernels from gitax_torch/csrc (one nvcc each,
+     in parallel), their compile reports, and the wrappers' shared-memory
      formulas against the C side's;
   3. decode attention against its plain PyTorch version at the COCO
      path's shapes (GIT_LARGE beam-4, B=32: K=4, H=12, Dh=64, M=257,
@@ -32,7 +32,23 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      launches against the batches and steps;
   8. VQA f32 parity: the encoder and the prefill with the fused
      attention against without it, then beam search from each side with
-     the decode kernel on and off: identical tokens.
+     the decode kernel on and off: identical tokens;
+  9. the fused int8 vocab head against its plain version at the beam
+     step's shape (R = 32 x 4 = 128, W = 768, V = 30522) and at a ragged
+     one (R = 3, V = 1100), f32 and bf16, and its time per call beside
+     the plain version's;
+ 10. the video slice: GIT_LARGE_VATEX (6 frames, M = 6 x 257 = 1542) at
+     full width and depth through the same engine on 64 uint8 clips
+     (2 batches of 32): clips/s, encode, prefill and beam-step times, and
+     kernels 1 and 2's launches against the steps and batches;
+ 11. kernel 3 on the path: the same clips through `generate` with
+     vocab_kernel on and off on the engine's settings, launches = beam
+     steps; the first 4 head calls on the path (logits, block maxima and
+     sums) against the plain head on the same hidden states; both loops'
+     time per step, the share of clips whose tokens agree, the number of
+     distinct outputs, and a profile of one batch on and off;
+ 12. video f32 parity: 4 clips, int8 head, vocab kernel on against off:
+     the first 2 head calls against the plain head, identical tokens.
 Prints one JSON line describing the kernels, then, last, the JSON line
 {"ok": true, "device": {...}}.  Imports nothing of JAX and nothing of
 the gitax package.
@@ -52,6 +68,7 @@ KERNELS = {
                          "gitax/ops/decode_attention.py:147"),
     "flash_attention": ("gitax_torch/csrc/flash_attention.cu",
                         "gitax/ops/flash_attention.py:88"),
+    "vocab_topk": ("gitax_torch/csrc/vocab_topk.cu", "gitax/ops/vocab_topk.py:63"),
 }
 
 # COCO path shapes of the decode-attention call (GIT_LARGE_COCO, B=32)
@@ -66,6 +83,11 @@ VQA_WORDS = ["what", "is", "in", "the", "picture", "color", "shirt", "of", "man"
 # MinMax sources (w, h) -> (question, grid): 30x30, 22x40 (315x560 cut to
 # 308x560), 30x40, 40x30 at GIT_LARGE_VQAv2's 420/560
 VQA_SOURCES = (((500, 500), 0), ((1920, 1080), 0), ((640, 480), 1), ((480, 640), 1))
+# the video path: GIT_LARGE_VATEX's 6 frames per clip, 2 batches of 32
+# clips; the vocab head's shape at the beam step: B*K rows of the hidden
+# width against the vocab
+FRAMES, CLIPS, VIDEO_BATCH = 6, 64, 32
+HEAD_R, HEAD_W, HEAD_V = B * K, 768, 30522
 
 
 def check(cond, msg):
@@ -149,9 +171,8 @@ def phase_build(card):
         " and ".join(KERNELS), time.perf_counter() - t0,
         ", ".join("{} {:.1f} s".format(n, cuda_build.build_seconds(n)) for n in KERNELS)))
     for name in KERNELS:
-        for line in cuda_build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log("build: {}: {}".format(name, line.strip()))
+        for fn, line in ptxas_report(cuda_build.build_log(name)):
+            log("build: {} {}: {}".format(name, fn, line))
     # the wrappers size shared memory in Python; the launches size it in C
     lib = cuda_build.load("decode_attention")
     lib.gitax_decode_attention_smem.restype = ctypes.c_size_t
@@ -168,6 +189,36 @@ def phase_build(card):
         log("build: flash_attention {} shared memory {} bytes per block, wrapper = kernel, "
             "the same at S=901, 1240 and 1600 (it does not depend on S)".format(
                 "bf16" if bf16 else "f32", c_bytes))
+    lib = cuda_build.load("vocab_topk")
+    lib.gitax_vocab_topk_smem.restype = ctypes.c_size_t
+    log("build: vocab_topk shared memory {} bytes per block (bf16, the path's), {} (f32); "
+        "vocab-major int8, 16-byte loads along W".format(
+            lib.gitax_vocab_topk_smem(1), lib.gitax_vocab_topk_smem(0)))
+
+
+def ptxas_report(text):
+    """(function, line) for each register and spill line of an `nvcc
+    -Xptxas -v` report, the function demangled with c++filt where there is
+    one."""
+    import re
+    import shutil
+
+    rows, fn = [], "?"
+    for line in text.splitlines():
+        m = re.search(r"(?:Function properties for|Compiling entry function) '?([\w.$]+)", line)
+        if m:
+            fn = m.group(1)
+        elif "registers" in line or "spill" in line:
+            rows.append((fn, line.split(":", 1)[-1].strip()))
+    filt = shutil.which("c++filt")
+    if filt and rows:
+        names = sorted({f for f, _ in rows})
+        out = subprocess.run([filt], input="\n".join(names), capture_output=True, text=True)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            short = {n: d.replace("(anonymous namespace)::", "").split("(")[0]
+                     for n, d in zip(names, out.stdout.splitlines())}
+            rows = [(short[f], line) for f, line in rows]
+    return rows
 
 
 def phase_decode_kernel(card):
@@ -657,6 +708,362 @@ def phase_vqa_f32_parity(cpu_model, pairs):
         "length {:.2f}".format(lp_err, (seq0 != 102).sum(1).float().mean().item()))
 
 
+def check_vocab_call(label, h, q, sc, bz, logits, bmax, bsum):
+    """One call of the fused vocab head against its plain version on the
+    same inputs, at the stated tolerances; returns (max |logits - plain|,
+    the same over each logit's magnitude)."""
+    import torch
+
+    from gitax_torch.ops import vocab_topk as vt
+
+    r, v = h.shape[0], q.shape[1]
+    ref, _, _ = vt.vocab_logits_topk_reference(h, q, sc, bz)
+    nb = (v + vt.TILE - 1) // vt.TILE
+    check(logits.shape == (r, nb * vt.TILE) and bmax.shape == bsum.shape == (r, nb),
+          "{}: shapes {} {}".format(label, tuple(logits.shape), tuple(bmax.shape)))
+    check(torch.isneginf(logits[:, v:]).all().item(), "{}: padding columns not -inf".format(label))
+    # the same products (bf16 x bf16 and f32 x int8 are exact in f32),
+    # summed in another order: tol 1e-5 of each logit's sum of
+    # |products| * scale + |bias|
+    mag = torch.matmul(h.float().abs(), q.float().abs()) * sc + bz.abs()
+    err = (logits[:, :v] - ref[:, :v]).abs()
+    rel = (err / mag).max().item()
+    check(rel <= 1e-5, "{}: logits err {} of the magnitude".format(label, rel))
+    # statistics of the kernel's own logits: bmax bit-equal
+    _, own_max, own_sum = vt.block_stats(logits, vt.TILE)
+    check(torch.equal(bmax, own_max), "{}: bmax is not the max of the kernel's own logits".format(
+        label))
+    sum_rel = ((bsum - own_sum).abs() / own_sum).max().item()
+    lse = vt.combine_lse(bmax, bsum)
+    lse_ref = torch.logsumexp(logits[:, :v], -1)
+    lse_rel = ((lse - lse_ref).abs() / lse_ref.abs()).max().item()
+    check(sum_rel <= 1e-6 and lse_rel <= 1e-6,
+          "{}: bsum err {} or lse err {} (relative)".format(label, sum_rel, lse_rel))
+    log("{}: max|logits-plain| {:.3e}, {:.2e} of the magnitude (tol 1e-5 of "
+        "sum|h*q|*scale+|bias|), bmax bit-equal to its logits' block max, bsum {:.2e} and lse "
+        "{:.2e} relative (tol 1e-6)".format(label, err.max().item(), rel, sum_rel, lse_rel))
+    return err.max().item(), rel
+
+
+def phase_vocab_kernel(card):
+    """The fused vocab head against its plain version on the same inputs,
+    and the time per call of both."""
+    import torch
+
+    from gitax_torch.ops import vocab_topk as vt
+
+    g = torch.Generator().manual_seed(2)
+
+    def inputs(r, v, dtype):
+        # a LayerNorm-scale hidden state, int8 values over their whole
+        # range, scales of a 0.02-std table (~4 sigma / 127).  The int8
+        # [W, V] is vocab-major, the transpose of a row-major [V, W], as
+        # the port's int8 Linear stores the head
+        q = torch.randint(-127, 128, (v, HEAD_W), generator=g, dtype=torch.int8).cuda()
+        return ((torch.randn(r, HEAD_W, generator=g)).cuda().to(dtype), q.t(),
+                (torch.rand(v, generator=g) * 1e-3 + 1e-4).cuda(),
+                (torch.randn(v, generator=g) * 0.1).cuda())
+
+    worst_main = 0.0
+    for r, v in ((HEAD_R, HEAD_V), (3, 1100)):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = inputs(r, v, dtype)
+            out = vt.vocab_logits_topk_cuda(*args)
+            torch.cuda.synchronize()
+            err, _ = check_vocab_call("vocab kernel {:4s} R={:3d} V={:5d}".format(
+                "f32" if dtype == torch.float32 else "bf16", r, v), *args, *out)
+            if r == HEAD_R and dtype == torch.bfloat16:
+                worst_main = err
+            del args, out
+
+    # time per call at the beam step's bf16 shape; 4 weight copies in
+    # turn (94 MB of int8), so that the 23.4 MB matrix is not left in the
+    # 50 MB L2 from the call before, as in the decode step, where the 6
+    # layers' weights and memory pass through L2 between two head calls
+    nb = (HEAD_V + vt.TILE - 1) // vt.TILE
+    moved = HEAD_W * HEAD_V + HEAD_R * nb * vt.TILE * 4 + 2 * HEAD_R * nb * 4 + HEAD_R * HEAD_W * 2
+    copies = [inputs(HEAD_R, HEAD_V, torch.bfloat16) for _ in range(4)]
+    it = {"i": 0}
+
+    def run(fn):
+        def call():
+            fn(*copies[it["i"] % 4])
+            it["i"] += 1
+        return call
+
+    plain_ms, ker_ms, t = in_turns(run(vt.vocab_logits_topk_reference),
+                                   run(vt.vocab_logits_topk_cuda), 40, 200)
+    log("vocab kernel time per call, bf16 R={} W={} V={}: kernel {:.4f} ms, plain {:.4f} ms "
+        "(plain,kernel,kernel,plain = {}); {:.1f} MB moved (int8 weights + f32 logits + "
+        "stats) -> {:.0f} GB/s [{}]".format(
+            HEAD_R, HEAD_W, HEAD_V, ker_ms, plain_ms, ["%.4f" % x for x in t], moved / 1e6,
+            moved / (ker_ms * 1e-3) / 1e9, card))
+    del copies
+    return dict(max_abs_err=worst_main, ms=ker_ms, plain_ms=plain_ms)
+
+
+class VocabCalls(object):
+    """Records the first `n` calls of the fused vocab head that the
+    decode step makes (inputs and outputs, copied) until `remove`, for
+    `check_vocab_call` after the run."""
+
+    def __init__(self, n):
+        from gitax_torch.models import textual
+
+        self.n, self.calls, self.orig = n, [], textual.vocab_logits_topk
+
+        def recorded(*args):
+            out = self.orig(*args)
+            if len(self.calls) < self.n:
+                self.calls.append([a.clone() for a in args] + [o.clone() for o in out])
+            return out
+
+        textual.vocab_logits_topk = recorded
+
+    def remove(self):
+        from gitax_torch.models import textual
+
+        textual.vocab_logits_topk = self.orig
+
+
+def video_model(seed):
+    """GIT_LARGE_VATEX, random EOS-gated weights, with non-zero temporal
+    embeddings: gitax initialises them to zeros, which would leave the
+    frame order invisible."""
+    import torch
+
+    model = random_model("GIT_LARGE_VATEX", seed=seed, gate=12)
+    g = torch.Generator().manual_seed(seed + 100)
+    with torch.no_grad():
+        for p in model.img_temperal_embedding:
+            p.copy_(torch.randn(p.shape, generator=g) * 0.5)
+    check(len(model.img_temperal_embedding) == FRAMES, "not a 6-frame config")
+    return model
+
+
+def phase_video_slice(card, cpu_model, tok):
+    """GIT_LARGE_VATEX video captioning through the port's CaptionEngine."""
+    import numpy as np
+    import torch
+
+    from gitax_torch.decode.beam import BeamSearchConfig
+    from gitax_torch.ops import flash_attention as fa
+    from gitax_torch.ops import vocab_topk as vt
+    from gitax_torch.ops.decode_attention import decode_attention
+    from gitax_torch.runtime.engine import CaptionEngine
+
+    model = build_model("cuda", torch.bfloat16, cpu_model)
+    cfg = model.cfg
+    engine = CaptionEngine(model, tok, batch_size=VIDEO_BATCH,
+                           beam=BeamSearchConfig(num_beams=4, max_steps=40), dtype=torch.bfloat16,
+                           int8=True, fast_prefill=True, decode_kernel=True)
+    rng = np.random.RandomState(2)
+    clips = [rng.randint(0, 256, (FRAMES, 224, 224, 3), dtype=np.uint8) for _ in range(CLIPS)]
+    prefixes = [[tok.cls_token_id]] * CLIPS
+    engine.generate_batch(clips[:VIDEO_BATCH], prefixes[:VIDEO_BATCH])  # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+
+    spans = {name: DeviceSpans(model, name) for name in ("encode_images", "prefill", "decode_step")}
+    decode_attention.launches = 0
+    fa.launches = 0
+    vt.launches = 0
+    model.decode_step_calls = 0
+    t0 = time.perf_counter()
+    handle = engine.dispatch(clips, prefixes)
+    captions = engine.resolve(handle)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    d_launches, f_launches, steps = decode_attention.launches, fa.launches, model.decode_step_calls
+    v_launches = vt.launches
+    times = {name: s.ms() for name, s in spans.items()}
+    for s in spans.values():
+        s.remove()
+
+    n_enc, n_pre = len(times["encode_images"]), len(times["prefill"])
+    check(n_enc == n_pre == CLIPS // VIDEO_BATCH, "{} encoder and {} prefill batches".format(
+        n_enc, n_pre))
+    # the encoder runs 6 x 32 frames at S=257, below the fused attention's
+    # gate; the prefill at M + 1 = 1543 takes it in each layer
+    check(f_launches == cfg.num_layers * n_pre, "flash_attention launches {} != {} x {} prefill "
+          "batches".format(f_launches, cfg.num_layers, n_pre))
+    check(steps > 0 and d_launches == cfg.num_layers * steps,
+          "decode_attention launches {} != {} layers x {} steps".format(d_launches, cfg.num_layers,
+                                                                       steps))
+    check(v_launches == 0, "the engine launched the vocab kernel {} times".format(v_launches))
+    seqs = torch.cat([s.cpu() for _, bucket in handle[1] for s in bucket])
+    check(seqs.shape == (CLIPS, 40), "sequences shape {}".format(tuple(seqs.shape)))
+    check(len(captions) == CLIPS and all(isinstance(c, str) and c for c in captions),
+          "empty or missing captions")
+    lengths = (seqs != engine.beam.eos_id).sum(1).float()
+    log("video slice: {} GIT_LARGE_VATEX clips of {} frames at 224x224 (M={}), {} batches of {}, "
+        "{} beam steps; flash_attention launches {} = {} x {} (prefill; the encoder's S=257 stays "
+        "below the gate); decode_attention launches {} = {} x {}".format(
+            CLIPS, FRAMES, FRAMES * cfg.encoder.num_tokens, n_enc, VIDEO_BATCH, steps, f_launches,
+            cfg.num_layers, n_pre, d_launches, cfg.num_layers, steps))
+    log("video slice: {:.2f} clips/s, encode {:.2f} ms and prefill {:.2f} ms per batch of {}, "
+        "{:.3f} ms per beam step (device events, 6 layers + head), mean decode length {:.2f} "
+        "tokens [{}]".format(CLIPS / seconds, sum(times["encode_images"]) / n_enc,
+                             sum(times["prefill"]) / n_pre, VIDEO_BATCH,
+                             sum(times["decode_step"]) / len(times["decode_step"]),
+                             lengths.mean().item(), card))
+    log("video slice: {} distinct captions among {}; samples: {}".format(
+        len(set(captions)), CLIPS, captions[:2]))
+    return model, engine, clips, d_launches, f_launches
+
+
+def cls_prefix(x):
+    """The engine's caption prefix, [CLS] per row, stripped from the
+    output."""
+    import torch
+
+    return torch.full((x.shape[0], 1), 101, dtype=torch.long, device=x.device)
+
+
+def phase_vocab_path(card, model, engine, clips):
+    """Kernel 3 on the path: the same clips through `generate` with
+    vocab_kernel on and off on the engine's settings; its first head calls
+    against the plain head; a profile of one batch on and off."""
+    import torch
+
+    from gitax_torch.ops import vocab_topk as vt
+
+    beam = engine.beam_for(1)
+    check(model.vocab_kernel_applies(beam), "the vocab kernel's gates are off")
+    batches = [clips[i:i + VIDEO_BATCH] for i in range(0, len(clips), VIDEO_BATCH)]
+
+    def run(vocab_kernel):
+        spans = {name: DeviceSpans(model, name) for name in ("encode_images", "prefill", "generate")}
+        model.decode_step_calls = 0
+        out = []
+        for batch in batches:
+            x = normalized(batch, torch.bfloat16)
+            out.append(model.generate(x, cls_prefix(x), beam=beam, dtype=torch.bfloat16,
+                                      fast_prefill=True, decode_kernel=True,
+                                      vocab_kernel=vocab_kernel)[0])
+        torch.cuda.synchronize()
+        times = {name: sum(s.ms()) for name, s in spans.items()}
+        for s in spans.values():
+            s.remove()
+        steps = model.decode_step_calls
+        loop = times["generate"] - times["encode_images"] - times["prefill"]
+        return torch.cat(out).cpu(), steps, loop / steps
+
+    # warm-up of the kernel path's device work; the first 4 head calls of
+    # its first batch (beam steps 1-4; step 0 reads the prefill's plain
+    # head) are held against the plain head on the hidden states the
+    # search gave them
+    calls = VocabCalls(4)
+    try:
+        run(True)
+    finally:
+        calls.remove()
+    check(len(calls.calls) == 4, "{} vocab head calls recorded".format(len(calls.calls)))
+    for i, c in enumerate(calls.calls):
+        check_vocab_call("vocab path, on the path: bf16 beam step {} of batch 1, R={}".format(
+            i + 1, c[0].shape[0]), *c)
+    del calls
+    vt.launches = 0
+    seqs_on, steps_on, ms_on = run(True)
+    launches = vt.launches
+    check(steps_on > 0 and launches == steps_on,
+          "vocab_topk launches {} != {} beam steps".format(launches, steps_on))
+    seqs_off, steps_off, ms_off = run(False)
+    check(vt.launches == launches, "the plain head launched the vocab kernel")
+    check(seqs_on.shape == (len(clips), 40), "sequences shape {}".format(tuple(seqs_on.shape)))
+    agree = (seqs_on == seqs_off).all(dim=1).float().mean().item()
+    distinct = len({tuple(x) for x in seqs_on.tolist()})
+    log("vocab path: {} clips through generate(vocab_kernel=True), vocab_topk launches {} = {} beam "
+        "steps; with it off {} steps".format(len(clips), launches, steps_on, steps_off))
+    log("vocab path: beam loop ms per step (device events, generate less encode and prefill), one "
+        "run each: {:.3f} with the kernel, {:.3f} without; the loop is bound by host launches, "
+        "so the device-time profile below is the comparison [{}]".format(ms_on, ms_off, card))
+    log("vocab path: bf16 tokens agree on {:.1%} of clips between kernel on and off, with {} "
+        "distinct token sequences among the {} clips (printed, not asserted: the two heads sum in "
+        "other orders)".format(agree, distinct, len(clips)))
+
+    # device kernel time of one batch with the kernel on and off
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    x = normalized(batches[0], torch.bfloat16)
+    groups = (("vocab_topk", ("vocab_topk",)), ("sorts", ("sort",)),
+              ("matmuls", ("gemm", "nvjet", "cutlass")))
+    totals = {}
+    for vocab_kernel in (True, False):
+        model.decode_step_calls = 0
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model.generate(x, cls_prefix(x), beam=beam, dtype=torch.bfloat16, fast_prefill=True,
+                           decode_kernel=True, vocab_kernel=vocab_kernel)
+            torch.cuda.synchronize()
+        steps = model.decode_step_calls
+        kernels = [e for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
+        total = sum(dev_us(e) for e in kernels) / 1e3
+        check(total > 0, "the profile shows no device time")
+        totals[vocab_kernel] = (total, steps)
+        parts = ", ".join("{} {:.2f} ms x{}".format(
+            name, sum(dev_us(e) for e in kernels if any(k in e.key.lower() for k in keys)) / 1e3,
+            sum(e.count for e in kernels if any(k in e.key.lower() for k in keys)))
+            for name, keys in groups)
+        log("vocab path profile, one batch of {} clips, kernel {}: device kernel time {:.2f} ms, "
+            "{} beam steps; {} [{}]".format(len(batches[0]), "on" if vocab_kernel else "off", total,
+                                           steps, parts, card))
+        if vocab_kernel:
+            for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
+                log("vocab path profile:   {:8.3f} ms {:5.1%} x{:5d}  {}".format(
+                    dev_us(e) / 1e3, dev_us(e) / 1e3 / total, e.count, e.key[:90]))
+    (t_on, s_on), (t_off, s_off) = totals[True], totals[False]
+    log("vocab path profile: device kernel time {:.2f} ms on, {:.2f} ms off per batch of {}; "
+        "{:.2f} ms saved per batch over {} steps [{}]".format(t_on, t_off, len(batches[0]),
+                                                            t_off - t_on, s_on, card))
+    return launches
+
+
+def phase_video_f32_parity(cpu_model, clips, beam):
+    """f32 activations, int8 decoder and head, decode kernel on, the
+    engine's search settings: 4 clips with the vocab kernel on and off
+    give identical tokens."""
+    import torch
+
+    from gitax_torch.ops import vocab_topk as vt
+    from gitax_torch.ops.quant import quantize_git_model_
+
+    model = quantize_git_model_(build_model("cuda", torch.float32, cpu_model))
+    x = normalized(clips[:4], torch.float32)
+    out, steps = {}, {}
+    vt.launches = 0
+    calls = VocabCalls(2)
+    try:
+        for vocab in (True, False):
+            model.decode_step_calls = 0
+            out[vocab] = model.generate(x, cls_prefix(x), beam=beam, decode_kernel=True,
+                                        vocab_kernel=vocab)
+            steps[vocab] = model.decode_step_calls
+    finally:
+        calls.remove()
+    check(len(calls.calls) == 2, "{} f32 vocab head calls recorded".format(len(calls.calls)))
+    for i, c in enumerate(calls.calls):
+        check_vocab_call("video f32 parity, on the path: beam step {}, R={}".format(
+            i + 1, c[0].shape[0]), *c)
+    check(vt.launches == steps[True], "f32 vocab_topk launches {} != {} steps".format(
+        vt.launches, steps[True]))
+    (seq_k, lp_k), (seq_p, lp_p) = out[True], out[False]
+    check(seq_k.shape == (4, 40) and torch.isfinite(lp_k).all().item(),
+          "f32 output shape {} or non-finite logprobs".format(tuple(seq_k.shape)))
+    check(torch.equal(seq_k, seq_p), "f32 tokens differ between the vocab kernel and the plain head")
+    err = (lp_k - lp_p).abs().max().item()
+    check(err <= 1e-4, "f32 logprobs differ by {}".format(err))
+    log("video f32 parity: 4 clips, int8 head, decode kernel on: vocab kernel on and off give "
+        "identical tokens, logprobs within {:.2e} (tol 1e-4), {} beam steps each, mean length "
+        "{:.2f}, {} distinct token sequences".format(
+            err, steps[True], (seq_k != 102).sum(1).float().mean().item(),
+            len({tuple(x) for x in seq_k.tolist()})))
+    del model
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -675,7 +1082,8 @@ def main():
 
     phase_build(card)  # 2
     stats = {"decode_attention": phase_decode_kernel(card),  # 3
-             "flash_attention": phase_flash_kernel(card)}  # 4
+             "flash_attention": phase_flash_kernel(card),  # 4
+             "vocab_topk": phase_vocab_kernel(card)}  # 9
 
     # 5, 6: the COCO path
     coco = random_model("GIT_LARGE_COCO", seed=0, gate=12)
@@ -688,11 +1096,25 @@ def main():
     vqa = random_model("GIT_LARGE_VQAv2", seed=1, gate=16)
     vqa_d, vqa_f, pairs = phase_vqa_slice(card, vqa, BertTokenizer(build_tiny_vocab(VQA_WORDS)))
     phase_vqa_f32_parity(vqa, pairs)
+    del vqa, pairs
+    torch.cuda.empty_cache()
 
-    launches = {"decode_attention": coco_launches + vqa_d, "flash_attention": vqa_f}
-    log("main-path launches: decode_attention {} (COCO {} + VQA {}), flash_attention {} (VQA); "
-        "all phases {:.1f} s".format(launches["decode_attention"], coco_launches, vqa_d, vqa_f,
-                                     time.perf_counter() - t_start))
+    # 10, 11, 12: the video path
+    video = video_model(seed=2)
+    model, engine, clips, video_d, video_f = phase_video_slice(card, video, BertTokenizer(
+        build_tiny_vocab()))
+    vocab_launches = phase_vocab_path(card, model, engine, clips)
+    beam = engine.beam_for(1)
+    del model, engine
+    torch.cuda.empty_cache()
+    phase_video_f32_parity(video, clips, beam)
+
+    launches = {"decode_attention": coco_launches + vqa_d + video_d,
+                "flash_attention": vqa_f + video_f, "vocab_topk": vocab_launches}
+    log("main-path launches: decode_attention {} (COCO {} + VQA {} + video {}), flash_attention {} "
+        "(VQA {} + video {}), vocab_topk {} (video, vocab_kernel on); all phases {:.1f} s".format(
+            launches["decode_attention"], coco_launches, vqa_d, video_d, launches["flash_attention"],
+            vqa_f, video_f, vocab_launches, time.perf_counter() - t_start))
     log(card)
     log(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],

@@ -7,6 +7,8 @@
 state dict, so for an fp tree `model.state_dict()` equals
 `gitax.ckpt.export_git_state_dict(tree, cfg)` key for key, and published
 `model.pt` state dicts load with `load_state_dict` and no converter.
+A video tree's `img_temporal_embedding` [F, Dv] fills the F parameters
+`img_temperal_embedding.{i}` [1, 1, Dv] (the reference's spelling).
 """
 
 from __future__ import annotations
@@ -96,4 +98,16 @@ def params_from_gitax(tree: dict, cfg: GitConfig, device=None,
     if "output_words_q8_t" in tx:
         head.output.set_int8(torch.from_numpy(np.array(tx["output_words_q8_t"], np.int8)),
                              _t(tx["output_words_scale"]))
+
+    # video: gitax's [F, Dv] table -> the reference's F parameters [1, 1, Dv]
+    n_emb, dv = cfg.num_image_with_embedding, cfg.visual_feature_size
+    emb = tree.get("img_temporal_embedding")
+    if emb is None and not n_emb:
+        return model
+    shape = None if emb is None else np.shape(emb)
+    if shape != (n_emb, dv):
+        raise ValueError("temporal embedding {} does not fit the config, which needs {}".format(
+            shape, (n_emb, dv) if n_emb else None))
+    for i, p in enumerate(model.img_temperal_embedding):
+        p.copy_(_t(np.asarray(emb)[i]).reshape(1, 1, dv))
     return model

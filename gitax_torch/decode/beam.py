@@ -14,10 +14,13 @@ parent's ancestry row (KVCache.anc).
 
 Every top-k breaks ties toward the lowest index, as gitax does
 (beam.py:103-107): `torch.topk` documents no tie order, so the top-k is a
-stable descending sort and a slice.
+stable descending sort and a slice.  The plain path sorts the full vocab
+row; gitax's blocked top-k (`_top_k_blocked`) serves the `vocab_stats`
+path, which reads the block maxima and sums of exponentials that the
+fused vocab-head kernel (ops/vocab_topk.py) emits.
 
-Sampling, the repetition penalty and the fused vocab statistics are not
-ported yet: the config has no fields for them.
+Sampling and the repetition penalty are not ported yet: the config has no
+fields for them.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from ..ops.vocab_topk import TILE, block_stats, combine_lse
 
 NEG_INF = -1e9
 EMPTY_HYP_LOGPROB = -1e5  # reference decoder.py:1265-1266
@@ -57,6 +62,37 @@ def top_k_stable(x, k):
     return vals[..., :k], idx[..., :k]
 
 
+def _top_k_blocked(x, k, block=TILE, bmax=None):
+    """Exact top-k of x [B, N] through a block-max prefilter (gitax
+    beam.py:142-177): the k blocks of highest max (ties to the lower
+    block) cover the true top-k, since each block holding one of them has
+    a max ranked at or before it; the top-k of those k blocks, gathered
+    in index order, keeps the lowest-index tie rule.  bmax: the [B, NB]
+    maxima of x under the -inf padding, precomputed (the vocab-head
+    kernel's); else taken here, and with fewer than max(k, 4) blocks the
+    plain top-k runs instead, as in gitax."""
+    b, n = x.shape
+    nb = (n + block - 1) // block
+    if bmax is None and nb < max(k, 4):
+        return top_k_stable(x, k)
+    pad = nb * block - n
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad), value=float("-inf"))
+    xb = x.reshape(b, nb, block)
+    if bmax is None:
+        bmax = xb.amax(dim=-1)
+    if tuple(bmax.shape) != (b, nb):
+        raise ValueError("bmax {} for {} rows of {} blocks".format(tuple(bmax.shape), b, nb))
+    if k > nb:
+        raise ValueError("top-{} over {} blocks: the blocks cannot cover it".format(k, nb))
+    _, bidx = top_k_stable(bmax, k)
+    bidx = torch.sort(bidx, dim=-1).values
+    cand = xb.gather(1, bidx[:, :, None].expand(b, k, block))
+    vals, within = top_k_stable(cand.reshape(b, k * block), k)
+    idx = bidx.gather(1, within // block) * block + within % block
+    return vals, idx
+
+
 def _tile_beams(cache, num_beams: int):
     """Expand the TEXT cache to B*num_beams rows (b0 b0 .. b1 b1 ..).
     Memory K/V stay at batch B: beams of one element share them."""
@@ -67,11 +103,18 @@ def _tile_beams(cache, num_beams: int):
 
 
 def beam_search(decode_step_fn, prefill_logits, cache, prefix_tokens,
-                cfg: BeamSearchConfig):
+                cfg: BeamSearchConfig, vocab_stats=False):
     """Run the search.  Returns (decoded [B, N, max_steps] int64,
     logprobs [B, N] f32); sequences include the prefix and are
     EOS-padded.  decode_step_fn(tokens [BK], cache) -> (logits [BK, V],
-    cache)."""
+    cache).
+
+    vocab_stats=True: decode_step_fn returns (logits [BK, NB*512]
+    -inf-padded, cache, (bmax, bsum) [BK, NB]), the vocab-head kernel's
+    outputs (ops/vocab_topk.py), and each step's top-k and logsumexp read
+    the block statistics instead of passing over the full logits.  The
+    first step's statistics come from the prefill's plain-head logits
+    (`block_stats`).  The vocab size stays the unpadded prefill logits'."""
     b, tp = prefix_tokens.shape
     k = cfg.num_beams
     n = cfg.num_keep_best
@@ -100,6 +143,8 @@ def beam_search(decode_step_fn, prefill_logits, cache, prefix_tokens,
     hyp_count = torch.zeros((b,), dtype=torch.long, device=dev)
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
     logits = prefill_logits.repeat_interleave(k, dim=0)
+    if vocab_stats:
+        logits, bmax, bsum = block_stats(logits.float())
 
     # length norms are 0-dim CPU tensors: scalars to device ops, no upload
     done_norm = _length_norm((cfg.norm_max_length or max_len) - 1, alpha)
@@ -112,8 +157,12 @@ def beam_search(decode_step_fn, prefill_logits, cache, prefix_tokens,
     while cur_len < max_len and not bool(done.all()):
         # top-C per beam over raw logits, normalized by logsumexp only for
         # the candidates, then merged over the group's K*C candidates
-        pb_vals, pb_idx = top_k_stable(logits, c)  # [BK, C]
-        lse = torch.logsumexp(logits.float(), dim=-1)
+        if vocab_stats:
+            pb_vals, pb_idx = _top_k_blocked(logits, c, block=TILE, bmax=bmax)
+            lse = combine_lse(bmax, bsum)
+        else:
+            pb_vals, pb_idx = top_k_stable(logits, c)  # [BK, C]
+            lse = torch.logsumexp(logits.float(), dim=-1)
         cand = pb_vals.float() - lse[:, None] + beam_scores.reshape(-1)[:, None]
         merged_scores = cand.reshape(b, k * c)
         merged_idx = pb_idx.reshape(b, k * c) + (beam_of * v)[None, :]
@@ -170,7 +219,10 @@ def beam_search(decode_step_fn, prefill_logits, cache, prefix_tokens,
         anc = cache.anc[(parents + batch_base).reshape(-1)]
         anc[:, cur_len] = own_row
         cache = dataclasses.replace(cache, anc=anc)
-        logits, cache = decode_step_fn(words.reshape(-1), cache)
+        if vocab_stats:
+            logits, cache, (bmax, bsum) = decode_step_fn(words.reshape(-1), cache)
+        else:
+            logits, cache = decode_step_fn(words.reshape(-1), cache)
         cur_len += 1
 
     filled = torch.isfinite(hyp_scores)

@@ -5,11 +5,13 @@
 (`image_encoder.*`, `textual.*`), so `gitax.ckpt.export_git_state_dict`
 of a gitax tree and this module's `state_dict()` agree key for key (see
 `gitax_torch.ckpt`).  Ported: single-image encoding at any grid of whole
-patches (the MinMax high-res inputs included), memory with no text
-context, and beam-search generation with or without a question prefix,
-the encoder and the prefill taking the fused-attention kernel by gitax's
-auto rule.  Greedy, trie, video and text context are not ported; video
-configs and frame stacks raise.
+patches (the MinMax high-res inputs included), video clips (frames
+encoded one by one, offset by their temporal embeddings and concatenated
+or averaged), memory with no text context, and beam-search generation
+with or without a question prefix, the encoder and the prefill taking the
+fused-attention kernel by gitax's auto rule and the int8 head optionally
+taking the fused vocab-head kernel.  Greedy, trie and text context are
+not ported.
 """
 
 from __future__ import annotations
@@ -21,23 +23,33 @@ import torch
 from torch import nn
 
 from ..decode.beam import BeamSearchConfig, beam_search
+from ..ops.vocab_topk import TILE
 from . import textual as T
 from .config import GitConfig
+from .nn import empty_param
 from .vit import VisualTransformer, vit_forward
 
 
 class GitModel(nn.Module):
     """Inference-only GIT: parameters are created with
     requires_grad=False on `device` in `dtype` (random values until
-    `init_params` or `ckpt.params_from_gitax` fills them)."""
+    `init_params` or `ckpt.params_from_gitax` fills them).  A video config
+    (num_image_with_embedding = F > 0) adds `img_temperal_embedding`, F
+    parameters [1, 1, Dv]: the reference's key and spelling, as gitax
+    exports its [F, Dv] `img_temporal_embedding`."""
 
     def __init__(self, cfg: GitConfig, device=None, dtype=torch.float32):
         super().__init__()
-        if cfg.num_image_with_embedding:
-            raise NotImplementedError("video models are not ported yet")
+        if cfg.pooling_images not in (None, "avg"):
+            raise ValueError("pooling_images {!r}: None or 'avg'".format(cfg.pooling_images))
         self.cfg = cfg
         self.image_encoder = VisualTransformer(cfg.encoder, device, dtype)
         self.textual = T.TextualHead(cfg, device, dtype)
+        if cfg.num_image_with_embedding:
+            self.img_temperal_embedding = nn.ParameterList(
+                empty_param((1, 1, cfg.visual_feature_size), device, dtype)
+                for _ in range(cfg.num_image_with_embedding)
+            )
         # decode steps run through this model (beam iterations summed over
         # calls); read by chip_smoke.py to match kernel launches
         self.decode_step_calls = 0
@@ -47,15 +59,40 @@ class GitModel(nn.Module):
         generator."""
         self.image_encoder.init_params(generator)
         self.textual.init_params(generator)
+        if self.cfg.num_image_with_embedding:
+            with torch.no_grad():
+                for p in self.img_temperal_embedding:
+                    p.zero_()  # gitax initialises them to zeros
         return self
 
     # -- encoder ---------------------------------------------------------
     def encode_images(self, images, dtype=torch.float32, fast=None, flash=None):
-        """images [B, H, W, 3] (one image per element) -> tokens.  flash:
-        the fused-attention switch of `vit_forward` (None: auto)."""
-        if images.dim() != 4:
-            raise NotImplementedError("multi-frame (video) input is not ported yet")
-        return vit_forward(self.image_encoder, images, dtype, fast=fast, flash=flash)
+        """images [B, H, W, 3] (one image per element) or [B, F, H, W, 3]
+        (video frames) -> tokens.  Frames are encoded as one batch of B*F
+        images, each offset by its temporal embedding, then concatenated on
+        the token axis ([B, F*S, Dv]) or, with pooling_images='avg',
+        averaged ([B, S, Dv]) (gitax git.py:56-90).  Frames beyond
+        num_image_with_embedding are dropped, as the reference's zip does.
+        flash: the fused-attention switch of `vit_forward` (None: auto)."""
+        if images.dim() == 4:
+            return vit_forward(self.image_encoder, images, dtype, fast=fast, flash=flash)
+        if images.dim() != 5:
+            raise ValueError("images must be [B, H, W, 3] or [B, F, H, W, 3], got {}".format(
+                tuple(images.shape)))
+        b, f = images.shape[:2]
+        n_emb = self.cfg.num_image_with_embedding
+        if n_emb:
+            f = min(f, n_emb)
+            images = images[:, :f]
+        feats = vit_forward(self.image_encoder, images.reshape((b * f,) + images.shape[2:]),
+                            dtype, fast=fast, flash=flash)
+        feats = feats.reshape(b, f, feats.shape[1], feats.shape[2])
+        if n_emb:
+            emb = torch.cat([self.img_temperal_embedding[i].reshape(1, -1) for i in range(f)])
+            feats = feats + emb.to(feats.dtype)[None, :, None, :]
+        if self.cfg.pooling_images == "avg":
+            return feats.mean(dim=1)
+        return feats.reshape(b, f * feats.shape[2], feats.shape[3])
 
     def build_memory(self, images, dtype=torch.float32, fast=None, flash=None):
         """(memory, memory_valid): the image tokens, all valid (the text
@@ -70,16 +107,26 @@ class GitModel(nn.Module):
                          max_text_len, memory_valid=memory_valid, dtype=dtype,
                          fast=fast, kernel_memory=kernel_memory, flash=flash)
 
-    def decode_step(self, tokens, cache, dtype=torch.float32, kernel=False):
+    def decode_step(self, tokens, cache, dtype=torch.float32, kernel=False,
+                    vocab_kernel=False):
         self.decode_step_calls += 1
         return T.decode_step(self.textual, tokens, cache, self.cfg, dtype=dtype,
-                             kernel=kernel)
+                             kernel=kernel, vocab_kernel=vocab_kernel)
+
+    def vocab_kernel_applies(self, beam: BeamSearchConfig) -> bool:
+        """gitax's gate of `vocab_kernel` (git.py:321-333): the int8 head,
+        and at least max(C, 4) vocab blocks, so that the prefilter's
+        blocks cover the C candidates.  (gitax also needs no sampling and
+        no repetition penalty; the port's search has neither.)"""
+        nblk = (self.cfg.vocab_size + TILE - 1) // TILE
+        return (self.textual.output.quantized
+                and nblk >= max(beam.per_node_beam_size * beam.num_beams, 4))
 
     # -- generation --------------------------------------------------------
     @torch.inference_mode()
     def generate(self, images, prefix_tokens=None, beam: Optional[BeamSearchConfig] = None,
                  dtype=torch.float32, sos_id=101, mode="beam", fast_prefill=False,
-                 decode_kernel=False, flash=None):
+                 decode_kernel=False, flash=None, vocab_kernel=False):
         """Caption generation by beam search (reference decoder.py:977-1011).
 
         prefix_tokens [B, Tp] defaults to [CLS]; an explicit prefix is
@@ -88,7 +135,11 @@ class GitModel(nn.Module):
         (the decode-attention kernel path) or 'int8' (the kernel path
         with int8 memory K/V).  flash: the encoder's and the prefill's
         fused-attention switch; None, gitax's only setting, applies the
-        auto rule to each.  Returns (sequences, logprobs).  Only
+        auto rule to each.  vocab_kernel=True runs the int8 head of every
+        beam step through the fused vocab-head kernel and the search on its
+        block statistics; with gitax's gates (`vocab_kernel_applies`) and,
+        where they fail, the plain head, as gitax does.  images: [B, H, W,
+        3] or video [B, F, H, W, 3].  Returns (sequences, logprobs).  Only
         mode='beam' is ported; gitax's 'greedy' and 'trie' raise."""
         if mode != "beam":
             raise NotImplementedError("generate mode {!r} is not ported yet".format(mode))
@@ -104,10 +155,14 @@ class GitModel(nn.Module):
                                      memory_valid, dtype, fast=fast_prefill,
                                      kernel_memory=decode_kernel, flash=flash)
 
-        def step(tokens, cache):
-            return self.decode_step(tokens, cache, dtype, kernel=bool(decode_kernel))
+        vocab_kernel = bool(vocab_kernel) and self.vocab_kernel_applies(beam)
 
-        decoded, logprobs = beam_search(step, logits, cache, prefix_tokens, beam)
+        def step(tokens, cache):
+            return self.decode_step(tokens, cache, dtype, kernel=bool(decode_kernel),
+                                    vocab_kernel=vocab_kernel)
+
+        decoded, logprobs = beam_search(step, logits, cache, prefix_tokens, beam,
+                                        vocab_stats=vocab_kernel)
         decoded = decoded[:, :, tp:]
         if beam.num_keep_best == 1:
             decoded, logprobs = decoded[:, 0], logprobs[:, 0]

@@ -4,7 +4,10 @@ functions, the counterpart of `gitax.models.nn`.
 Layout convention: `Linear.weight` is `[out, in]`, as in torch and the
 reference state dict.  A weight-only int8 `Linear` (ops/quant.py) holds
 `weight_q8_t [in, out]` int8 and a per-output-channel `weight_scale`,
-the same values gitax stores as `kernel_q8` / `kernel_scale`.  LayerNorm
+the same values gitax stores as `kernel_q8` / `kernel_scale`.  Its
+storage is always out-major (a row-major [out, in] seen transposed,
+each output channel's weights contiguous), whichever loader filled it:
+the layout the fused vocab-head kernel reads.  LayerNorm
 and the decoder's softmax accumulate in float32, so the bf16 activation
 mode keeps the parity-critical numerics.
 
@@ -63,10 +66,11 @@ class Linear(nn.Module):
 
     def set_int8(self, q8_t, scale):
         """Replace the fp weight with int8 `q8_t [in, out]` and f32
-        `scale [out]` (see ops/quant.py)."""
+        `scale [out]` (see ops/quant.py), stored out-major."""
         device = self.weight.device
         del self._parameters["weight"]
-        self.register_buffer("weight_q8_t", q8_t.to(device=device, dtype=torch.int8))
+        q8_t = q8_t.to(device=device, dtype=torch.int8)
+        self.register_buffer("weight_q8_t", q8_t.t().contiguous().t())
         self.register_buffer(
             "weight_scale", scale.to(device=device, dtype=torch.float32)
         )

@@ -28,6 +28,7 @@ from torch import nn
 
 from ..ops.decode_attention import decode_attention, quantize_memory
 from ..ops.flash_attention import auto_flash, fused_attention
+from ..ops.vocab_topk import vocab_logits_topk
 from .config import GitConfig
 from .nn import (
     LayerNorm,
@@ -362,10 +363,17 @@ def prefill(tx: TextualHead, visual_features, prefix_tokens, cfg: GitConfig,
 
 
 def decode_step(tx: TextualHead, tokens, cache: KVCache, cfg: GitConfig,
-                dtype=torch.float32, kernel=False):
+                dtype=torch.float32, kernel=False, vocab_kernel=False):
     """One incremental step: tokens [B*beams] at text position
     cache.length.  Returns (f32 logits [B*beams, vocab], the cache with
     length+1); the text cache is updated in place.
+
+    vocab_kernel=True routes the int8 tied head through
+    `ops.vocab_topk.vocab_logits_topk` (the CUDA kernel for CUDA tensors,
+    its plain version for CPU tensors) and changes the return to
+    (logits [B*beams, NB*512] -inf-padded, cache, (bmax, bsum)), what
+    `beam_search(vocab_stats=True)` reads (gitax textual.py:546-560).  It
+    needs the int8 head and raises without it.
 
     kernel=True routes each layer's attention through
     `ops.decode_attention.decode_attention`: the CUDA kernel for CUDA
@@ -390,6 +398,8 @@ def decode_step(tx: TextualHead, tokens, cache: KVCache, cfg: GitConfig,
     scale = (1.0 / torch.sqrt(torch.tensor(float(dh)))).to(dtype)
     if cache.mem_scale is not None and not kernel:
         raise ValueError("int8 memory is read only by the decode-attention kernel path")
+    if vocab_kernel and not tx.output.quantized:
+        raise ValueError("vocab_kernel needs the int8 output head (ops/quant.py)")
 
     if kernel:
         anc = cache.anc
@@ -448,5 +458,10 @@ def decode_step(tx: TextualHead, tokens, cache: KVCache, cfg: GitConfig,
     for li, layer in enumerate(tx.layers()):
         ctx = attend(x, layer, cache.mem_kv[li], mem_scale[li], cache.txt_kv[li])
         x = _attn_tail(x, ctx, layer, cfg)
-    logits = output_logits(tx, x[:, 0], acc_dtype=torch.float32)
-    return logits, dataclasses.replace(cache, length=pos + 1)
+    cache = dataclasses.replace(cache, length=pos + 1)
+    if vocab_kernel:
+        out = tx.output
+        logits, bmax, bsum = vocab_logits_topk(x[:, 0].contiguous(), out.weight_q8_t,
+                                               out.weight_scale, out.bias.float())
+        return logits, cache, (bmax, bsum)
+    return output_logits(tx, x[:, 0], acc_dtype=torch.float32), cache

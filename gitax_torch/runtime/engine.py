@@ -2,14 +2,17 @@
 part of `gitax.runtime.pipeline.CaptionEngine`.
 
 Ported: the constructor's int8 / fast-prefill / decode-kernel rules, the
-per-prefix-length beam settings (`_caption_fn`), uint8 upload with
-normalization on the device, `dispatch_device_batch`, `_dispatch_batch`,
-`generate_batch`, the VQA question prefix (`encode_prefix`), the
-variable-resolution batches of the MinMax high-res models
-(`dispatch_varshape`, `generate_varshape`: images cut to whole patches
-and grouped into exact-grid buckets) and `resolve`.  Not ported: the TSV
-loops (they need a JPEG decode), float image input and the device mesh.
-Detokenization takes a `gitax_torch.tokenization.BertTokenizer`.
+per-prefix-length beam settings (`beam_for`, `_caption_fn`), uint8 upload
+with normalization on the device, `dispatch_device_batch`,
+`_dispatch_batch`, `generate_batch`, the VQA question prefix
+(`encode_prefix`), the variable-resolution batches of the MinMax high-res
+models (`dispatch_varshape`, `generate_varshape`: images cut to whole
+patches and grouped into exact-grid buckets) and `resolve`.  The items of
+`dispatch` and `generate_batch` are images [H, W, 3] or video clips
+[F, H, W, 3], one shape per call.  As in gitax, the engine runs the plain
+vocab head (no `vocab_kernel`).  Not ported: the TSV loops (they need a
+JPEG decode), float image input and the device mesh.  Detokenization
+takes a `gitax_torch.tokenization.BertTokenizer`.
 """
 
 from __future__ import annotations
@@ -62,15 +65,19 @@ class CaptionEngine(object):
         self.mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=self.device)
         self.std = torch.tensor(CLIP_STD, dtype=torch.float32, device=self.device)
 
-    def _caption_fn(self, prefix_len: int):
-        """The batch program for a prefix length: the beam buffer holds
+    def beam_for(self, prefix_len: int) -> BeamSearchConfig:
+        """The search settings for a prefix length: the beam buffer holds
         the prefix plus max_text_len tokens; the length norm keeps the
         reference's 1024 for is_done parity."""
-        beam = dataclasses.replace(
+        return dataclasses.replace(
             self.beam,
             max_steps=max(self.beam.max_steps, prefix_len + self.max_text_len),
             norm_max_length=self.beam.norm_max_length or max(self.beam.max_steps, 1024),
         )
+
+    def _caption_fn(self, prefix_len: int):
+        """The batch program for a prefix length (`beam_for`'s settings)."""
+        beam = self.beam_for(prefix_len)
         dtype = self.dtype
 
         def fn(images, prefix):
@@ -84,23 +91,33 @@ class CaptionEngine(object):
         return fn
 
     def dispatch_device_batch(self, imgs: np.ndarray, pref: np.ndarray):
-        """Upload ONE same-shape batch ([B,H,W,3] uint8, normalized on the
-        device) with prefixes [B,Tp] and run the search.  Returns the
-        device sequences [B, L]."""
+        """Upload ONE same-shape batch (images [B, H, W, 3] or clips
+        [B, F, H, W, 3], uint8, normalized on the device) with prefixes
+        [B, Tp] and run the search.  Returns the device sequences [B, L]."""
         if imgs.dtype != np.uint8:
             raise ValueError("images must be uint8 HWC, got {}".format(imgs.dtype))
+        if imgs.ndim not in (4, 5) or imgs.shape[-1] != 3:
+            raise ValueError("a batch must be [B, H, W, 3] images or [B, F, H, W, 3] clips, "
+                             "got {}".format(imgs.shape))
         pref = torch.from_numpy(np.asarray(pref, np.int64)).to(self.device)
         fn = self._caption_fn(pref.shape[1])
         seqs, _ = fn(torch.from_numpy(imgs).to(self.device), pref)
         return seqs
 
     def _dispatch_batch(self, images: List[np.ndarray], prefixes: List[List[int]]):
-        """Same-shape images -> list of device sequence tensors covering
-        >= len(images) rows (the tail batch is padded with its last
-        image)."""
+        """Same-shape items (images [H, W, 3] or clips [F, H, W, 3]) ->
+        list of device sequence tensors covering >= len(images) rows (the
+        tail batch is padded with its last item)."""
         n = len(images)
         if n == 0:
             raise ValueError("no images")
+        shape = images[0].shape
+        if len(shape) not in (3, 4) or shape[-1] != 3:
+            raise ValueError("an item must be an image [H, W, 3] or a clip [F, H, W, 3], "
+                             "got {}".format(shape))
+        if any(a.shape != shape for a in images):
+            raise ValueError("items of one dispatch must share one shape, got {}".format(
+                sorted({a.shape for a in images})))
         b = self.batch_size
         tp = len(prefixes[0])
         if any(len(p) != tp for p in prefixes):
@@ -112,8 +129,9 @@ class CaptionEngine(object):
                 for i in range(0, len(imgs), b)]
 
     def dispatch(self, images: List[np.ndarray], prefixes: List[List[int]]):
-        """Run generation over same-shape images; returns a handle for
-        `resolve`, of the form `dispatch_varshape` returns (one bucket)."""
+        """Run generation over same-shape images [H, W, 3] or clips
+        [F, H, W, 3]; returns a handle for `resolve`, of the form
+        `dispatch_varshape` returns (one bucket)."""
         return len(images), [(list(range(len(images))), self._dispatch_batch(images, prefixes))]
 
     def encode_prefix(self, text: str) -> List[int]:
@@ -131,6 +149,8 @@ class CaptionEngine(object):
         p = self.model.cfg.encoder.patch_size
         groups = collections.defaultdict(list)
         for i, a in enumerate(images):
+            if a.ndim != 3:
+                raise ValueError("dispatch_varshape takes images [H, W, 3], got {}".format(a.shape))
             groups[((a.shape[0] // p) * p, (a.shape[1] // p) * p)].append(i)
         dispatched = []
         for (h, w), idxs in sorted(groups.items()):
@@ -151,8 +171,8 @@ class CaptionEngine(object):
         return results
 
     def generate_batch(self, images: List[np.ndarray], prefixes: List[List[int]]):
-        """images: list of same-shape HWC arrays; prefixes: token lists of
-        one length.  Returns the decoded strings."""
+        """images: list of same-shape HWC arrays or FHWC clips; prefixes:
+        token lists of one length.  Returns the decoded strings."""
         return self.resolve(self.dispatch(images, prefixes))
 
     def generate_varshape(self, images: List[np.ndarray], prefixes: List[List[int]]):

@@ -245,6 +245,24 @@ def test_quantize_model_matches_quantized_tree():
         assert torch.equal(sd_a[key], sd_b[key]), key
 
 
+@pytest.mark.parametrize("loader", ["quantize_model_in_place", "params_from_quantized_tree"])
+def test_int8_weights_are_out_major_from_either_loader(loader):
+    """Every int8 Linear, the tied head included, stores its [in, out]
+    values out-major (a row-major [out, in] seen transposed), the one
+    layout the vocab-head kernel reads, whichever loader filled it."""
+    tree = _gitax_tree(2)
+    if loader == "quantize_model_in_place":
+        model = pquant.quantize_git_model_(ckpt.params_from_gitax(tree, SMALL))
+    else:
+        model = ckpt.params_from_gitax(pquant.quantize_git_params(tree), SMALL)
+    q8 = {k: t for k, t in model.state_dict().items() if k.endswith("weight_q8_t")}
+    assert "textual.output.weight_q8_t" in q8 and len(q8) > 1
+    for key, t in q8.items():
+        assert t.dtype == torch.int8 and t.t().is_contiguous(), (key, t.stride())
+    head = model.textual.output.weight_q8_t
+    assert head.shape == (SMALL.hidden_size, SMALL.vocab_size)
+
+
 def test_quantize_memory_identical_to_gitax():
     mem = _rand((2, 3, 7, 16), 0)
     q_ref, s_ref = gx_quantize_memory(jnp.asarray(mem))
@@ -306,13 +324,18 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(mods) >= 15
+    assert len(mods) >= 16
+    # every kernel module, the vocab head's included
+    assert {"gitax_torch.ops.decode_attention", "gitax_torch.ops.flash_attention",
+            "gitax_torch.ops.vocab_topk", "gitax_torch.models.git"} <= set(mods)
 
 
 def test_port_sources_never_import_jax():
     sources = [os.path.join(root, f)
                for root, _, files in os.walk(os.path.join(REPO, "gitax_torch"))
                for f in files if f.endswith(".py")]
+    assert {os.path.join(REPO, "gitax_torch", "ops", name + ".py")
+            for name in ("decode_attention", "flash_attention", "vocab_topk")} <= set(sources)
     for path in sources + [os.path.join(REPO, "chip_smoke.py")]:
         text = open(path).read()
         for banned in ("import jax", "from jax", "import gitax\n", "import gitax.",
