@@ -47,8 +47,9 @@ def _fill_ln(ln, p, i=None):
 @torch.no_grad()
 def params_from_gitax(tree: dict, cfg: GitConfig, device=None,
                       dtype=torch.float32) -> GitModel:
-    """gitax params tree (numpy) -> GitModel on `device` in `dtype`
-    (int8 values and f32 scales keep their types)."""
+    """gitax params tree (numpy) -> GitModel on `device` (default: the
+    CUDA card; raises without one) in `dtype` (int8 values and f32 scales
+    keep their types)."""
     model = GitModel(cfg, device=device, dtype=dtype)
 
     ie, vit = tree["image_encoder"], model.image_encoder

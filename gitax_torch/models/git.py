@@ -30,10 +30,23 @@ from .nn import empty_param
 from .vit import VisualTransformer, vit_forward
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: `device` when the caller names
+    one, else the CUDA card.  Without a card that raises; there is no
+    silent move to the CPU (pass device='cpu' for that)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card unless the caller "
+                           "passes device='cpu'")
+    return torch.device("cuda")
+
+
 class GitModel(nn.Module):
     """Inference-only GIT: parameters are created with
-    requires_grad=False on `device` in `dtype` (random values until
-    `init_params` or `ckpt.params_from_gitax` fills them).  A video config
+    requires_grad=False on `device` (default: the CUDA card, see
+    `resolve_device`) in `dtype` (random values until `init_params` or
+    `ckpt.params_from_gitax` fills them).  A video config
     (num_image_with_embedding = F > 0) adds `img_temperal_embedding`, F
     parameters [1, 1, Dv]: the reference's key and spelling, as gitax
     exports its [F, Dv] `img_temporal_embedding`."""
@@ -42,6 +55,7 @@ class GitModel(nn.Module):
         super().__init__()
         if cfg.pooling_images not in (None, "avg"):
             raise ValueError("pooling_images {!r}: None or 'avg'".format(cfg.pooling_images))
+        device = resolve_device(device)
         self.cfg = cfg
         self.image_encoder = VisualTransformer(cfg.encoder, device, dtype)
         self.textual = T.TextualHead(cfg, device, dtype)

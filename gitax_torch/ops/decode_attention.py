@@ -26,6 +26,7 @@ Returns ctx [BK, H*Dh] in the activation dtype.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -35,6 +36,15 @@ NEG_INF = -1e30
 
 # the smem per block a kernel launch may take on sm_90 (227 KB)
 _MAX_SMEM = 232448
+# the kernel's plan: the portable cluster size, rows per bulk copy (one
+# mbarrier each), the beams it takes, warps per CTA; the shared memory a
+# CTA may take so that three share an SM (228 KB per SM, 1 KB of it
+# reserved per CTA)
+_MAX_CLUSTER = 8
+_SUB_ROWS = 32
+_MAX_BEAMS = 8
+_WARPS = 8
+_THIRD_OF_SM = 233472 // 3 - 1024
 
 
 def decode_attention_reference(q, kv_new, txt_kv, anc, pos, mem_kv,
@@ -78,14 +88,43 @@ def decode_attention_reference(q, kv_new, txt_kv, anc, pos, mem_kv,
     return ctx.to(dt).reshape(bk, h * dh)
 
 
-def smem_bytes(beams, head_dim, mem_len, t_max):
-    """Shared memory one block of the kernel takes: f32 queries [K, Dh]
-    and scores [K, M+T], int32 cache rows [K, T].  The same formula as
-    the C side's `gitax_decode_attention_smem`."""
-    return 4 * (beams * head_dim + beams * (mem_len + t_max)) + 4 * beams * t_max
+def smem_bytes(beams, head_dim, chunk, t_max, mem_bytes, cluster):
+    """Shared memory one CTA of the kernel takes for `chunk` memory rows
+    of `mem_bytes`-byte elements in a cluster of `cluster` CTAs, each
+    taking up to ceil(T / C) text slots: the k|v rows [chunk, 2Dh] (padded
+    to 16 bytes), whose space the 8 warps' f32 partial contexts [8, K, Dh]
+    take once the rows are read; one mbarrier per 32 rows; f32 queries
+    [K, Dh]; f32 scores [K, chunk + slots]; int32 cache rows [K, slots];
+    the f32 max and sum per beam; the cluster's f32 contexts [C, K, Dh].
+    The same formula as the C side's `gitax_decode_attention_smem`."""
+    rows = -(-chunk * 2 * head_dim * mem_bytes // 16) * 16
+    parts = 4 * _WARPS * beams * head_dim
+    nsub = -(-chunk // _SUB_ROWS)
+    slots = -(-t_max // cluster)
+    return max(rows, parts) + 8 * nsub + 4 * (
+        beams * head_dim + beams * (chunk + slots) + beams * slots + 2 * beams
+        + cluster * beams * head_dim)
 
 
-# (launch function, largest head_dim), bound at the first launch
+@functools.lru_cache(maxsize=64)
+def cluster_plan(mem_len, beams, head_dim, t_max, mem_bytes):
+    """The kernel's launch plan for each (batch element, head): a cluster
+    of C <= 8 CTAs, the smallest whose CTAs fit three to an SM (C = 8
+    where none does); the kernel's CTA r owns memory rows [r * chunk,
+    min(M, (r + 1) * chunk)) and the text slots r, r + C, ....  Fewer,
+    fuller CTAs carry more bytes per cluster barrier, as long as three
+    still share an SM (the sweep in PERF.md §6).  Returns (cluster,
+    chunk, smem_bytes); cached, as the decode loop repeats one shape per
+    layer and step."""
+    for cluster in range(1, _MAX_CLUSTER + 1):
+        chunk = -(-mem_len // cluster)
+        smem = smem_bytes(beams, head_dim, chunk, t_max, mem_bytes, cluster)
+        if smem <= _THIRD_OF_SM:
+            break
+    return cluster, chunk, smem
+
+
+# (launch function, the head dim the kernel takes), bound at the first launch
 _KERNEL = None
 
 
@@ -94,10 +133,10 @@ def _bind():
     if _KERNEL is None:
         lib = cuda_build.load("decode_attention")
         fn = lib.gitax_decode_attention
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.gitax_decode_attention_max_head_dim.restype = ctypes.c_int
-        _KERNEL = (fn, lib.gitax_decode_attention_max_head_dim())
+        lib.gitax_decode_attention_head_dim.restype = ctypes.c_int
+        _KERNEL = (fn, lib.gitax_decode_attention_head_dim())
     return _KERNEL
 
 
@@ -109,54 +148,57 @@ def _check(cond, msg):
 def decode_attention_cuda(q, kv_new, txt_kv, anc, pos, mem_kv, mem_bias=None,
                           mem_scale=None, *, beams, num_heads, head_dim):
     """Launch the CUDA kernel on PyTorch's current stream.  Validates
-    device, dtypes, shapes and contiguity and raises on anything the
-    kernel does not take."""
+    device, dtypes, shapes, contiguity and alignment and raises on
+    anything the kernel does not take."""
     t_max, bk, width = txt_kv.shape
     k, h, dh = beams, num_heads, head_dim
     _check(bk % k == 0, "B*K={} rows do not split into beams={}".format(bk, k))
     b = bk // k
-    tensors = dict(q=q, kv_new=kv_new, txt_kv=txt_kv, anc=anc, mem_kv=mem_kv,
-                   mem_bias=mem_bias, mem_scale=mem_scale)
-    for name, t in tensors.items():
-        if t is None:
-            continue
-        _check(t.is_cuda and t.device == txt_kv.device,
-               "{} must be on the CUDA device of txt_kv, got {}".format(name, t.device))
-        _check(t.is_contiguous(), "{} must be contiguous".format(name))
+    dev = txt_kv.device
+    for name, t in (("q", q), ("kv_new", kv_new), ("txt_kv", txt_kv), ("anc", anc),
+                    ("mem_kv", mem_kv), ("mem_bias", mem_bias), ("mem_scale", mem_scale)):
+        if t is not None:
+            _check(t.is_cuda and t.device == dev,
+                   "{} must be on the CUDA device of txt_kv, got {}".format(name, t.device))
+            _check(t.is_contiguous(), "{} must be contiguous".format(name))
     dt = txt_kv.dtype
     _check(dt in (torch.float32, torch.bfloat16),
            "activations must be float32 or bfloat16, got {}".format(dt))
     _check(q.dtype == dt and kv_new.dtype == dt, "q, kv_new and txt_kv dtypes differ")
     _check(width == h * 2 * dh, "txt_kv width {} != H*2Dh".format(width))
-    _check(tuple(q.shape) == (bk, h * dh), "q shape {}".format(tuple(q.shape)))
-    _check(tuple(kv_new.shape) == (bk, width), "kv_new shape {}".format(tuple(kv_new.shape)))
-    _check(anc.dtype == torch.int32 and tuple(anc.shape) == (bk, t_max),
-           "anc must be int32 [BK, T]")
-    _check(mem_kv.dim() == 4 and tuple(mem_kv.shape[:2]) == (b, h)
-           and mem_kv.shape[3] == 2 * dh, "mem_kv shape {}".format(tuple(mem_kv.shape)))
+    _check(q.shape == (bk, h * dh), "q shape {}".format(tuple(q.shape)))
+    _check(kv_new.shape == (bk, width), "kv_new shape {}".format(tuple(kv_new.shape)))
+    _check(anc.dtype == torch.int32 and anc.shape == (bk, t_max), "anc must be int32 [BK, T]")
+    _check(mem_kv.dim() == 4 and mem_kv.shape[:2] == (b, h) and mem_kv.shape[3] == 2 * dh,
+           "mem_kv shape {}".format(tuple(mem_kv.shape)))
     m = mem_kv.shape[2]
     mem_int8 = mem_kv.dtype == torch.int8
     if mem_int8:
         _check(mem_scale is not None and mem_scale.dtype == torch.float32
-               and tuple(mem_scale.shape) == (b, h, 2), "int8 mem_kv needs f32 mem_scale [B, H, 2]")
+               and mem_scale.shape == (b, h, 2), "int8 mem_kv needs f32 mem_scale [B, H, 2]")
     else:
         _check(mem_kv.dtype == dt, "mem_kv dtype {} != activations".format(mem_kv.dtype))
     if mem_bias is not None:
-        _check(mem_bias.dtype == torch.float32 and tuple(mem_bias.shape) == (b, m),
+        _check(mem_bias.dtype == torch.float32 and mem_bias.shape == (b, m),
                "mem_bias must be f32 [B, M]")
     _check(0 <= pos < t_max, "pos {} outside [0, {})".format(pos, t_max))
-    launch, max_dh = _bind()
-    _check(dh <= max_dh, "head_dim {} too large".format(dh))
-    smem = smem_bytes(k, dh, m, t_max)
-    _check(smem <= _MAX_SMEM, "needs {} bytes of shared memory per block".format(smem))
+    _check(1 <= k <= _MAX_BEAMS, "beams={}: the kernel takes 1 to {}".format(k, _MAX_BEAMS))
+    _check(m >= 1, "no memory rows")
+    # the memory rows arrive by bulk copies and the text rows by 16-byte loads
+    _check(txt_kv.data_ptr() % 16 == 0 and mem_kv.data_ptr() % 16 == 0,
+           "txt_kv and mem_kv must be 16-byte aligned")
+    launch, kernel_dh = _bind()
+    _check(dh == kernel_dh, "head_dim {}: the kernel takes {}".format(dh, kernel_dh))
+    cluster, chunk, smem = cluster_plan(m, k, dh, t_max, mem_kv.element_size())
+    _check(smem <= _MAX_SMEM, "needs {} bytes of shared memory per CTA".format(smem))
 
-    ctx = torch.empty((bk, h * dh), dtype=dt, device=txt_kv.device)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    ctx = torch.empty((bk, h * dh), dtype=dt, device=dev)
     rc = launch(
-        ptr(q), ptr(kv_new), ptr(txt_kv), ptr(anc), ptr(mem_kv), ptr(mem_bias),
-        ptr(mem_scale), ptr(ctx), b, k, h, dh, m, t_max, int(pos),
-        int(dt == torch.bfloat16), int(mem_int8),
-        torch.cuda.current_stream(txt_kv.device).cuda_stream,
+        q.data_ptr(), kv_new.data_ptr(), txt_kv.data_ptr(), anc.data_ptr(), mem_kv.data_ptr(),
+        None if mem_bias is None else mem_bias.data_ptr(),
+        None if mem_scale is None else mem_scale.data_ptr(), ctx.data_ptr(),
+        b, k, h, dh, m, t_max, int(pos), int(dt == torch.bfloat16), int(mem_int8), cluster, chunk,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError("decode_attention kernel launch failed: cudaError {}".format(rc))

@@ -31,12 +31,13 @@ NEG_INF = -1e30
 
 # the smem per block a kernel launch may take on sm_90 (227 KB)
 _MAX_SMEM = 232448
-# the kernel's tiles: query rows per block, K/V tokens per tile, and the
-# shared row strides of the q/K/V tiles (f32: Dh + 1, free of bank
-# conflicts; bf16: Dh + 8, a legal WMMA stride) and of the bf16
-# probability tiles
-_ROWS, _COLS = 64, 64
-_LD_F32, _LD_BF16, _LD_P = 65, 72, 72
+# f32 kernel: query rows per block, K/V tokens per tile, shared row stride
+# (Dh + 1, free of bank conflicts)
+_F32_ROWS, _F32_COLS, _F32_LD = 64, 64, 65
+# bf16 kernel: query rows per CTA (two warpgroups of 64), K/V tokens per
+# TMA box, ring stages; its tiles are 1024-byte aligned by hand (1 KB of
+# slack) and the ring has a full and an empty mbarrier per stage, plus q's
+_TMA_ROWS, _TMA_COLS, _TMA_STAGES = 128, 64, 4
 
 # gitax's auto-enable threshold, measured on a TPU v5e (gitax
 # ops/flash_attention.py:272-281).  The port starts from it; PERF.md holds
@@ -78,13 +79,44 @@ def attention_reference(q, k, v, num_memory=0, masked=False):
 
 
 def smem_bytes(bf16):
-    """Shared memory one block takes: the q tile, one K and one V tile,
-    the f32 score tiles and, in bf16, the probability tiles; the same for
-    every S.  The same formula as the C side's
-    `gitax_flash_attention_smem`."""
-    ld, isz = (_LD_BF16, 2) if bf16 else (_LD_F32, 4)
-    return (isz * (_ROWS + 2 * _COLS) * ld + 4 * _ROWS * _COLS
-            + (2 * _ROWS * _LD_P if bf16 else 0))
+    """Shared memory one block takes, the same for every S.  bf16: the
+    alignment slack, the q tile, the K/V ring and its barriers; f32: the q
+    tile, one K and one V tile and the f32 score tiles.  The same formula
+    as the C side's `gitax_flash_attention_smem`."""
+    if bf16:
+        dh = 64
+        return (1024 + 2 * _TMA_ROWS * dh + 2 * _TMA_STAGES * 2 * _TMA_COLS * dh
+                + 8 * (2 * _TMA_STAGES + 1))
+    return 4 * ((_F32_ROWS + 2 * _F32_COLS) * _F32_LD + _F32_ROWS * _F32_COLS)
+
+
+def tensor_map(x, box_rows):
+    """The TMA tensor-map parameters of a bf16 [B, H, T, Dh] view whose
+    last dim is contiguous, as the kernel encodes them: dims (Dh, T, H, B)
+    in elements, the byte strides of T, H and B, and the box (Dh,
+    box_rows) (one head of one batch element).  Raises unless the base is
+    16-byte aligned and every stride a multiple of 16 bytes, as TMA needs
+    (a dim of size 1 is never stepped, so its stride is not read)."""
+    b, h, t, dh = x.shape
+    es = x.element_size()
+    _check(x.stride(3) == 1, "the last dim must be contiguous for TMA")
+    _check(x.data_ptr() % 16 == 0, "TMA needs a 16-byte aligned base")
+    strides = []
+    for n, st in ((t, x.stride(2)), (h, x.stride(1)), (b, x.stride(0))):
+        nbytes = st * es if n > 1 else 16
+        _check(nbytes > 0 and nbytes % 16 == 0 and nbytes < 2 ** 40,
+               "TMA needs byte strides that are multiples of 16, got {}".format(nbytes))
+        strides.append(nbytes)
+    return dict(dims=(dh, t, h, b), strides=tuple(strides), box=(dh, box_rows))
+
+
+def _tensor_maps(q, k, v):
+    """The three maps flattened for the C entry: 9 int64 each."""
+    flat = []
+    for x, rows in ((q, _TMA_ROWS), (k, _TMA_COLS), (v, _TMA_COLS)):
+        m = tensor_map(x, rows)
+        flat += list(m["dims"]) + list(m["strides"]) + list(m["box"])
+    return (ctypes.c_longlong * len(flat))(*flat)
 
 
 # (launch function, the head dim the kernel takes), bound at the first launch
@@ -97,7 +129,7 @@ def _bind():
         lib = cuda_build.load("flash_attention")
         fn = lib.gitax_flash_attention
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12
-                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
         lib.gitax_flash_attention_head_dim.restype = ctypes.c_int
         _KERNEL = (fn, lib.gitax_flash_attention_head_dim())
@@ -131,23 +163,25 @@ def flash_attention_cuda(q, k, v, out, num_memory=0, masked=False):
         vec = 16 // x.element_size()
         _check(x.data_ptr() % 16 == 0 and all(s % vec == 0 for s in x.stride()[:3]),
                "{} rows must be 16-byte aligned".format(name))
+    bf16 = dt == torch.bfloat16
+    maps = _tensor_maps(q, k, v) if bf16 else None
     _check(t > 0, "empty sequence")
     _check(b <= 65535 and h <= 65535, "B={} or H={} above the grid limit".format(b, h))
     if masked:
         _check(0 <= num_memory <= t, "num_memory {} outside [0, {}]".format(num_memory, t))
     launch, kernel_dh = _bind()
     _check(dh == kernel_dh, "head_dim {}: the kernel takes {}".format(dh, kernel_dh))
-    bf16 = dt == torch.bfloat16
     _check(smem_bytes(bf16) <= _MAX_SMEM,
            "needs {} bytes of shared memory per block".format(smem_bytes(bf16)))
     rc = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        b, h, t, dh, int(num_memory), int(masked), int(bf16),
+        b, h, t, dh, int(num_memory), int(masked), int(bf16), maps,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError("flash_attention kernel launch failed: cudaError {}".format(rc))
+        raise RuntimeError("flash_attention kernel launch failed: {}".format(
+            "tensor map CUresult {}".format(rc - 10000) if rc >= 10000 else "cudaError {}".format(rc)))
     launches += 1
     return out
 

@@ -17,6 +17,7 @@ from gitax.ops.decode_attention import decode_attention as gx_decode_attention
 from gitax.ops.decode_attention import quantize_memory as gx_quantize_memory
 from gitax_torch import ckpt
 from gitax_torch.decode.beam import _tile_beams
+from gitax_torch.ops import decode_attention as pda
 from gitax_torch.ops.decode_attention import decode_attention, decode_attention_reference
 
 
@@ -136,7 +137,7 @@ def test_decode_step_matches_gitax_xla_path(B, K, kernel):
     gx = GitModel(CFG)
     params = gx.init_params(jax.random.PRNGKey(B + K))
     tree = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), params)
-    port = ckpt.params_from_gitax(tree, CFG)
+    port = ckpt.params_from_gitax(tree, CFG, device="cpu")
     rng = np.random.RandomState(B * K)
     feats = rng.randn(B, 5, 32).astype(np.float32)
     prefix = np.full((B, 1), 1, np.int64)
@@ -174,7 +175,7 @@ def test_decode_step_kernel_flag_without_ancestry_runs_kernel_path(K, monkeypatc
     gx = GitModel(CFG)
     params = gx.init_params(jax.random.PRNGKey(7))
     port = ckpt.params_from_gitax(jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32),
-                                                         params), CFG)
+                                                         params), CFG, device="cpu")
     rng = np.random.RandomState(K)
     feats = rng.randn(B, 5, 32).astype(np.float32)
     prefix = np.full((B, 1), 1, np.int64)
@@ -205,3 +206,58 @@ def test_decode_step_kernel_flag_without_ancestry_runs_kernel_path(K, monkeypatc
     for a, b in zip(caches[True].txt_kv, caches[False].txt_kv):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6, rtol=1e-6)
     assert calls == [K] * (3 * CFG.num_layers)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's launch plan: one cluster of CTAs per (batch, head)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mem_bytes", [2, 4, 1], ids=["bf16", "f32", "int8"])
+@pytest.mark.parametrize("m", [1, 257, 901, 1201, 1542])
+def test_cluster_plan_owns_every_memory_row_once(m, mem_bytes):
+    c, chunk, smem = pda.cluster_plan(m, 4, 64, 41, mem_bytes)
+    assert 1 <= c <= 8
+    # the rows the kernel's CTA r takes: m0 = min(M, r * chunk), up to
+    # min(M, m0 + chunk)
+    bounds = []
+    for r in range(c):
+        m0 = min(m, r * chunk)
+        bounds.append((m0, min(m, m0 + chunk)))
+    owned = [i for lo, hi in bounds for i in range(lo, hi)]
+    assert owned == list(range(m))  # every row once, in rank order
+    assert all(hi > lo for lo, hi in bounds)  # no idle CTA
+    assert smem <= pda._MAX_SMEM
+    assert smem == pda.smem_bytes(4, 64, chunk, 41, mem_bytes, c)
+
+
+def test_cluster_plan_sizes_at_the_paths_memory():
+    # the smallest cluster whose CTAs fit three to an SM: COCO's 257 rows
+    # on one CTA, the VQA grid's 1201 on 5, the video's 1542 on 7 (6 would
+    # need 77400 bytes a CTA, past the third of an SM)
+    want = {257: (1, 257), 1201: (5, 241), 1542: (7, 221)}
+    for m, (c, chunk) in want.items():
+        plan = pda.cluster_plan(m, 4, 64, 41, 2)
+        assert plan[:2] == (c, chunk)
+        assert 3 * (plan[2] + 1024) <= 233472
+    assert pda.smem_bytes(4, 64, 257, 41, 2, 6) > pda._THIRD_OF_SM
+    # f32 memory takes more CTAs for the same rows; past 8 CTAs' worth the
+    # cluster stays at 8 and the chunk grows
+    assert pda.cluster_plan(1542, 4, 64, 41, 4)[0] == 8
+    assert pda.cluster_plan(4096, 4, 64, 41, 2)[0] == 8
+
+
+def test_smem_formula_counts_every_region():
+    # k|v rows (padded to 16 bytes, and at least the warps' partial
+    # contexts [8, K, Dh] f32 that take their place), 1 mbarrier per 32
+    # rows, then f32 q, scores [K, chunk + slots], int32 rows [K, slots],
+    # max and sum, the C CTAs' contexts; slots = ceil(T / C) text slots
+    k, dh, chunk, t, c = 4, 64, 193, 41, 8
+    slots = 6
+    tail = 4 * (k * dh + k * (chunk + slots) + k * slots + 2 * k + c * k * dh)
+    assert pda.smem_bytes(k, dh, chunk, t, 2, c) == 193 * 128 * 2 + 8 * 7 + tail
+    # int8 rows: 128 bytes each, no padding
+    assert pda.smem_bytes(k, dh, chunk, t, 1, c) == 193 * 128 + 8 * 7 + tail
+    # one row, one CTA: the partial contexts set the size, all T slots
+    assert pda.smem_bytes(k, dh, 1, t, 2, 1) == 8 * k * dh * 4 + 8 + 4 * (
+        k * dh + k * (1 + t) + k * t + 2 * k + k * dh)

@@ -112,10 +112,13 @@ def test_reference_rounds_probabilities_before_the_value_product():
 
 
 def test_smem_formula_is_the_kernels_constant():
-    # the C side's formula, checked equal on the card by chip_smoke.py:
-    # q + K + V tiles, f32 score tiles, bf16 probability tiles
-    assert pfa.smem_bytes(True) == 2 * (64 + 128) * 72 + 4 * 64 * 64 + 2 * 64 * 72 == 53248
+    # the C side's formula, checked equal on the card by chip_smoke.py.
+    # bf16: 1 KB alignment slack, the 128-row q tile, 4 stages of 64-token
+    # K and V tiles, 9 mbarriers; f32: q + K + V tiles, f32 score tiles
+    assert pfa.smem_bytes(True) == 1024 + 2 * 128 * 64 + 4 * 2 * 2 * 64 * 64 + 8 * 9 == 83016
     assert pfa.smem_bytes(False) == 4 * (64 + 128) * 65 + 4 * 64 * 64 == 66304
+    # two bf16 CTAs fit on one SM
+    assert 2 * pfa.smem_bytes(True) <= pfa._MAX_SMEM
     assert max(pfa.smem_bytes(True), pfa.smem_bytes(False)) <= pfa._MAX_SMEM
 
 
@@ -142,3 +145,67 @@ def test_cuda_entry_raises_on_cpu_tensors():
     q, k, v = (torch.from_numpy(x) for x in _qkv(1, 8, seed=6))
     with pytest.raises(ValueError, match="CUDA device"):
         pfa.flash_attention_cuda(q, k, v, torch.empty_like(q))
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernel's TMA tensor maps, computed in Python from the views
+# ---------------------------------------------------------------------------
+
+
+def _encoder_views(b=2, s=37, h=4):
+    """q, k, v as flash_qkv_attention takes them: [B, H, S, Dh] views of
+    the fused [B, S, 3, H, Dh] projection."""
+    qkv = torch.zeros(b, s, 3 * h * DH, dtype=torch.bfloat16)
+    return qkv, [x.transpose(1, 2) for x in qkv.unflatten(2, (3, h, DH)).unbind(2)]
+
+
+@pytest.mark.parametrize("which", [0, 1, 2], ids=["q", "k", "v"])
+def test_tensor_map_of_the_fused_projection(which):
+    b, s, h = 2, 37, 4
+    qkv, views = _encoder_views(b, s, h)
+    x = views[which]
+    rows = pfa._TMA_ROWS if which == 0 else pfa._TMA_COLS
+    m = pfa.tensor_map(x, rows)
+    # dims (Dh, S, H, B); the token stride is the whole 3D row, 6144 bytes
+    # at ViT-L's D = 1024 (here 3 * 4 * 64 * 2 = 1536), the head stride
+    # 128 bytes, the batch stride S rows
+    assert m["dims"] == (DH, s, h, b)
+    assert m["strides"] == (3 * h * DH * 2, DH * 2, s * 3 * h * DH * 2)
+    assert m["box"] == (DH, rows)
+    assert x.data_ptr() - qkv.data_ptr() == which * h * DH * 2
+
+
+def test_tensor_map_of_the_vit_l_encoder_row():
+    # GIT_LARGE's ViT-L/14: D = 1024, 16 heads; the 6144-byte token stride
+    _, (q, _, _) = _encoder_views(1, 5, 16)
+    assert pfa.tensor_map(q, pfa._TMA_ROWS)["strides"][:2] == (6144, 128)
+
+
+@pytest.mark.parametrize("t", [13, 1215])
+def test_tensor_map_of_split_heads_views(t):
+    """The prefill's q, k, v: split_heads views of [B, T, D] projections."""
+    from gitax_torch.models.nn import split_heads
+
+    b, h = 2, 12
+    x = split_heads(torch.zeros(b, t, h * DH, dtype=torch.bfloat16), h)
+    m = pfa.tensor_map(x, pfa._TMA_COLS)
+    assert m["dims"] == (DH, t, h, b)
+    assert m["strides"] == (h * DH * 2, DH * 2, t * h * DH * 2)
+    assert m["box"] == (DH, pfa._TMA_COLS)
+    # a batch of one: its stride is never stepped, so any multiple of 16
+    one = split_heads(torch.zeros(1, t, h * DH, dtype=torch.bfloat16), h)
+    assert pfa.tensor_map(one, pfa._TMA_COLS)["strides"][2] % 16 == 0
+
+
+@pytest.mark.parametrize("fault", ["token_stride", "head_stride", "base", "last_dim"])
+def test_tensor_map_rejects_what_tma_cannot_take(fault):
+    if fault == "token_stride":  # tokens 65 elements apart: 130 bytes
+        x = torch.zeros(2, 1, 5, 65, dtype=torch.bfloat16)[..., :DH]
+    elif fault == "head_stride":  # heads 68 elements apart: 136 bytes
+        x = torch.zeros(1, 5, 4, 68, dtype=torch.bfloat16)[..., :DH].transpose(1, 2)
+    elif fault == "base":  # one element past an aligned base
+        x = torch.zeros(2 * 5 * DH + 1, dtype=torch.bfloat16)[1:].view(2, 1, 5, DH)
+    else:
+        x = torch.zeros(2, 1, DH, 5, dtype=torch.bfloat16).transpose(2, 3)
+    with pytest.raises(ValueError, match="TMA|contiguous"):
+        pfa.tensor_map(x, pfa._TMA_COLS)

@@ -232,10 +232,10 @@ def test_quantize_model_matches_quantized_tree():
     """Quantizing the port's modules in place gives the int8 values and
     scales of gitax's quantized tree, Linear by Linear."""
     tree = _gitax_tree(1)
-    model = pquant.quantize_git_model_(ckpt.params_from_gitax(tree, SMALL))
+    model = pquant.quantize_git_model_(ckpt.params_from_gitax(tree, SMALL, device="cpu"))
     loaded = ckpt.params_from_gitax(
         _np_tree_keep(gquant.quantize_git_params(jax.tree_util.tree_map(jnp.asarray, tree))),
-        SMALL,
+        SMALL, device="cpu",
     )
     sd_a, sd_b = model.state_dict(), loaded.state_dict()
     assert set(sd_a) == set(sd_b)
@@ -252,9 +252,9 @@ def test_int8_weights_are_out_major_from_either_loader(loader):
     layout the vocab-head kernel reads, whichever loader filled it."""
     tree = _gitax_tree(2)
     if loader == "quantize_model_in_place":
-        model = pquant.quantize_git_model_(ckpt.params_from_gitax(tree, SMALL))
+        model = pquant.quantize_git_model_(ckpt.params_from_gitax(tree, SMALL, device="cpu"))
     else:
-        model = ckpt.params_from_gitax(pquant.quantize_git_params(tree), SMALL)
+        model = ckpt.params_from_gitax(pquant.quantize_git_params(tree), SMALL, device="cpu")
     q8 = {k: t for k, t in model.state_dict().items() if k.endswith("weight_q8_t")}
     assert "textual.output.weight_q8_t" in q8 and len(q8) > 1
     for key, t in q8.items():
@@ -279,7 +279,7 @@ def test_quantize_memory_identical_to_gitax():
 def test_params_from_gitax_matches_export_state_dict():
     tree = _gitax_tree(2)
     ref = export_git_state_dict(tree, SMALL)
-    sd = ckpt.params_from_gitax(tree, SMALL).state_dict()
+    sd = ckpt.params_from_gitax(tree, SMALL, device="cpu").state_dict()
     assert set(sd) == set(ref)
     for key, val in ref.items():
         np.testing.assert_array_equal(sd[key].numpy(), val, err_msg=key)
@@ -291,11 +291,31 @@ def test_state_dict_round_trips_through_load_state_dict():
 
     tree = _gitax_tree(3)
     ref = {k: torch.tensor(v) for k, v in export_git_state_dict(tree, SMALL).items()}
-    model = PortModel(SMALL)
+    model = PortModel(SMALL, device="cpu")
     model.load_state_dict(ref)
     assert model.textual.output.weight is model.textual.embedding.words.weight
     for key, val in model.state_dict().items():
         assert torch.equal(val, ref[key]), key
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """With no device, GitModel and params_from_gitax ask for the CUDA
+    card: without one they raise rather than build on the CPU, and where
+    torch reports a card the parameters are asked for on `cuda` (which a
+    CPU-only torch refuses)."""
+    from gitax_torch.models.git import GitModel as PortModel
+    from gitax_torch.models.git import resolve_device
+
+    tree = _gitax_tree(4)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda: PortModel(SMALL), lambda: ckpt.params_from_gitax(tree, SMALL)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device() == torch.device("cuda")
+    with pytest.raises(AssertionError, match="CUDA"):
+        PortModel(SMALL)
 
 
 # ---------------------------------------------------------------------------

@@ -56,7 +56,7 @@ def _weights(seed=0, sharpen=True):
         emb["words"] = jnp.asarray(eos_gate_params(
             np.asarray(emb["words"]) * 3.0, np.asarray(emb["positions"]), eos_id=2, gate=5
         ))
-    return params, ckpt.params_from_gitax(_np_tree(params), CFG)
+    return params, ckpt.params_from_gitax(_np_tree(params), CFG, device="cpu")
 
 
 def _images(n, seed=0, size=32):
@@ -155,7 +155,7 @@ def test_generate_beam_tokens_match_gitax(beams, int8):
     port (the kernel path runs the kernel's plain version on the CPU)."""
     params, model = _weights()
     if int8:
-        model = ckpt.params_from_gitax(_np_tree(gx_quantize(params)), CFG)
+        model = ckpt.params_from_gitax(_np_tree(gx_quantize(params)), CFG, device="cpu")
     ref_seqs, ref_lp = _gitax_generate(beams, int8, None)
     if beams == 4:  # the weights condition the captions on the image
         assert len({tuple(r) for r in ref_seqs.tolist()}) > 1
@@ -236,7 +236,7 @@ def test_caption_engine_strings_match_gitax(int8):
     ref = GxEngine(GitModel(TINY), params, GxTokenizer(gx_tiny_vocab()),
                    TestTransform(crop_size=32), dtype=jnp.float32,
                    beam=GxBeam(num_beams=2, max_steps=8), use_native=False, **kw)
-    ours = CaptionEngine(ckpt.params_from_gitax(_np_tree(params), TINY), tok,
+    ours = CaptionEngine(ckpt.params_from_gitax(_np_tree(params), TINY, device="cpu"), tok,
                          dtype=torch.float32, beam=BeamSearchConfig(num_beams=2, max_steps=8),
                          **kw)
     assert ours._fast_prefill == ref._fast_prefill

@@ -79,7 +79,7 @@ def _clips(n, frames=FRAMES, seed=0, size=32):
 def test_encode_images_on_clips_matches_gitax(frames, pooling):
     cfg = dataclasses.replace(CFG, pooling_images=pooling)
     params = _weights()
-    model = ckpt.params_from_gitax(_np_tree(params), cfg)
+    model = ckpt.params_from_gitax(_np_tree(params), cfg, device="cpu")
     clips = _clips(2, frames, seed=1)
     ref = GitModel(cfg).encode_images(params, jnp.asarray(clips))
     ours = model.encode_images(torch.from_numpy(clips))
@@ -94,7 +94,7 @@ def test_reversed_frames_change_the_memory():
     """Frame order reaches the memory through the temporal embeddings, on
     both sides alike (gitax tests/test_e2e_dual_framework.py:258-278)."""
     params = _weights()
-    model = ckpt.params_from_gitax(_np_tree(params), CFG)
+    model = ckpt.params_from_gitax(_np_tree(params), CFG, device="cpu")
     clips = _clips(2, seed=2)
     rev = np.ascontiguousarray(clips[:, ::-1])
     fwd_ours = model.encode_images(torch.from_numpy(clips))
@@ -106,7 +106,7 @@ def test_reversed_frames_change_the_memory():
 
 
 def test_encode_images_rejects_other_ranks():
-    model = ckpt.params_from_gitax(_np_tree(_weights()), CFG)
+    model = ckpt.params_from_gitax(_np_tree(_weights()), CFG, device="cpu")
     with pytest.raises(ValueError, match=r"\[B, F, H, W, 3\]"):
         model.encode_images(torch.zeros(1, 1, 2, 32, 32, 3))
 
@@ -119,13 +119,13 @@ def test_encode_images_rejects_other_ranks():
 def test_params_from_gitax_video_matches_export_state_dict():
     tree = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), _weights())
     ref = export_git_state_dict(tree, CFG)
-    sd = ckpt.params_from_gitax(tree, CFG).state_dict()
+    sd = ckpt.params_from_gitax(tree, CFG, device="cpu").state_dict()
     assert set(sd) == set(ref)
     assert {"img_temperal_embedding.{}".format(i) for i in range(FRAMES)} <= set(sd)
     for key, val in ref.items():
         np.testing.assert_array_equal(sd[key].numpy(), val, err_msg=key)
     # the reference-named state dict loads into a fresh model as is
-    fresh = PortModel(CFG)
+    fresh = PortModel(CFG, device="cpu")
     fresh.load_state_dict({k: torch.tensor(v) for k, v in ref.items()})
     assert torch.equal(fresh.img_temperal_embedding[1], sd["img_temperal_embedding.1"])
 
@@ -134,17 +134,17 @@ def test_params_from_gitax_rejects_a_temporal_table_that_does_not_fit():
     tree = _np_tree(_weights())
     for bad in (np.zeros((2, 32), np.float32), np.zeros((FRAMES, 16), np.float32)):
         with pytest.raises(ValueError, match="temporal embedding"):
-            ckpt.params_from_gitax(dict(tree, img_temporal_embedding=bad), CFG)
+            ckpt.params_from_gitax(dict(tree, img_temporal_embedding=bad), CFG, device="cpu")
     with pytest.raises(ValueError, match="temporal embedding"):
         ckpt.params_from_gitax({k: v for k, v in tree.items() if k != "img_temporal_embedding"},
-                               CFG)
+                               CFG, device="cpu")
     image_cfg = dataclasses.replace(CFG, num_image_with_embedding=0)
     with pytest.raises(ValueError, match="temporal embedding"):
-        ckpt.params_from_gitax(tree, image_cfg)
+        ckpt.params_from_gitax(tree, image_cfg, device="cpu")
 
 
 def test_init_params_zeroes_the_temporal_embeddings():
-    model = PortModel(CFG).init_params(torch.Generator().manual_seed(0))
+    model = PortModel(CFG, device="cpu").init_params(torch.Generator().manual_seed(0))
     assert len(model.img_temperal_embedding) == FRAMES
     for p in model.img_temperal_embedding:
         assert p.shape == (1, 1, 32) and not p.requires_grad and not p.any()
@@ -169,7 +169,8 @@ def _gitax_generate(vocab_kernel, cfg=CFG, int8=True):
 
 def _port_model(cfg=CFG, int8=True):
     params = _weights(cfg)
-    return ckpt.params_from_gitax(_np_tree(gx_quantize(params) if int8 else params), cfg)
+    return ckpt.params_from_gitax(_np_tree(gx_quantize(params) if int8 else params), cfg,
+                                  device="cpu")
 
 
 def _count_head_calls(monkeypatch):
@@ -287,7 +288,7 @@ def test_caption_engine_on_clips_matches_gitax(int8):
     ref = GxEngine(GitModel(ENGINE_CFG), params, GxTokenizer(gx_tiny_vocab()),
                    TestTransform(crop_size=32), dtype=jnp.float32,
                    beam=GxBeam(num_beams=2, max_steps=8), use_native=False, **kw)
-    ours = CaptionEngine(ckpt.params_from_gitax(_np_tree(params), ENGINE_CFG), tok,
+    ours = CaptionEngine(ckpt.params_from_gitax(_np_tree(params), ENGINE_CFG, device="cpu"), tok,
                          dtype=torch.float32, beam=BeamSearchConfig(num_beams=2, max_steps=8), **kw)
     want = ref.generate_batch(clips, prefixes)
     got = ours.resolve(ours.dispatch(clips, prefixes))
@@ -304,7 +305,7 @@ def test_caption_engine_on_clips_matches_gitax(int8):
 def test_engine_rejects_items_of_another_rank_or_mixed_shapes(items, match):
     from gitax_torch.runtime.engine import CaptionEngine
 
-    model = ckpt.params_from_gitax(_np_tree(_weights(ENGINE_CFG, seed=3)), ENGINE_CFG)
+    model = ckpt.params_from_gitax(_np_tree(_weights(ENGINE_CFG, seed=3)), ENGINE_CFG, device="cpu")
     eng = CaptionEngine(model, tokenizer=None, dtype=torch.float32)
     with pytest.raises(ValueError, match=match):
         eng.dispatch(items, [[101]] * len(items))

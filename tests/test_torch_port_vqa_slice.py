@@ -43,7 +43,7 @@ def _np_tree(params):
 @functools.lru_cache(maxsize=None)
 def _weights(cfg, seed=0):
     params = GitModel(cfg).init_params(jax.random.PRNGKey(seed))
-    return params, ckpt.params_from_gitax(_np_tree(params), cfg)
+    return params, ckpt.params_from_gitax(_np_tree(params), cfg, device="cpu")
 
 
 def _images(h, w, n=2, seed=0):
@@ -248,7 +248,7 @@ def test_generate_varshape_matches_gitax():
     ref = GxEngine(GitModel(VQA_CFG), params, GxTokenizer(gx_tiny_vocab(WORDS)),
                    TestTransform(crop_size=48), dtype=jnp.float32,
                    beam=GxBeam(num_beams=2, max_steps=8), use_native=False, **kw)
-    ours = CaptionEngine(ckpt.params_from_gitax(_np_tree(params), VQA_CFG), tok,
+    ours = CaptionEngine(ckpt.params_from_gitax(_np_tree(params), VQA_CFG, device="cpu"), tok,
                          dtype=torch.float32, beam=BeamSearchConfig(num_beams=2, max_steps=8), **kw)
     images, prefixes = _vqa_pairs(tok.cls_token_id, ours.encode_prefix)
     assert [ours.encode_prefix(q) for q in ("how many dogs?",)] == \
@@ -316,4 +316,4 @@ def test_params_from_gitax_at_a_high_res_config():
     tree = _np_tree(params)
     tree["image_encoder"]["positional_embedding"] = np.zeros((5, 64), np.float32)
     with pytest.raises(ValueError, match="positional table"):
-        ckpt.params_from_gitax(tree, VQA_CFG)
+        ckpt.params_from_gitax(tree, VQA_CFG, device="cpu")
