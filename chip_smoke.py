@@ -8,9 +8,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      phases;
   2. build: the three CUDA kernels from gitax_torch/csrc (one nvcc each,
      in parallel), their compile reports, whether each one's SASS holds
-     wgmma (HGMMA) and TMA loads (UTMALDG) (kernel 2 must), the decode
-     kernel's cluster plans at M 1 to 1542, and the wrappers'
-     shared-memory formulas against the C side's;
+     wgmma (HGMMA) and TMA loads (UTMALDG) (kernels 2 and 3 must), the
+     decode kernel's cluster plans at M 1 to 1542, the vocab head's launch
+     plan, and the wrappers' shared-memory formulas against the C side's;
   3. decode attention against its plain PyTorch version at the COCO
      path's shapes (GIT_LARGE beam-4, B=32: K=4, H=12, Dh=64, M=257,
      T=41), the VQA path's M=1201 and the video's M=1542, f32, bf16 and
@@ -44,9 +44,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      attention against without it, then beam search from each side with
      the decode kernel on and off: identical tokens;
   9. the fused int8 vocab head against its plain version at the beam
-     step's shape (R = 32 x 4 = 128, W = 768, V = 30522) and at a ragged
-     one (R = 3, V = 1100), f32 and bf16, and its time beside the plain
-     version's and its bound;
+     step's shape (R = 32 x 4 = 128, W = 768, V = 30522) and at R 1, 128,
+     200 x V 30522, 1100, 512, 1024, 513 x W 768, 1024, f32 and bf16, on
+     N(0, 1) inputs and on a peaked set (one column per row far above the
+     rest, in the last block), and at a ragged width (W = 80); its device
+     time (bf16 and f32) beside the plain version's and its bound, its
+     host cost per call, and a yardstick no path calls: torch.matmul of
+     the bf16 hidden with the head widened to bf16 beforehand;
  10. the video slice: GIT_LARGE_VATEX (6 frames, M = 6 x 257 = 1542) at
      full width and depth through the same engine on 64 uint8 clips
      (2 batches of 32): clips/s, encode, prefill and beam-step times,
@@ -57,9 +61,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      steps; the first 4 head calls on the path (logits, block maxima and
      sums) against the plain head on the same hidden states; both loops'
      time per step, the share of clips whose tokens agree, the number of
-     distinct outputs, and a profile of one batch on and off;
+     distinct outputs, and a profile of one batch on and off (with
+     --profile also with the full-vocab sort the plain path took before
+     its blocked top-k, for the sorts' device time before and after);
  12. video f32 parity: 4 clips, int8 head, vocab kernel on against off:
      the first 2 head calls against the plain head, identical tokens.
+Each slice prints its peak device memory.
 Prints the card's name and power limit, one JSON line describing the
 kernels (launches on the main path; error, time, plain time, bound and
 the one-call library time or null), then, last, the JSON line
@@ -69,6 +76,7 @@ the gitax package.
 
 import collections
 import ctypes
+import itertools
 import json
 import os
 import subprocess
@@ -167,7 +175,10 @@ def device_ms(fn, iters, name, warmup=3):
     tracer does not keep every kernel record (runs on the H100 held 19 of
     20 and 15 of 20), and each record it keeps has the kernel's whole
     duration, so the mean is over the kernels it kept, and the count is
-    printed when it is short."""
+    printed when it is short.  The device's and the host's clocks are
+    aligned only roughly, so one of the two untimed calls may show inside
+    the range (a run held 61 for 60 calls): it is the same kernel on the
+    same inputs and stays in the mean."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -191,12 +202,23 @@ def device_ms(fn, iters, name, warmup=3):
     lo, hi = ranges[0].start, ranges[0].end
     hit = [e.time_range for e in events if e.device_type == DeviceType.CUDA and name in e.name
            and lo <= e.time_range.start and e.time_range.end <= hi]
-    check(1 <= len(hit) <= iters, "the profile shows {} {} kernels inside the range of {} "
+    check(1 <= len(hit) <= iters + 2, "the profile shows {} {} kernels inside the range of {} "
           "calls".format(len(hit), name, iters))
     if len(hit) < iters:
         log("device_ms: the trace kept {} of the {} {} kernels; the mean is over those".format(
             len(hit), iters, name))
     return sum(r.elapsed_us() for r in hit) / len(hit) / 1e3
+
+
+def peak_memory(label, card):
+    """Print the peak device memory PyTorch has allocated since the last
+    `torch.cuda.reset_peak_memory_stats()`; a slice resets it when it
+    starts, so its weights, activations and caches count."""
+    import torch
+
+    log("{}: peak device memory {:.1f} MiB allocated ({:.1f} MiB reserved) [{}]".format(
+        label, torch.cuda.max_memory_allocated() / 2**20, torch.cuda.max_memory_reserved() / 2**20,
+        card))
 
 
 class DeviceSpans(object):
@@ -227,11 +249,12 @@ class DeviceSpans(object):
 
 
 def phase_build(card):
-    import torch  # noqa: F401  (the ctypes libraries need the CUDA runtime loaded)
+    import torch  # the ctypes libraries need the CUDA runtime loaded
 
     from gitax_torch.ops import cuda_build
     from gitax_torch.ops import decode_attention as da
     from gitax_torch.ops import flash_attention as fa
+    from gitax_torch.ops import vocab_topk as vt
 
     t0 = time.perf_counter()
     cuda_build.build_all(list(KERNELS))
@@ -266,14 +289,24 @@ def phase_build(card):
                 "bf16" if bf16 else "f32", c_bytes))
     lib = cuda_build.load("vocab_topk")
     lib.gitax_vocab_topk_smem.restype = ctypes.c_size_t
-    log("build: vocab_topk shared memory {} bytes per block (bf16, the path's), {} (f32); "
-        "vocab-major int8, 16-byte loads along W".format(
-            lib.gitax_vocab_topk_smem(1), lib.gitax_vocab_topk_smem(0)))
+    plan = vt.tile_plan(HEAD_R, HEAD_W, HEAD_V)
+    c_bytes = lib.gitax_vocab_topk_smem(1)
+    check(plan["smem_bytes"] == c_bytes, "vocab_topk shared memory: wrapper {} != kernel {}".format(
+        plan["smem_bytes"], c_bytes))
+    log("build: vocab_topk bf16 at R={} W={} V={}: {} CTAs of {} threads in clusters of {} ({} "
+        "blocks x {} row groups) on {} SMs, {} chunks of {} through {} stages, {} bytes of weight "
+        "loads in flight per CTA, shared memory {} bytes per block (wrapper = kernel); f32 {} "
+        "bytes".format(HEAD_R, HEAD_W, HEAD_V, plan["ctas"], plan["threads"], plan["cluster"],
+                       plan["blocks"], plan["row_groups"],
+                       torch.cuda.get_device_properties(0).multi_processor_count, plan["chunks"],
+                       vt.K_CHUNK, plan["stages"], plan["loads_in_flight"], c_bytes,
+                       lib.gitax_vocab_topk_smem(0)))
 
 
 def sass_report():
     """Whether each kernel's SASS holds wgmma (HGMMA) and TMA tensor loads
-    (UTMALDG), from cuobjdump where the toolkit has it; kernel 2 must."""
+    (UTMALDG), from cuobjdump where the toolkit has it; kernel 2 and
+    kernel 3 must."""
     import shutil
 
     from gitax_torch.ops import cuda_build
@@ -291,8 +324,8 @@ def sass_report():
         found = {op: op in out.stdout for op in ("HGMMA", "UTMALDG", "UBLKCP")}
         log("build: {} SASS: {}".format(name, ", ".join(
             "{} {}".format(op, "yes" if hit else "no") for op, hit in found.items())))
-        if name == "flash_attention":
-            check(found["HGMMA"] and found["UTMALDG"], "flash_attention's SASS lacks HGMMA or UTMALDG")
+        if name in ("flash_attention", "vocab_topk"):
+            check(found["HGMMA"] and found["UTMALDG"], "{}'s SASS lacks HGMMA or UTMALDG".format(name))
 
 
 def ptxas_report(text):
@@ -695,6 +728,7 @@ def phase_coco_slice(card, cpu_model, tok):
     from gitax_torch.ops.decode_attention import decode_attention
     from gitax_torch.runtime.engine import CaptionEngine
 
+    torch.cuda.reset_peak_memory_stats()
     model = build_model("cuda", torch.bfloat16, cpu_model)
     engine = CaptionEngine(model, tok, batch_size=32,
                            beam=BeamSearchConfig(num_beams=4, max_steps=24),
@@ -737,6 +771,7 @@ def phase_coco_slice(card, cpu_model, tok):
         "step (device, 6 layers + head) [{}]".format(96 / seconds, lengths.mean().item(),
                                                      step_ms, card))
     log("coco slice: sample captions: {}".format(captions[:2]))
+    peak_memory("coco slice", card)
     del engine, model
     torch.cuda.empty_cache()
     return launches, images
@@ -826,6 +861,7 @@ def phase_vqa_slice(card, cpu_model, tok):
     from gitax_torch.ops.decode_attention import decode_attention
     from gitax_torch.runtime.engine import CaptionEngine
 
+    torch.cuda.reset_peak_memory_stats()
     model = build_model("cuda", torch.bfloat16, cpu_model)
     cfg = model.cfg
     engine = CaptionEngine(model, tok, batch_size=32, beam=BeamSearchConfig(num_beams=4, max_steps=40),
@@ -882,6 +918,7 @@ def phase_vqa_slice(card, cpu_model, tok):
     log("vqa slice: encode ms per batch {}, prefill ms per batch {}".format(
         ["%.2f" % x for x in times["encode_images"]], ["%.2f" % x for x in times["prefill"]]))
     log("vqa slice: sample answers: {}".format([answers[0], answers[-1]]))
+    peak_memory("vqa slice", card)
     # with --profile, where one batch's device time goes: the 32 pairs at
     # the 30x40 grid (S=1201) with the long question, after the timed run
     if PROFILE:
@@ -1017,6 +1054,73 @@ def check_vocab_call(label, h, q, sc, bz, logits, bmax, bsum):
     return err.max().item(), rel
 
 
+def vocab_inputs(g, r, v, w, dtype, peaked=False):
+    """One vocab-head call's inputs, made on the card from its generator
+    `g`: a LayerNorm-scale hidden state, int8 values over their whole
+    range, scales of a 0.02-std table (~4 sigma / 127).  The int8 [W, V]
+    is vocab-major, the transpose of a row-major [V, W], as the port's
+    int8 Linear stores the head.  peaked: each of the first rows gets a
+    column of its own in the last 512-column block whose weights are
+    127 sign(hidden) at a scale of 1e-3, a logit tens above every other,
+    so the statistics of that block and the logsumexp hang on how the
+    partial (max, sum) of a block's column halves are merged."""
+    import torch
+
+    q = torch.randint(-127, 128, (v, w), generator=g, dtype=torch.int8, device="cuda")
+    h = torch.randn(r, w, generator=g, device="cuda").to(dtype)
+    scale = torch.rand(v, generator=g, device="cuda") * 1e-3 + 1e-4
+    if peaked:
+        first = (v - 1) // 512 * 512
+        n = min(r, v - first)
+        q[first:first + n] = (torch.sign(h[:n].float()) * 127).to(torch.int8)
+        scale[first:first + n] = 1e-3
+    return h, q.t(), scale, torch.randn(v, generator=g, device="cuda") * 0.1
+
+
+def check_vocab_kernel():
+    """The fused vocab head against its plain version: one row, the beam
+    step's 128 and more than one row group (200); the GIT vocab, a ragged
+    small one, whole blocks only (512, 1024) and a block with one valid
+    column (513); W 768 and 1024; f32 and bf16; N(0, 1) and peaked inputs.
+    Returns the worst bf16 error at the beam step's shape."""
+    import torch
+
+    from gitax_torch.ops import vocab_topk as vt
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    worst_main, cases = 0.0, 0
+    for w, r, v, dtype, peaked in itertools.product(
+            (HEAD_W, 1024), (1, HEAD_R, 200), (HEAD_V, 1100, 512, 1024, 513),
+            (torch.float32, torch.bfloat16), (False, True)):
+        args = vocab_inputs(g, r, v, w, dtype, peaked)
+        logits, bmax, bsum = vt.vocab_logits_topk_cuda(*args)
+        torch.cuda.synchronize()
+        err, _ = check_vocab_call("vocab kernel {:4s} R={:3d} V={:5d} W={:4d} {}".format(
+            "f32" if dtype == torch.float32 else "bf16", r, v, w,
+            "peaked" if peaked else "N(0,1)"), *args, logits, bmax, bsum)
+        if peaked:
+            # the peak is there: row 0's last block towers over its others
+            rest = bmax[0, :-1].max().item() if bmax.shape[1] > 1 else 0.0
+            check(bmax[0, -1].item() - rest > 20, "the peaked set has no peak: {} over {}".format(
+                bmax[0, -1].item(), rest))
+        if (r, v, w, dtype, peaked) == (HEAD_R, HEAD_V, HEAD_W, torch.bfloat16, False):
+            worst_main = err
+        cases += 1
+        del args, logits, bmax, bsum
+    # a width that is no multiple of the ring's 64-value chunk: TMA fills
+    # the rest of the last chunk with zeros on both operands
+    for dtype in (torch.float32, torch.bfloat16):
+        args = vocab_inputs(g, 3, 1100, 80, dtype)
+        out = vt.vocab_logits_topk_cuda(*args)
+        torch.cuda.synchronize()
+        check_vocab_call("vocab kernel {:4s} R=  3 V= 1100 W=  80 N(0,1)".format(
+            "f32" if dtype == torch.float32 else "bf16"), *args, *out)
+    torch.cuda.empty_cache()
+    log("vocab kernel: {} cases hold (R 1/128/200 x V 30522/1100/512/1024/513 x W 768/1024 x "
+        "f32/bf16 x N(0,1)/peaked), and W=80 in both types".format(cases))
+    return worst_main
+
+
 def phase_vocab_kernel(card):
     """The fused vocab head against its plain version on the same inputs,
     and the time per call of both."""
@@ -1024,58 +1128,80 @@ def phase_vocab_kernel(card):
 
     from gitax_torch.ops import vocab_topk as vt
 
-    g = torch.Generator().manual_seed(2)
+    worst_main = check_vocab_kernel()
+    g = torch.Generator(device="cuda").manual_seed(3)
 
-    def inputs(r, v, dtype):
-        # a LayerNorm-scale hidden state, int8 values over their whole
-        # range, scales of a 0.02-std table (~4 sigma / 127).  The int8
-        # [W, V] is vocab-major, the transpose of a row-major [V, W], as
-        # the port's int8 Linear stores the head
-        q = torch.randint(-127, 128, (v, HEAD_W), generator=g, dtype=torch.int8).cuda()
-        return ((torch.randn(r, HEAD_W, generator=g)).cuda().to(dtype), q.t(),
-                (torch.rand(v, generator=g) * 1e-3 + 1e-4).cuda(),
-                (torch.randn(v, generator=g) * 0.1).cuda())
-
-    worst_main = 0.0
-    for r, v in ((HEAD_R, HEAD_V), (3, 1100)):
-        for dtype in (torch.float32, torch.bfloat16):
-            args = inputs(r, v, dtype)
-            out = vt.vocab_logits_topk_cuda(*args)
-            torch.cuda.synchronize()
-            err, _ = check_vocab_call("vocab kernel {:4s} R={:3d} V={:5d}".format(
-                "f32" if dtype == torch.float32 else "bf16", r, v), *args, *out)
-            if r == HEAD_R and dtype == torch.bfloat16:
-                worst_main = err
-            del args, out
-
-    # time per call at the beam step's bf16 shape; 4 weight copies in
-    # turn (94 MB of int8), so that the 23.4 MB matrix is not left in the
-    # 50 MB L2 from the call before, as in the decode step, where the 6
-    # layers' weights and memory pass through L2 between two head calls
+    # time per call at the beam step's shape; 4 weight copies in turn (94
+    # MB of int8), so that the 23.4 MB matrix is not left in the 50 MB L2
+    # from the call before, as in the decode step, where the 6 layers'
+    # weights and memory pass through L2 between two head calls
     nb = (HEAD_V + vt.TILE - 1) // vt.TILE
-    moved = HEAD_W * HEAD_V + HEAD_R * nb * vt.TILE * 4 + 2 * HEAD_R * nb * 4 + HEAD_R * HEAD_W * 2
-    copies = [inputs(HEAD_R, HEAD_V, torch.bfloat16) for _ in range(4)]
     it = {"i": 0}
 
-    def run(fn):
+    def run(fn, copies):
         def call():
             fn(*copies[it["i"] % 4])
             it["i"] += 1
         return call
 
-    plain_ms, call_ms, t = in_turns(run(vt.vocab_logits_topk_reference),
-                                    run(vt.vocab_logits_topk_cuda), 40, 200)
-    ker_ms = device_ms(run(vt.vocab_logits_topk_cuda), 60, "vocab_topk")
+    def moved(act_bytes):
+        return HEAD_W * HEAD_V + HEAD_R * nb * vt.TILE * 4 + 2 * HEAD_R * nb * 4 \
+            + HEAD_R * HEAD_W * act_bytes + 2 * HEAD_V * 4
+
+    flops = 2 * HEAD_R * HEAD_W * HEAD_V
+    copies = [vocab_inputs(g, HEAD_R, HEAD_V, HEAD_W, torch.bfloat16) for _ in range(4)]
+    kernel = run(vt.vocab_logits_topk_cuda, copies)
+    plain_ms, call_ms, t = in_turns(run(vt.vocab_logits_topk_reference, copies), kernel, 40, 200)
+    ker_ms = device_ms(kernel, 60, "vocab_topk")
     # the products run in bf16 on the tensor cores (int8 widened)
-    bound_ms, bound_by = bound(moved, 2 * HEAD_R * HEAD_W * HEAD_V, BF16_FLOPS)
+    bound_ms, bound_by = bound(moved(2), flops, BF16_FLOPS)
     log("vocab kernel time, bf16 R={} W={} V={}: kernel {:.4f} ms on the device (profiler), "
-        "{:.4f} ms per call back to back (events); plain {:.4f} ms per call "
+        "{:.4f} ms per call back to back (events, host launch included); plain {:.4f} ms per call "
         "(plain,kernel,kernel,plain = {}); {:.1f} MB moved (int8 weights + f32 logits + stats) -> "
         "{:.0f} GB/s; bound {:.4f} ms ({}), {:.1%} of it [{}]".format(
             HEAD_R, HEAD_W, HEAD_V, ker_ms, call_ms, plain_ms, ["%.4f" % x for x in t],
-            moved / 1e6, moved / (ker_ms * 1e-3) / 1e9, bound_ms, bound_by, bound_ms / ker_ms,
+            moved(2) / 1e6, moved(2) / (ker_ms * 1e-3) / 1e9, bound_ms, bound_by, bound_ms / ker_ms,
             card))
+    # what a call costs the host, which bounds the beam step: 300 calls
+    # back to back, the host clock before and after the synchronize
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(300):
+        kernel()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    log("vocab kernel host cost, bf16: {:.1f} us per call to enqueue (checks, two tensor maps, "
+        "three outputs, the launch), {:.1f} us per call to the end of the last [{}]".format(
+            (t1 - t0) / 300 * 1e6, (t2 - t0) / 300 * 1e6, card))
+    # a yardstick no path calls and no one PyTorch call of the function:
+    # cuBLAS on the head widened to bf16 beforehand (twice the weight
+    # bytes; no scale, bias, -inf columns or statistics; bf16 logits)
+    wide = [c[1].to(torch.bfloat16) for c in copies]
+
+    def matmul():
+        torch.matmul(copies[it["i"] % 4][0], wide[it["i"] % 4])
+        it["i"] += 1
+
+    mm_ms = [cuda_time_ms(matmul, 200), cuda_time_ms(matmul, 200)]
+    mm_bytes = 2 * HEAD_W * HEAD_V + 2 * HEAD_R * HEAD_V + 2 * HEAD_R * HEAD_W
+    log("vocab kernel yardstick, not the function and on no path: torch.matmul of the bf16 hidden "
+        "with the head widened to bf16 beforehand {:.4f} and {:.4f} ms per call (events; {:.1f} MB "
+        "moved, {:.0f} GB/s; no scale, bias, padding or statistics) beside the kernel's {:.4f} ms "
+        "[{}]".format(mm_ms[0], mm_ms[1], mm_bytes / 1e6, mm_bytes / (min(mm_ms) * 1e-3) / 1e9,
+                      ker_ms, card))
+    del wide
+    # the f32 parity path: plain FMAs outside the tensor cores
+    f32_copies = [(c[0].float(),) + c[1:] for c in copies]
     del copies
+    f32_ms = device_ms(run(vt.vocab_logits_topk_cuda, f32_copies), 20, "vocab_topk")
+    f32_bound, f32_by = bound(moved(4), flops, F32_FLOPS)
+    log("vocab kernel time, f32 (the parity path) R={} W={} V={}: kernel {:.4f} ms on the device "
+        "(profiler); bound {:.4f} ms ({}: {:.1f} GFLOP of f32 FMA at 67 TFLOP/s), {:.1%} of it "
+        "[{}]".format(HEAD_R, HEAD_W, HEAD_V, f32_ms, f32_bound, f32_by, flops / 1e9,
+                      f32_bound / f32_ms, card))
+    del f32_copies
+    torch.cuda.empty_cache()
     # no single PyTorch call gives the scale, bias, -inf padding and the
     # per-tile max and sum of exponentials
     return dict(max_abs_err=worst_main, ms=ker_ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1132,6 +1258,7 @@ def phase_video_slice(card, cpu_model, tok):
     from gitax_torch.ops.decode_attention import decode_attention
     from gitax_torch.runtime.engine import CaptionEngine
 
+    torch.cuda.reset_peak_memory_stats()
     model = build_model("cuda", torch.bfloat16, cpu_model)
     cfg = model.cfg
     engine = CaptionEngine(model, tok, batch_size=VIDEO_BATCH,
@@ -1188,6 +1315,7 @@ def phase_video_slice(card, cpu_model, tok):
                              lengths.mean().item(), card))
     log("video slice: {} distinct captions among {}; samples: {}".format(
         len(set(captions)), CLIPS, captions[:2]))
+    peak_memory("video slice", card)
     if PROFILE:
         profile_batch("video", card, lambda: engine.generate_batch(clips[:VIDEO_BATCH],
                                                                    prefixes[:VIDEO_BATCH]))
@@ -1213,6 +1341,7 @@ def phase_vocab_path(card, model, engine, clips):
     beam = engine.beam_for(1)
     check(model.vocab_kernel_applies(beam), "the vocab kernel's gates are off")
     batches = [clips[i:i + VIDEO_BATCH] for i in range(0, len(clips), VIDEO_BATCH)]
+    torch.cuda.reset_peak_memory_stats()  # the model's weights stay allocated
 
     def run(vocab_kernel):
         spans = {name: DeviceSpans(model, name) for name in ("encode_images", "prefill", "generate")}
@@ -1263,6 +1392,7 @@ def phase_vocab_path(card, model, engine, clips):
     log("vocab path: bf16 tokens agree on {:.1%} of clips between kernel on and off, with {} "
         "distinct token sequences among the {} clips (printed, not asserted: the two heads sum in "
         "other orders)".format(agree, distinct, len(clips)))
+    peak_memory("vocab path (generate, vocab_kernel on and off)", card)
 
     # device kernel time of one batch with the kernel on and off
     from torch.profiler import ProfilerActivity, profile
@@ -1274,30 +1404,46 @@ def phase_vocab_path(card, model, engine, clips):
     groups = (("vocab_topk", ("vocab_topk",)), ("sorts", ("sort",)),
               ("matmuls", ("gemm", "nvjet", "cutlass")))
     totals = {}
-    for vocab_kernel in (True, False):
+    # with --profile a third run: the kernel off and the per-beam top-C by
+    # a stable sort of the whole vocab row, as the plain path took it
+    # before it went through the blocked top-k (the same tokens)
+    from gitax_torch.decode import beam as beam_mod
+
+    blocked = beam_mod._top_k_blocked
+
+    def full_sort(logits, k, block=vt.TILE, bmax=None):
+        return beam_mod.top_k_stable(logits, k) if bmax is None else blocked(logits, k, block, bmax)
+
+    runs = [(True, "on"), (False, "off")]
+    if PROFILE:
+        runs.append((False, "off, full-vocab sort"))
+    for vocab_kernel, label in runs:
         model.decode_step_calls = 0
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            model.generate(x, cls_prefix(x), beam=beam, dtype=torch.bfloat16, fast_prefill=True,
-                           decode_kernel=True, vocab_kernel=vocab_kernel)
-            torch.cuda.synchronize()
+        beam_mod._top_k_blocked = full_sort if "sort" in label else blocked
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                model.generate(x, cls_prefix(x), beam=beam, dtype=torch.bfloat16,
+                               fast_prefill=True, decode_kernel=True, vocab_kernel=vocab_kernel)
+                torch.cuda.synchronize()
+        finally:
+            beam_mod._top_k_blocked = blocked
         steps = model.decode_step_calls
         kernels = [e for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
         total = sum(dev_us(e) for e in kernels) / 1e3
         check(total > 0, "the profile shows no device time")
-        totals[vocab_kernel] = (total, steps)
+        totals[label] = (total, steps)
         parts = ", ".join("{} {:.2f} ms x{}".format(
             name, sum(dev_us(e) for e in kernels if any(k in e.key.lower() for k in keys)) / 1e3,
             sum(e.count for e in kernels if any(k in e.key.lower() for k in keys)))
             for name, keys in groups)
         log("vocab path profile, one batch of {} clips, kernel {}: device kernel time {:.2f} ms, "
-            "{} beam steps; {} [{}]".format(len(batches[0]), "on" if vocab_kernel else "off", total,
-                                           steps, parts, card))
+            "{} beam steps; {} [{}]".format(len(batches[0]), label, total, steps, parts, card))
         if vocab_kernel:
             for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
                 log("vocab path profile:   {:8.3f} ms {:5.1%} x{:5d}  {}".format(
                     dev_us(e) / 1e3, dev_us(e) / 1e3 / total, e.count, e.key[:90]))
-    (t_on, s_on), (t_off, s_off) = totals[True], totals[False]
+    (t_on, s_on), (t_off, s_off) = totals["on"], totals["off"]
     log("vocab path profile: device kernel time {:.2f} ms on, {:.2f} ms off per batch of {}; "
         "{:.2f} ms saved per batch over {} steps [{}]".format(t_on, t_off, len(batches[0]),
                                                             t_off - t_on, s_on, card))

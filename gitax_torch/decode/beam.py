@@ -14,10 +14,12 @@ parent's ancestry row (KVCache.anc).
 
 Every top-k breaks ties toward the lowest index, as gitax does
 (beam.py:103-107): `torch.topk` documents no tie order, so the top-k is a
-stable descending sort and a slice.  The plain path sorts the full vocab
-row; gitax's blocked top-k (`_top_k_blocked`) serves the `vocab_stats`
-path, which reads the block maxima and sums of exponentials that the
-fused vocab-head kernel (ops/vocab_topk.py) emits.
+stable descending sort and a slice.  The per-beam top-C over the vocab
+goes through gitax's blocked top-k (`_top_k_blocked`), which sorts the
+block maxima and then C blocks rather than the whole row: on the plain
+path it takes the maxima itself, on the `vocab_stats` path it reads the
+block maxima and sums of exponentials that the fused vocab-head kernel
+(ops/vocab_topk.py) emits.
 
 Sampling and the repetition penalty are not ported yet: the config has no
 fields for them.
@@ -161,7 +163,7 @@ def beam_search(decode_step_fn, prefill_logits, cache, prefix_tokens,
             pb_vals, pb_idx = _top_k_blocked(logits, c, block=TILE, bmax=bmax)
             lse = combine_lse(bmax, bsum)
         else:
-            pb_vals, pb_idx = top_k_stable(logits, c)  # [BK, C]
+            pb_vals, pb_idx = _top_k_blocked(logits, c)  # [BK, C]
             lse = torch.logsumexp(logits.float(), dim=-1)
         cand = pb_vals.float() - lse[:, None] + beam_scores.reshape(-1)[:, None]
         merged_scores = cand.reshape(b, k * c)
