@@ -65,7 +65,41 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      --profile also with the full-vocab sort the plain path took before
      its blocked top-k, for the sorts' device time before and after);
  12. video f32 parity: 4 clips, int8 head, vocab kernel on against off:
-     the first 2 head calls against the plain head, identical tokens.
+     the first 2 head calls against the plain head, identical tokens;
+ 13. the decoders the machine offers (PIL, cv2, torchvision.io,
+     jpeglib.h and -ljpeg through g++); the TSV loops decode with PIL, as
+     gitax does, and the run fails without it; whether PyYAML is there to
+     parse the CLI's -p string;
+ 14. the COCO TSV through the CLI: phase 5's weights written as
+     output/GIT_LARGE_COCO/snapshot/model.pt, a 96-row TSV of 224x224 PNG
+     payloads through gitax_torch.inference.test_git_inference_single_tsv
+     in process, by the -p command line where PyYAML is installed (bf16,
+     int8, batch 32): 96 rows, each checked by name (key in order, one
+     caption, a string, empty only where the search's tokens are all
+     special), decode_attention launches = 6 x beam steps,
+     flash_attention none; the checkpoint's write and load seconds, the
+     TSV loop's images/s beside phase 5's, one float batch's upload; then
+     32 images of one colour plus noise through the same function, with
+     the same row checks and the tokens of each empty caption;
+ 15. the VQA TSV: GIT_LARGE_VQAv2 through run_vqa_tsv with its MinMax
+     transform, 32 PNG images at phase 7's four target sizes, two
+     questions each of the two lengths: 64 answers in the reference row
+     order, flash_attention launched, decode_attention = 6 x steps;
+     pairs/s beside phase 7's;
+ 16. TSV f32 parity: 16 COCO rows through run_caption_tsv give
+     generate_batch's captions on the same decoded arrays in the same
+     batches, and the decode kernel path's TSV equals the plain path's;
+ 17. greedy and trie: 8 COCO images through generate(mode='greedy' |
+     'trie') with a small class list in bf16 and f32 on phase 5's weights
+     with the decoder's attention x5 (shapes, EOS padding, trie outputs
+     in the list); the same weights in f64 on the CPU are the witness:
+     the card's f32 logits on the CPU's tokens are within the rounding
+     bound D of f64's (D = 8 x the CPU f32's own error), and the f32
+     tokens equal the
+     CPU's up to the first step whose f64 top-2 margin is under 2D
+     (`parting_report`); then test_git_inference_single_image on a PNG
+     file.
+Phases 14-17 write in build/gitax_torch/smoke_work, removed at the end.
 Each slice prints its peak device memory.
 Prints the card's name and power limit, one JSON line describing the
 kernels (launches on the main path; error, time, plain time, bound and
@@ -79,6 +113,7 @@ import ctypes
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -774,7 +809,7 @@ def phase_coco_slice(card, cpu_model, tok):
     peak_memory("coco slice", card)
     del engine, model
     torch.cuda.empty_cache()
-    return launches, images
+    return launches, images, 96 / seconds
 
 
 def normalized(images, dtype):
@@ -927,7 +962,7 @@ def phase_vqa_slice(card, cpu_model, tok):
             [a for a, _ in batch], [pfx for _, pfx in batch]))
     del engine, model
     torch.cuda.empty_cache()
-    return d_launches, f_launches, pairs
+    return d_launches, f_launches, pairs, len(pairs) / seconds
 
 
 def profile_batch(label, card, fn):
@@ -1493,6 +1528,584 @@ def phase_video_f32_parity(cpu_model, clips, beam):
     torch.cuda.empty_cache()
 
 
+# -- the TSV loops, the CLI, greedy and trie (phases 13-17) -----------------
+
+COCO_TSV_ROWS, VQA_TSV_IMAGES, FLAT_ROWS = 96, 32, 32
+TRIE_WORDS = ["hot", "dog", "pot", "red", "fox", "cat", "stand"]
+TRIE_CLASSES = ["hot dog", "hot pot", "hot dog stand", "dog", "red fox", "cat"]
+# phase 17's weights: the decoder's attention x5 makes greedy's outputs
+# depend on the image (5 distinct of 8; 1 at x1) while f32 stays within
+# 2.5e-05 of f64 on the CPU; at x10 (phase 16's) scores x100 make f32
+# rounding move logits by up to 13% of their scale on either device
+SHARPEN_17 = 5
+# its rounding bound D, relative to a step's largest |logit|: this many
+# times the CPU f32's largest error against f64 in the run; the card's
+# f32 errors read 2.2 to 2.6 times the CPU's at x1 to x5
+ROUNDING_X = 8
+
+
+def png_bytes(img):
+    """uint8 RGB [H, W, 3] -> PNG bytes, written by PIL (zlib level 1)."""
+    import io
+
+    from gitax_torch.io.image import pil_image
+
+    buf = io.BytesIO()
+    pil_image().fromarray(img).save(buf, format="PNG", compress_level=1)
+    return buf.getvalue()
+
+
+def phase_decoders(work):
+    """13. Which image decoders the machine offers: PIL, cv2,
+    torchvision.io, libjpeg's header and library through g++.  Information
+    for a later native loader.  The TSV loops decode with PIL, as gitax
+    does, so the run stops here without it."""
+    import importlib
+    import shutil
+
+    from gitax_torch.io.image import pil_image
+
+    found = []
+    for name in ("PIL", "cv2", "torchvision.io"):
+        try:
+            mod = importlib.import_module(name)
+            found.append("{} {}".format(name, getattr(mod, "__version__", "present")))
+        except Exception as e:  # noqa: BLE001 - any failure means "not usable here"
+            found.append("{} absent ({})".format(name, type(e).__name__))
+    gxx = shutil.which("g++")
+    if gxx is None:
+        found.append("g++ absent")
+    else:
+        src = "#include <cstdio>\n#include <jpeglib.h>\nint main() { jpeg_decompress_struct c; " \
+              "jpeg_create_decompress(&c); return 0; }\n"
+        header = subprocess.run([gxx, "-x", "c++", "-fsyntax-only", "-"], input=src, text=True,
+                                capture_output=True, timeout=60).returncode == 0
+        linked = header and subprocess.run(
+            [gxx, "-x", "c++", "-", "-o", os.path.join(work, "jpeg_probe"), "-ljpeg"], input=src,
+            text=True, capture_output=True, timeout=60).returncode == 0
+        found.append("jpeglib.h with g++: {}, -ljpeg {}".format(
+            "found" if header else "not found", "links" if linked else "does not link"))
+    try:
+        pil_image()
+    except ImportError as e:
+        check(False, "the TSV loops decode with PIL: {}".format(e))
+    log("decoders: {}; the TSV loops decode with PIL; PyYAML (the -p CLI's parser) {}".format(
+        "; ".join(found), "present" if have_yaml() else "absent"))
+
+
+def have_yaml():
+    """Whether PyYAML is importable: `python -m gitax_torch.inference -p`
+    parses its string with it."""
+    try:
+        import yaml  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def write_image_tsv(path, images):
+    """images -> a base64 PNG image TSV keyed img0, img1, ..."""
+    import base64
+
+    from gitax_torch.io.tsv import tsv_writer
+
+    keys = ["img{}".format(i) for i in range(len(images))]
+    tsv_writer(([k, base64.b64encode(png_bytes(a))] for k, a in zip(keys, images)), path)
+    return keys
+
+
+class Captured(object):
+    """Wraps a module or class attribute (a function or a method) until
+    `remove`: records each call's arguments, result and wall seconds."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.orig = owner, name, getattr(owner, name)
+        self.args, self.results, self.seconds = [], [], []
+        orig = self.orig
+
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            out = orig(*a, **kw)
+            self.seconds.append(time.perf_counter() - t0)
+            self.args.append(a)
+            self.results.append(out)
+            return out
+
+        setattr(owner, name, wrapped)
+
+    def remove(self):
+        setattr(self.owner, self.name, self.orig)
+
+
+def check_caption_rows(label, path, keys, decodes):
+    """The caption TSV at `path` against its image keys, row by row: one
+    row per key, in order, each cell one {"caption": str} equal to the
+    detokenised search output.  A caption is empty only where the
+    search's tokens are all special ids, which detokenisation skips as
+    gitax's does.  `decodes` is the tokenizer's `decode` capture, one call
+    per row in row order.  Returns the empty rows as (row, key, ids)."""
+    import json
+
+    from gitax_torch.io.tsv import TSVFile
+
+    out = TSVFile(path)
+    check(len(out) == len(keys), "{}: {} output rows for {} images".format(label, len(out),
+                                                                           len(keys)))
+    check(len(decodes.args) == len(keys), "{}: {} detokenisations for {} rows".format(
+        label, len(decodes.args), len(keys)))
+    special = set(decodes.args[0][0].all_special_ids)
+    empty = []
+    for i, key in enumerate(keys):
+        row = out[i]
+        check(row[0] == key, "{}: row {} has key {!r}, not {!r}".format(label, i, row[0], key))
+        cell = json.loads(row[1])
+        check(isinstance(cell, list) and len(cell) == 1 and isinstance(cell[0], dict)
+              and list(cell[0]) == ["caption"] and isinstance(cell[0]["caption"], str),
+              "{}: row {} ({}): malformed cell {!r}".format(label, i, key, row[1]))
+        ids, text = [int(t) for t in decodes.args[i][1]], decodes.results[i]
+        check(cell[0]["caption"] == text, "{}: row {} ({}): caption {!r}, search output {!r}".format(
+            label, i, key, cell[0]["caption"], text))
+        if not text:
+            check(all(t in special for t in ids), "{}: row {} ({}): empty caption from tokens {}, "
+                  "not all special".format(label, i, key, ids))
+            empty.append((i, key, ids))
+    return empty
+
+
+def phase_coco_tsv(card, cpu_model, images, work, engine_rate):
+    """14. The COCO TSV through the CLI: the weights of phase 5 written as
+    output/GIT_LARGE_COCO/snapshot/model.pt, phase 5's 96 images as a TSV
+    of 224x224 PNG payloads, `test_git_inference_single_tsv` in process
+    (bf16, int8, batch 32); then 32 images of one colour plus noise
+    through the same function."""
+    import numpy as np
+    import torch
+
+    from gitax_torch import common, inference
+    from gitax_torch.ops import flash_attention as fa
+    from gitax_torch.ops.decode_attention import decode_attention
+    from gitax_torch.runtime.engine import CaptionEngine
+    from gitax_torch.tokenization import BertTokenizer
+
+    torch.cuda.reset_peak_memory_stats()
+    snap = os.path.join(work, "output", "GIT_LARGE_COCO", "snapshot")
+    os.makedirs(snap)
+    t0 = time.perf_counter()
+    torch.save({"model": cpu_model.state_dict()}, os.path.join(snap, "model.pt"))
+    write_s = time.perf_counter() - t0
+    check(len(images) == COCO_TSV_ROWS, "{} images from phase 5".format(len(images)))
+    keys = write_image_tsv(os.path.join(work, "coco.img.tsv"), images)
+
+    build = Captured(inference, "_build_model")
+    loop = Captured(CaptionEngine, "run_caption_tsv")
+    decodes = Captured(BertTokenizer, "decode")
+    # the user's command line, `python -m gitax_torch.inference -p ...`,
+    # in process; without PyYAML, which parses -p, the function itself
+    argv = ["-p", "{'type': 'test_git_inference_single_tsv', 'image_tsv': 'coco.img.tsv', "
+                  "'model_name': 'GIT_LARGE_COCO', 'question_tsv': null, 'out_tsv': "
+                  "'coco.out.tsv', 'batch_size': 32, 'dtype': 'bfloat16', 'int8': true}"]
+    via = "-p" if have_yaml() else "a direct call (no PyYAML to parse -p)"
+    cwd = os.getcwd()
+    os.chdir(work)
+    decode_attention.launches = 0
+    fa.launches = 0
+    try:
+        if via == "-p":
+            common.dispatch_main(vars(inference), argv)
+        else:
+            inference.test_git_inference_single_tsv("coco.img.tsv", "GIT_LARGE_COCO", None,
+                                                    "coco.out.tsv", batch_size=32,
+                                                    dtype="bfloat16", int8=True)
+    finally:
+        os.chdir(cwd)
+        build.remove()
+        loop.remove()
+        decodes.remove()
+    launches, flash_launches = decode_attention.launches, fa.launches
+    model = build.results[0]
+    steps = model.decode_step_calls
+
+    empty = check_caption_rows("coco tsv", os.path.join(work, "coco.out.tsv"), keys, decodes)
+    check(model.textual.output.quantized, "the CLI did not quantise the head")
+    check(steps > 0 and launches == model.cfg.num_layers * steps,
+          "decode_attention launches {} != {} layers x {} beam steps".format(
+              launches, model.cfg.num_layers, steps))
+    check(flash_launches == 0, "flash_attention launched {} times at S=257".format(flash_launches))
+    rate = COCO_TSV_ROWS / loop.seconds[0]
+    log("coco tsv: {} rows of 224x224 PNG through `python -m gitax_torch.inference`'s "
+        "test_git_inference_single_tsv by {} (bf16, int8, batch 32): {} rows checked, keys in "
+        "order, {} empty captions, {} beam steps, decode_attention launches {} = {} x {}, "
+        "flash_attention 0; decoded by PIL".format(COCO_TSV_ROWS, via, COCO_TSV_ROWS, len(empty),
+                                                   steps, launches, model.cfg.num_layers, steps))
+    log("coco tsv: checkpoint write {:.2f} s ({:.0f} MiB), load onto the card {:.2f} s; the TSV "
+        "loop {:.2f} images/s ({:.2f} s for {} rows, the first batch's warm-up included) beside "
+        "the engine's {:.2f} images/s on the same images decoded (phase 5) [{}]".format(
+            write_s, os.path.getsize(os.path.join(snap, "model.pt")) / 2**20, build.seconds[0],
+            rate, loop.seconds[0], COCO_TSV_ROWS, engine_rate, card))
+    # the float upload: the transform's normalised f32 batch, cast to bf16
+    # on the host and copied, as dispatch_device_batch does
+    batch = np.random.RandomState(0).randn(32, 224, 224, 3).astype(np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        torch.from_numpy(batch).to(torch.bfloat16).to("cuda")
+    torch.cuda.synchronize()
+    up_ms = (time.perf_counter() - t0) / 5 * 1e3
+    batch_ms = loop.seconds[0] / (COCO_TSV_ROWS / 32) * 1e3
+    log("coco tsv: one float batch's upload (32 x 224 x 224 x 3 f32 -> bf16 on the host, 9.2 MiB "
+        "copied) {:.2f} ms, {:.1f}% of the loop's {:.1f} ms per batch [{}]".format(
+            up_ms, 100 * up_ms / batch_ms, batch_ms, card))
+    peak_memory("coco tsv", card)
+    del model, build
+    torch.cuda.empty_cache()
+
+    # images of one colour plus a little noise, the inputs of an earlier
+    # run that stopped here, through the same function
+    rng = np.random.RandomState(14)
+    flat = [np.clip(rng.randint(0, 256, 3) + rng.randint(-8, 9, (224, 224, 3)), 0, 255)
+            .astype(np.uint8) for _ in range(FLAT_ROWS)]
+    flat_keys = write_image_tsv(os.path.join(work, "flat.img.tsv"), flat)
+    decodes = Captured(BertTokenizer, "decode")
+    os.chdir(work)
+    try:
+        inference.test_git_inference_single_tsv("flat.img.tsv", "GIT_LARGE_COCO", None,
+                                                "flat.out.tsv", batch_size=32, dtype="bfloat16",
+                                                int8=True)
+    finally:
+        os.chdir(cwd)
+        decodes.remove()
+    flat_empty = check_caption_rows("coco tsv, one colour + noise",
+                                    os.path.join(work, "flat.out.tsv"), flat_keys, decodes)
+    log("coco tsv, one colour + noise: {} rows checked, keys in order, {} distinct captions, {} "
+        "empty: {}".format(FLAT_ROWS, len(set(decodes.results)), len(flat_empty), "; ".join(
+            "row {} ({}) tokens {}".format(i, k, ids[:6]) for i, k, ids in flat_empty[:8])))
+    torch.cuda.empty_cache()
+    return launches, rate
+
+
+def phase_vqa_tsv(card, cpu_model, tok, work, engine_rate):
+    """15. GIT_LARGE_VQAv2 through `run_vqa_tsv` with its MinMax transform:
+    32 PNG images, 8 at each of phase 7's four MinMax target sizes, two
+    questions each of the two lengths."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from gitax_torch.common import json_dump
+    from gitax_torch.decode.beam import BeamSearchConfig
+    from gitax_torch.io.tsv import TSVFile, tsv_writer
+    from gitax_torch.ops import flash_attention as fa
+    from gitax_torch.ops.decode_attention import decode_attention
+    from gitax_torch.preprocess.transforms import TestTransform, min_max_resize_size
+    from gitax_torch.runtime.engine import CaptionEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model("cuda", torch.bfloat16, cpu_model)
+    crop, ratio_max = 420, 560
+    engine = CaptionEngine(model, tok, batch_size=32, beam=BeamSearchConfig(num_beams=4, max_steps=40),
+                           dtype=torch.bfloat16, int8=True, fast_prefill=True, decode_kernel=True,
+                           transform=TestTransform(crop_size=crop, respect_ratio_max=ratio_max))
+    rng = np.random.RandomState(15)
+    images = []
+    for i in range(VQA_TSV_IMAGES):
+        h, w = min_max_resize_size(VQA_SOURCES[i % 4][0], crop, ratio_max)
+        check(min_max_resize_size((w, h), crop, ratio_max) == (h, w), "not its own target")
+        images.append(rng.randint(0, 256, (h, w, 3), dtype=np.uint8))
+    img_tsv, q_tsv = os.path.join(work, "vqa.img.tsv"), os.path.join(work, "vqa.q.tsv")
+    keys = write_image_tsv(img_tsv, images)
+    tsv_writer(([k, json_dump([{"question": VQA_QUESTIONS[j], "question_id": 2 * i + j}
+                               for j in (0, 1)])] for i, k in enumerate(keys)), q_tsv)
+
+    decode_attention.launches = 0
+    fa.launches = 0
+    model.decode_step_calls = 0
+    t0 = time.perf_counter()
+    with engine:
+        engine.run_vqa_tsv(img_tsv, q_tsv, os.path.join(work, "vqa.out.tsv"))
+    seconds = time.perf_counter() - t0
+    d_launches, f_launches, steps = decode_attention.launches, fa.launches, model.decode_step_calls
+    rows = [json.loads(r[0]) for r in TSVFile(os.path.join(work, "vqa.out.tsv"))]
+    n = 2 * VQA_TSV_IMAGES
+    check([r["question_id"] for r in rows] == list(range(n)),
+          "answers not in the reference row order, or a question_id twice or missing")
+    check(all(isinstance(r["answer"], str) for r in rows), "a malformed answer")
+    check(f_launches > 0, "flash_attention never launched at S 881-1201")
+    check(steps > 0 and d_launches == model.cfg.num_layers * steps,
+          "decode_attention launches {} != {} layers x {} beam steps".format(
+              d_launches, model.cfg.num_layers, steps))
+    log("vqa tsv: {} PNG images at grids 30x30, 22x40, 30x40, 40x30 through run_vqa_tsv (MinMax "
+        "420/560, bf16, int8): {} answers in the reference row order, {} beam steps; "
+        "flash_attention launches {}, decode_attention launches {} = {} x {}".format(
+            VQA_TSV_IMAGES, len(rows), steps, f_launches, d_launches, model.cfg.num_layers, steps))
+    log("vqa tsv: {:.2f} pairs/s through the TSV loop ({:.2f} s, decode and warm-up included) beside "
+        "the engine's {:.2f} pairs/s on decoded arrays (phase 7) [{}]".format(
+            n / seconds, seconds, engine_rate, card))
+    peak_memory("vqa tsv", card)
+    del engine, model
+    torch.cuda.empty_cache()
+    return d_launches, f_launches, n / seconds
+
+
+def sharpen_(model, attention=10, projection=10):
+    """The CPU tests' sharpening, in place: the visual projection's weight
+    and the decoder's attention weights (q, k, v, out) scaled, so that
+    outputs depend on the image (the random weights give most images one
+    caption)."""
+    import torch
+
+    with torch.no_grad():
+        model.textual.visual_projection[0].weight.mul_(projection)
+        for layer in model.textual.layers():
+            for lin in (layer.attention.qkv.query, layer.attention.qkv.key,
+                        layer.attention.qkv.value, layer.attention.output.dense):
+                lin.weight.mul_(attention)
+    return model
+
+
+def phase_tsv_f32_parity(cpu_model, work):
+    """16. 16 COCO rows at f32: run_caption_tsv's captions equal
+    generate_batch's on the same decoded arrays in the same batches, and
+    the decode kernel path's TSV equals the plain path's, byte for byte,
+    on phase 5's weights with sharper attention over the image."""
+    import json
+
+    import torch
+
+    from gitax_torch.decode.beam import BeamSearchConfig
+    from gitax_torch.io.tsv import TSVFile, tsv_writer
+    from gitax_torch.preprocess.transforms import TestTransform
+    from gitax_torch.runtime.engine import CaptionEngine
+    from gitax_torch.tokenization import BertTokenizer, build_tiny_vocab
+
+    src = TSVFile(os.path.join(work, "coco.img.tsv"))
+    img_tsv = os.path.join(work, "parity.img.tsv")
+    tsv_writer((src[i] for i in range(16)), img_tsv)
+    model = sharpen_(build_model("cuda", torch.float32, cpu_model))
+    tok = BertTokenizer(build_tiny_vocab())
+    out, caps = {}, {}
+    for kernel in (True, False):
+        engine = CaptionEngine(model, tok, batch_size=8,
+                               beam=BeamSearchConfig(num_beams=4, max_steps=40),
+                               dtype=torch.float32, decode_kernel=kernel,
+                               transform=TestTransform(crop_size=224))
+        path = os.path.join(work, "parity.{}.tsv".format(kernel))
+        with engine:
+            engine.run_caption_tsv(img_tsv, path)
+            if kernel:
+                arrays = [engine._decode_row(src[i][1]) for i in range(16)]
+                direct = engine.generate_batch(arrays, [[tok.cls_token_id]] * 16)
+        with open(path, "rb") as fp:
+            out[kernel] = fp.read()
+        caps[kernel] = [json.loads(r[1])[0]["caption"] for r in TSVFile(path)]
+    check(caps[True] == direct, "run_caption_tsv's captions differ from generate_batch's")
+    check(out[True] == out[False], "the decode kernel path's TSV differs from the plain path's")
+    log("tsv f32 parity: 16 COCO rows, batches of 8: run_caption_tsv = generate_batch on the "
+        "same decoded arrays; decode kernel path TSV = plain path TSV ({} bytes); {} distinct "
+        "captions".format(len(out[True]), len(set(caps[True]))))
+    del model
+    torch.cuda.empty_cache()
+
+
+def forced_logits(model, memory, seqs, dtype):
+    """Logits [B, S - 1, V] of greedy's steps on `model`, on the CPU, in
+    the model's accumulation type (f32, or f64 for f64), from its memory
+    (`build_memory`), when the tokens fed are seqs [B, S] ([CLS], then
+    the generated ones): step s predicts seqs[:, s + 1].  The prefill
+    and plain decode step of generate(mode='greedy' | 'trie') with
+    max_steps S."""
+    import torch
+
+    visual, valid = memory
+    with torch.inference_mode():
+        seqs = seqs.to(visual.device)
+        logits, cache = model.prefill(visual, seqs[:, :1], seqs.shape[1], valid, dtype)
+        out = [logits.cpu()]
+        for s in range(1, seqs.shape[1] - 1):
+            logits, cache = model.decode_step(seqs[:, s], cache, dtype)
+            out.append(logits.cpu())
+    return torch.stack(out, 1)
+
+
+def parting_report(label, card_seqs, cpu_seqs, logits, allowed=None, eos=102):
+    """Where the f32 tokens of one search on the card and on the CPU
+    part, held to the f64 witness.  logits["card" | "cpu" | "f64"] are
+    `forced_logits` on the CPU's tokens, so up to a row's first differing
+    step they are the logits each search read.  The rounding bound D of a
+    step is ROUNDING_X times the CPU f32's largest error against f64 in
+    this run, relative to the step's largest |logit|, times that |logit|.
+    Checks, per row, up to its first parting (or the CPU's EOS): the
+    card's f32 logits are within D of f64's; and the tokens agree up to
+    the first step whose f64 top-2 margin is under 2D, where rounding of D
+    can swap the top two.  allowed(row, step) gives a step's candidate
+    tokens (a trie node's children) or None (the whole vocabulary).
+    Returns the partings, the CPU's and the card's largest relative
+    errors."""
+    import torch
+
+    lg = {k: v.double() for k, v in logits.items()}
+    rows = []
+    for b in range(cpu_seqs.shape[0]):
+        cpu_row, card_row = cpu_seqs[b].tolist(), card_seqs[b].tolist()
+        end = cpu_row.index(eos, 1) if eos in cpu_row[1:] else len(cpu_row) - 1
+        steps = []
+        for s in range(end):
+            cand = allowed(b, s) if allowed else None
+            step = {k: (v[b, s] if cand is None else v[b, s, cand]) for k, v in lg.items()}
+            scale = lg["f64"][b, s].abs().max().item()  # over the whole vocabulary
+            err = {k: (step[k] - step["f64"]).abs().max().item() / scale for k in ("card", "cpu")}
+            top = torch.topk(step["f64"], 2) if step["f64"].numel() > 1 else None
+            steps.append(dict(
+                scale=scale, err=err, margin=(top.values[0] - top.values[1]).item() / scale
+                if top is not None else float("inf"),
+                f64=(cand[top.indices[0]].item() if cand is not None else top.indices[0].item())
+                if top is not None else None))
+        differ = [s for s in range(end) if card_row[s + 1] != cpu_row[s + 1]]
+        rows.append((b, cpu_row, card_row, steps, differ[0] if differ else None))
+    rel_cpu = max([max(st["err"]["cpu"] for st in steps) for *_, steps, _ in rows if steps]
+                  + [2.0 ** -23])
+    rel_d = ROUNDING_X * rel_cpu
+    partings, rel_card = [], 0.0
+    for b, cpu_row, card_row, steps, first in rows:
+        for s, st in enumerate(steps[:first + 1 if first is not None else len(steps)]):
+            rel_card = max(rel_card, st["err"]["card"])
+            check(st["err"]["card"] <= rel_d, "{}: row {} step {}: the card's f32 logits are "
+                  "{:.3e} of the step's largest |logit| from f64's, over D = {:.3e}".format(
+                      label, b, s, st["err"]["card"], rel_d))
+        tie = next((s for s, st in enumerate(steps) if st["margin"] < 2 * rel_d), None)
+        if first is not None:
+            st = steps[first]
+            check(tie is not None and first >= tie, "{}: row {} parts at step {}, before the first "
+                  "step ({}) whose f64 top-2 margin is under 2D: margin {:.3e}, 2D {:.3e} (of the "
+                  "step's largest |logit|)".format(label, b, first, tie, st["margin"], 2 * rel_d))
+            partings.append("row {} step {}: f64 top-2 margin {:.2e}, card error {:.2e}, CPU "
+                            "error {:.2e}, 2D {:.2e}; tokens card {} CPU {} f64 {}".format(
+                                b, first, st["margin"], st["err"]["card"], st["err"]["cpu"],
+                                2 * rel_d, card_row[first + 1], cpu_row[first + 1], st["f64"]))
+    return partings, rel_cpu, rel_card
+
+
+def phase_greedy_trie(card, cpu_model, work):
+    """17. Greedy and trie on the card: 8 COCO images through
+    generate(mode='greedy' | 'trie') in bf16 and f32, on phase 5's weights
+    with the attention x SHARPEN_17, so that outputs depend on the image; the
+    f32 tokens against the same weights' on the CPU, both held to the
+    same weights in f64 (`parting_report`); then one
+    test_git_inference_single_image call on a PNG file, from the
+    checkpoint of phase 14."""
+    import base64
+    import copy
+
+    import numpy as np
+    import torch
+
+    from gitax_torch import inference
+    from gitax_torch.decode.trie import build_vocab_trie
+    from gitax_torch.io.image import load_image
+    from gitax_torch.io.tsv import TSVFile
+    from gitax_torch.models.git import GitModel
+    from gitax_torch.preprocess.transforms import TestTransform
+    from gitax_torch.tokenization import BertTokenizer, build_tiny_vocab
+
+    torch.cuda.reset_peak_memory_stats()
+    src = TSVFile(os.path.join(work, "coco.img.tsv"))
+    tf = TestTransform(crop_size=224)
+    x = torch.from_numpy(np.stack([tf(load_image(base64.b64decode(src[i][1])))
+                                   for i in range(8)]))
+    tok = BertTokenizer(build_tiny_vocab(TRIE_WORDS))
+    trie = build_vocab_trie(tok, TRIE_CLASSES)
+    eos = 102
+    sharp = sharpen_(copy.deepcopy(cpu_model), attention=SHARPEN_17, projection=1)
+    results, logits = {}, {"greedy": {}, "trie": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = build_model("cuda", dtype, sharp)
+        for mode in ("greedy", "trie"):
+            t0 = time.perf_counter()
+            seqs, lp = model.generate(x.cuda(), mode=mode, trie=trie, dtype=dtype)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            seqs, lp = seqs.cpu(), lp.float().cpu()
+            check(seqs.shape == (8, 40) and lp.shape == (8,) and torch.isfinite(lp).all().item(),
+                  "{} {}: shapes {} {} or non-finite logprobs".format(mode, dtype, tuple(seqs.shape),
+                                                                       tuple(lp.shape)))
+            for row in seqs.tolist():
+                first = row.index(eos) if eos in row else len(row)
+                check(all(t == eos for t in row[first:]), "{} {}: not EOS-padded".format(mode, dtype))
+            if mode == "trie":
+                names = [tok.decode(r[1:], skip_special_tokens=True) for r in seqs.tolist()]
+                check(all(n in TRIE_CLASSES for n in names),
+                      "trie {}: outputs outside the class list: {}".format(dtype, names))
+            results[(mode, dtype)] = seqs
+            log("greedy/trie: {} {}: 8 images in {:.2f} s, mean length {:.2f}, {} distinct "
+                "outputs{} [{}]".format(
+                    mode, str(dtype)[6:], seconds, (seqs != eos).sum(1).float().mean().item(),
+                    len({tuple(r) for r in seqs.tolist()}),
+                    ", classes {}".format(sorted(set(names))) if mode == "trie" else "", card))
+        if dtype == torch.float32:
+            cpu_seqs = {mode: sharp.generate(x, mode=mode, trie=trie)[0]
+                        for mode in ("greedy", "trie")}
+            with torch.inference_mode():
+                memory = model.build_memory(x.cuda(), dtype=dtype)
+            for mode in ("greedy", "trie"):
+                logits[mode]["card"] = forced_logits(model, memory, cpu_seqs[mode], dtype)
+            del memory
+        del model
+        torch.cuda.empty_cache()
+
+    # the witness: the same weights in f64 on the CPU, on the CPU's tokens
+    t0 = time.perf_counter()
+    m64 = GitModel(sharp.cfg, device="cpu", dtype=torch.float64)
+    m64.load_state_dict(sharp.state_dict())
+    for name, model, dtype in (("cpu", sharp, torch.float32), ("f64", m64, torch.float64)):
+        with torch.inference_mode():
+            memory = model.build_memory(x.to(dtype), dtype=dtype)
+        for mode in ("greedy", "trie"):
+            logits[mode][name] = forced_logits(model, memory, cpu_seqs[mode], dtype)
+    del m64, sharp, memory
+    witness_s = time.perf_counter() - t0
+
+    def trie_children(b, s):
+        """The trie's candidates at step s of row b of the CPU's search:
+        the children of its node, less the token just emitted (blocked)."""
+        row = cpu_seqs["trie"][b].tolist()
+        kids = [t for t in trie.get_valid(row[1:s + 1]) if s == 0 or t != row[s]]
+        return torch.tensor(kids, dtype=torch.long)
+
+    for mode in ("greedy", "trie"):
+        card_seqs = results[(mode, torch.float32)]
+        partings, rel_cpu, rel_card = parting_report(
+            "{} f32".format(mode), card_seqs, cpu_seqs[mode], logits[mode],
+            allowed=trie_children if mode == "trie" else None)
+        agree = int((card_seqs == cpu_seqs[mode]).all(1).sum())
+        log("greedy/trie: {} f32 on the attention x{} weights, card against CPU: {} of 8 rows equal, "
+            "{} distinct outputs on the card, {} on the CPU; f32 logits against the f64 witness "
+            "(relative to the step's largest |logit|): CPU within {:.3e}, card within {:.3e}, D = "
+            "{} x the CPU's; partings: {}".format(
+                mode, SHARPEN_17, agree, len({tuple(r) for r in card_seqs.tolist()}),
+                len({tuple(r) for r in cpu_seqs[mode].tolist()}), rel_cpu, rel_card, ROUNDING_X,
+                "; ".join(partings) or "none"))
+    log("greedy/trie: the CPU's f32 and f64 runs on the CPU's tokens took {:.1f} s".format(
+        witness_s))
+    peak_memory("greedy/trie", card)
+
+    path = os.path.join(work, "single.png")
+    with open(path, "wb") as fp:
+        fp.write(base64.b64decode(src[0][1]))
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.perf_counter()
+        cap = inference.test_git_inference_single_image(path, "GIT_LARGE_COCO", "")
+        seconds = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    check(isinstance(cap, str) and cap, "test_git_inference_single_image gave {!r}".format(cap))
+    log("single image: test_git_inference_single_image on a 224x224 PNG from the checkpoint "
+        "(f32, beam 4, 1024-token buffer): {!r} in {:.2f} s, the load included [{}]".format(
+            cap, seconds, card))
+    torch.cuda.empty_cache()
+
+
 def main(argv):
     import torch
 
@@ -1517,18 +2130,32 @@ def main(argv):
              "flash_attention": phase_flash_kernel(card),  # 4
              "vocab_topk": phase_vocab_kernel(card)}  # 9
 
-    # 5, 6: the COCO path
+    # 13: the decoders; the TSVs and the checkpoint go in the checkout's
+    # build tree, removed at the end
+    work = os.path.join(ROOT, "build", "gitax_torch", "smoke_work")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    phase_decoders(work)
+
+    # 5, 6, 14, 16, 17: the COCO path
     coco = random_model("GIT_LARGE_COCO", seed=0, gate=12)
-    coco_launches, images = phase_coco_slice(card, coco, BertTokenizer(build_tiny_vocab()))
+    coco_launches, images, coco_rate = phase_coco_slice(card, coco,
+                                                        BertTokenizer(build_tiny_vocab()))
     phase_coco_f32_parity(coco, images)
+    tsv_d, _ = phase_coco_tsv(card, coco, images, work, coco_rate)
+    phase_tsv_f32_parity(coco, work)
+    phase_greedy_trie(card, coco, work)
     del coco
 
-    # 7, 8: the VQA path
+    # 7, 8, 15: the VQA path
     # past the 14-token question prefix: answers of ~2 and ~9 tokens
     vqa = random_model("GIT_LARGE_VQAv2", seed=1, gate=16)
-    vqa_d, vqa_f, pairs = phase_vqa_slice(card, vqa, BertTokenizer(build_tiny_vocab(VQA_WORDS)))
+    vqa_tok = BertTokenizer(build_tiny_vocab(VQA_WORDS))
+    vqa_d, vqa_f, pairs, vqa_rate = phase_vqa_slice(card, vqa, vqa_tok)
     phase_vqa_f32_parity(vqa, pairs)
+    vqa_tsv_d, vqa_tsv_f, _ = phase_vqa_tsv(card, vqa, vqa_tok, work, vqa_rate)
     del vqa, pairs
+    shutil.rmtree(work)
     torch.cuda.empty_cache()
 
     # 10, 11, 12: the video path
@@ -1541,12 +2168,14 @@ def main(argv):
     torch.cuda.empty_cache()
     phase_video_f32_parity(video, clips, beam)
 
-    launches = {"decode_attention": coco_launches + vqa_d + video_d,
-                "flash_attention": vqa_f + video_f, "vocab_topk": vocab_launches}
-    log("main-path launches: decode_attention {} (COCO {} + VQA {} + video {}), flash_attention {} "
-        "(VQA {} + video {}), vocab_topk {} (video, vocab_kernel on); all phases {:.1f} s".format(
-            launches["decode_attention"], coco_launches, vqa_d, video_d, launches["flash_attention"],
-            vqa_f, video_f, vocab_launches, time.perf_counter() - t_start))
+    launches = {"decode_attention": coco_launches + vqa_d + video_d + tsv_d + vqa_tsv_d,
+                "flash_attention": vqa_f + video_f + vqa_tsv_f, "vocab_topk": vocab_launches}
+    log("main-path launches: decode_attention {} (COCO {} + VQA {} + video {} + COCO TSV {} + VQA "
+        "TSV {}), flash_attention {} (VQA {} + video {} + VQA TSV {}), vocab_topk {} (video, "
+        "vocab_kernel on); all phases {:.1f} s".format(
+            launches["decode_attention"], coco_launches, vqa_d, video_d, tsv_d, vqa_tsv_d,
+            launches["flash_attention"], vqa_f, video_f, vqa_tsv_f, vocab_launches,
+            time.perf_counter() - t_start))
     log(card)
     log(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],

@@ -9,14 +9,24 @@ state dict, so for an fp tree `model.state_dict()` equals
 `model.pt` state dicts load with `load_state_dict` and no converter.
 A video tree's `img_temporal_embedding` [F, Dv] fills the F parameters
 `img_temperal_embedding.{i}` [1, 1, Dv] (the reference's spelling).
+
+A reference checkpoint (`output/{model}/snapshot/model.pt`) loads with
+`load_torch_checkpoint`, `infer_visual_config` (the encoder its shapes
+define) and `load_git_state_dict` (names matched by `align_by_suffix`),
+the counterparts of gitax's `ckpt/torch_convert.py:42, 64, 328`.
 """
 
 from __future__ import annotations
 
+import io
+import logging
+import re
+from typing import Dict
+
 import numpy as np
 import torch
 
-from .models.config import GitConfig
+from .models.config import GitConfig, ViTConfig
 from .models.git import GitModel
 
 
@@ -111,4 +121,68 @@ def params_from_gitax(tree: dict, cfg: GitConfig, device=None,
             shape, (n_emb, dv) if n_emb else None))
     for i, p in enumerate(model.img_temperal_embedding):
         p.copy_(_t(np.asarray(emb)[i]).reshape(1, 1, dv))
+    return model
+
+
+def load_torch_checkpoint(path):
+    """Load a model.pt on the CPU; returns the state dict (the inner one
+    of a reference {'model': state_dict}) with 'module.' prefixes
+    stripped (reference torch_common.py:41-56)."""
+    from .io import fileio
+
+    with fileio.open_file(path, "rb") as fp:
+        src = fp if getattr(fp, "seekable", lambda: False)() else io.BytesIO(fp.read())
+        blob = torch.load(src, map_location="cpu", weights_only=True)
+    state = blob.get("model", blob) if isinstance(blob, dict) else blob
+    out = {}
+    for k, v in state.items():
+        while k.startswith("module."):
+            k = k[len("module."):]
+        out[k] = v
+    return out
+
+
+def align_by_suffix(expected_keys, loaded: Dict[str, object]):
+    """For each expected key, pick the loaded key sharing the longest
+    suffix (reference align_and_update_state_dicts,
+    torch_common.py:100-145).  Returns {expected: loaded_value}."""
+    loaded_keys = sorted(loaded)
+    result = {}
+    for ek in expected_keys:
+        best, best_len = None, 0
+        for lk in loaded_keys:
+            if ek.endswith(lk) or lk.endswith(ek):
+                n = min(len(ek), len(lk))
+                if n > best_len:
+                    best, best_len = lk, n
+        if best is not None:
+            result[ek] = loaded[best]
+        else:
+            logging.info("no checkpoint match for %s", ek)
+    return result
+
+
+def infer_visual_config(sd, prefix="visual."):
+    """The ViT architecture that a state dict's shapes define, as the
+    reference's build_model does (CLIP/model.py:402-425): ('vit',
+    ViTConfig).  The ModifiedResNet encoder is not ported and raises."""
+    if not (prefix + "conv1.weight" in sd
+            and any(k.startswith(prefix + "transformer.") for k in sd)):
+        raise NotImplementedError("the state dict under {!r} is not a ViT; the ResNet "
+                                  "encoder is not ported".format(prefix))
+    conv = sd[prefix + "conv1.weight"]
+    width, patch = conv.shape[0], conv.shape[-1]
+    grid = int(round((sd[prefix + "positional_embedding"].shape[0] - 1) ** 0.5))
+    block_re = re.compile(re.escape(prefix) + r"transformer\.resblocks\.(\d+)\.")
+    layers = len({m.group(1) for k in sd if (m := block_re.match(k))})
+    return "vit", ViTConfig(patch_size=int(patch), width=int(width), layers=layers,
+                            heads=int(width) // 64, input_resolution=int(patch * grid))
+
+
+@torch.no_grad()
+def load_git_state_dict(model: GitModel, sd):
+    """Fill a port GitModel from a reference state dict (names matched by
+    suffix, values cast to the model's dtype and copied to its device);
+    raises on a missing or misshapen entry."""
+    model.load_state_dict(align_by_suffix(list(model.state_dict()), sd), strict=True)
     return model

@@ -7,11 +7,11 @@ of a gitax tree and this module's `state_dict()` agree key for key (see
 `gitax_torch.ckpt`).  Ported: single-image encoding at any grid of whole
 patches (the MinMax high-res inputs included), video clips (frames
 encoded one by one, offset by their temporal embeddings and concatenated
-or averaged), memory with no text context, and beam-search generation
-with or without a question prefix, the encoder and the prefill taking the
-fused-attention kernel by gitax's auto rule and the int8 head optionally
-taking the fused vocab-head kernel.  Greedy, trie and text context are
-not ported.
+or averaged), memory with no text context, and generation with or
+without a question prefix: beam search, the encoder and the prefill
+taking the fused-attention kernel by gitax's auto rule and the int8 head
+optionally taking the fused vocab-head kernel; greedy; and trie-constrained
+greedy.  Text context is not ported.
 """
 
 from __future__ import annotations
@@ -23,6 +23,8 @@ import torch
 from torch import nn
 
 from ..decode.beam import BeamSearchConfig, beam_search
+from ..decode.greedy import greedy_search
+from ..decode.trie import trie_greedy_search
 from ..ops.vocab_topk import TILE
 from . import textual as T
 from .config import GitConfig
@@ -140,8 +142,11 @@ class GitModel(nn.Module):
     @torch.inference_mode()
     def generate(self, images, prefix_tokens=None, beam: Optional[BeamSearchConfig] = None,
                  dtype=torch.float32, sos_id=101, mode="beam", fast_prefill=False,
-                 decode_kernel=False, flash=None, vocab_kernel=False):
-        """Caption generation by beam search (reference decoder.py:977-1011).
+                 decode_kernel=False, flash=None, vocab_kernel=False, max_steps=None,
+                 trie=None):
+        """Caption generation (reference decoder.py:977-1011) by beam
+        search, greedy search (mode='greedy') or trie-constrained greedy
+        search (mode='trie', over `trie`, a `decode.trie.TokenTrie`).
 
         prefix_tokens [B, Tp] defaults to [CLS]; an explicit prefix is
         stripped from the output.  With num_keep_best == 1 the keep axis
@@ -153,10 +158,23 @@ class GitModel(nn.Module):
         beam step through the fused vocab-head kernel and the search on its
         block statistics; with gitax's gates (`vocab_kernel_applies`) and,
         where they fail, the plain head, as gitax does.  images: [B, H, W,
-        3] or video [B, F, H, W, 3].  Returns (sequences, logprobs).  Only
-        mode='beam' is ported; gitax's 'greedy' and 'trie' raise."""
+        3] or video [B, F, H, W, 3].  Returns (sequences, logprobs).
+
+        Greedy and trie (gitax git.py:346-370) prefill a max_steps buffer
+        (default 40), prefix included, with the exact prefill and step on
+        the plain attention path over a cache not tiled for beams; the
+        beam's `beam` settings do not apply.  decode_kernel, vocab_kernel
+        and fast_prefill raise there: gitax ignores them in these modes,
+        and the port does not ignore a kernel switch silently."""
+        if mode not in ("beam", "greedy", "trie"):
+            raise ValueError("generate mode {!r}: 'beam', 'greedy' or 'trie'".format(mode))
         if mode != "beam":
-            raise NotImplementedError("generate mode {!r} is not ported yet".format(mode))
+            if decode_kernel or vocab_kernel or fast_prefill:
+                raise ValueError("mode {!r} runs the plain decode step and the exact prefill: "
+                                 "decode_kernel, vocab_kernel and fast_prefill apply to "
+                                 "mode='beam' only".format(mode))
+            if mode == "trie" and trie is None:
+                raise ValueError("mode='trie' needs a TokenTrie (decode.trie.build_vocab_trie)")
         visual, memory_valid = self.build_memory(images, dtype=dtype, flash=flash)
         bsz = visual.shape[0]
         strip = prefix_tokens is not None
@@ -164,6 +182,20 @@ class GitModel(nn.Module):
             prefix_tokens = torch.full((bsz, 1), sos_id, dtype=torch.long,
                                        device=visual.device)
         tp = prefix_tokens.shape[1] if strip else 0
+        if mode != "beam":
+            max_steps = max_steps or 40
+            logits, cache = self.prefill(visual, prefix_tokens, max_steps, memory_valid, dtype,
+                                         flash=flash)
+
+            def plain_step(tokens, cache):
+                return self.decode_step(tokens, cache, dtype)
+
+            if mode == "greedy":
+                seqs, logprobs = greedy_search(plain_step, logits, cache, prefix_tokens, max_steps)
+            else:
+                seqs, logprobs = trie_greedy_search(plain_step, logits, cache, prefix_tokens,
+                                                    trie, max_steps)
+            return seqs[:, tp:], logprobs
         beam = beam or BeamSearchConfig()
         logits, cache = self.prefill(visual, prefix_tokens, beam.max_steps,
                                      memory_valid, dtype, fast=fast_prefill,

@@ -8,8 +8,9 @@ the same values gitax stores as `kernel_q8` / `kernel_scale`.  Its
 storage is always out-major (a row-major [out, in] seen transposed,
 each output channel's weights contiguous), whichever loader filled it:
 the layout the fused vocab-head kernel reads.  LayerNorm
-and the decoder's softmax accumulate in float32, so the bf16 activation
-mode keeps the parity-critical numerics.
+and the decoder's softmax accumulate in float32 (`acc_dtype`), so the
+bf16 activation mode keeps the parity-critical numerics; float64
+activations accumulate in float64, a reference for f32's rounding.
 
 Inference only: every parameter is created with `requires_grad=False`.
 """
@@ -79,14 +80,22 @@ class Linear(nn.Module):
         return linear(x, self)
 
 
+def acc_dtype(dtype):
+    """The accumulation type of activations of `dtype`: float32, or
+    float64 for float64."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def layer_norm(x, weight, bias, eps):
-    """LayerNorm with float32 statistics, cast back to x's dtype."""
+    """LayerNorm with float32 statistics (`acc_dtype`), cast back to x's
+    dtype."""
     dtype = x.dtype
-    x32 = x.float()
+    acc = acc_dtype(dtype)
+    x32 = x.to(acc)
     mean = x32.mean(dim=-1, keepdim=True)
     var = (x32 - mean).square().mean(dim=-1, keepdim=True)
     y = (x32 - mean) * torch.rsqrt(var + eps)
-    y = y * weight.float() + bias.float()
+    y = y * weight.to(acc) + bias.to(acc)
     return y.to(dtype)
 
 
@@ -134,7 +143,7 @@ def attention_weights(q, k, mask=None, fast=False):
     [B,H,Tq,Tk] (0 = attend, large negative = blocked).
     """
     dh = q.shape[-1]
-    acc = q.dtype if fast else torch.float32
+    acc = q.dtype if fast else acc_dtype(q.dtype)
     scale = torch.tensor(1.0 / (dh ** 0.5), dtype=acc)  # 0-dim CPU: a scalar
     scores = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
     if mask is not None:

@@ -33,6 +33,7 @@ from .config import GitConfig
 from .nn import (
     LayerNorm,
     Linear,
+    acc_dtype,
     empty_param,
     attention_weights,
     gelu_erf,
@@ -352,7 +353,7 @@ def prefill(tx: TextualHead, visual_features, prefix_tokens, cfg: GitConfig,
             mem_scale.append(scale)
         else:
             mem_kv.append(kv_mem)
-    logits = output_logits(tx, x[:, m + tp - 1], acc_dtype=torch.float32)
+    logits = output_logits(tx, x[:, m + tp - 1], acc_dtype=acc_dtype(dtype))
     mem_bias = None
     if memory_valid is not None:
         mem_bias = torch.where(memory_valid, 0.0, NEG_INF).float()
@@ -417,6 +418,7 @@ def decode_step(tx: TextualHead, tokens, cache: KVCache, cfg: GitConfig,
             )
             return ctx.reshape(bk, 1, h * dh)
     else:
+        acc = acc_dtype(dtype)  # score math: f32 (f64 for f64 activations)
         txt_bias = torch.where(
             torch.arange(t_max, device=x.device) <= pos, 0.0, NEG_INF
         ).float()
@@ -424,23 +426,23 @@ def decode_step(tx: TextualHead, tokens, cache: KVCache, cfg: GitConfig,
         if cache.anc is not None:
             anc_onehot = nn.functional.one_hot(
                 cache.anc.long().reshape(b, beams, t_max), beams
-            ).float()
+            ).to(acc)
 
         def attend(xcur, layer, mem_kv, mem_scale, txt_kv):
             q, k_new, v_new = qkv_project(xcur, layer.attention.qkv, h)
             new_row = torch.cat([k_new, v_new], -1).permute(2, 0, 1, 3)
             txt_kv[pos] = new_row.reshape(bk, h * 2 * dh)
-            qb = (q[:, :, 0] * scale).reshape(b, beams, h, dh).float()
+            qb = (q[:, :, 0] * scale).reshape(b, beams, h, dh).to(acc)
             m = mem_kv.shape[2]
-            mem_scores = torch.einsum("bkhd,bhmd->bkhm", qb, mem_kv[..., :dh].float())
+            mem_scores = torch.einsum("bkhd,bhmd->bkhm", qb, mem_kv[..., :dh].to(acc))
             if cache.mem_bias is not None:
                 mem_scores = mem_scores + cache.mem_bias[:, None, None, :]
             kvb = txt_kv.reshape(t_max, b, beams, h, 2 * dh)
             txt_kb, txt_vb = kvb[..., :dh], kvb[..., dh:]
             if anc_onehot is None:
-                txt_scores = torch.einsum("bkhd,tbkhd->bkht", qb, txt_kb.float())
+                txt_scores = torch.einsum("bkhd,tbkhd->bkht", qb, txt_kb.to(acc))
             else:
-                scores_all = torch.einsum("bkhd,tbjhd->bkjht", qb, txt_kb.float())
+                scores_all = torch.einsum("bkhd,tbjhd->bkjht", qb, txt_kb.to(acc))
                 txt_scores = torch.einsum("bkjht,bktj->bkht", scores_all, anc_onehot)
             txt_scores = txt_scores + txt_bias
             scores = torch.cat([mem_scores, txt_scores], -1)
@@ -464,4 +466,4 @@ def decode_step(tx: TextualHead, tokens, cache: KVCache, cfg: GitConfig,
         logits, bmax, bsum = vocab_logits_topk(x[:, 0].contiguous(), out.weight_q8_t,
                                                out.weight_scale, out.bias.float())
         return logits, cache, (bmax, bsum)
-    return output_logits(tx, x[:, 0], acc_dtype=torch.float32), cache
+    return output_logits(tx, x[:, 0], acc_dtype=acc_dtype(dtype)), cache

@@ -1,50 +1,132 @@
-"""Batched caption and VQA engine, the counterpart of the batch-serving
-part of `gitax.runtime.pipeline.CaptionEngine`.
+"""Batched TSV inference, the counterpart of `gitax.runtime.pipeline`.
 
-Ported: the constructor's int8 / fast-prefill / decode-kernel rules, the
-per-prefix-length beam settings (`beam_for`, `_caption_fn`), uint8 upload
-with normalization on the device, `dispatch_device_batch`,
-`_dispatch_batch`, `generate_batch`, the VQA question prefix
-(`encode_prefix`), the variable-resolution batches of the MinMax high-res
-models (`dispatch_varshape`, `generate_varshape`: images cut to whole
-patches and grouped into exact-grid buckets) and `resolve`.  The items of
-`dispatch` and `generate_batch` are images [H, W, 3] or video clips
-[F, H, W, 3], one shape per call.  As in gitax, the engine runs the plain
-vocab head (no `vocab_kernel`).  Not ported: the TSV loops (they need a
-JPEG decode), float image input and the device mesh.  Detokenization
-takes a `gitax_torch.tokenization.BertTokenizer`.
+The reference's distributed batch inference (inference.py:134-225) runs
+batch-size-1 forwards and scales by mpirun process count, with a
+file-system barrier.  The port's engine, as gitax's:
+
+  * rows are range-sharded per process exactly like the reference
+    (ceil(N/W) contiguous rows per rank, inference.py:157-169), and each
+    rank writes `out.{rank}.{world}.tsv`, which rank 0 concatenates
+    (`finish_shards`: a torch.distributed barrier when a process group is
+    up, else the reference's poll of the file system);
+  * within a process, images are decoded and transformed by a host
+    thread pool that prefetches ahead of the device (`_prefetched_chunks`)
+    while the search runs batch by batch, the tail batch padded with its
+    last item;
+  * VQA prefixes are bucketed by token length, so that each dispatch
+    has one prefix length, and answers are emitted in the reference's
+    row order.
+
+`CaptionEngine` takes gitax's `transform`: its mean and std normalise
+uint8 batches on the device (CLIP's when the transform has none or there
+is no transform); float batches, the transform's own normalised output,
+are uploaded cast to the engine's dtype and not normalised again.  Also
+ported: the constructor's int8 / fast-prefill / decode-kernel rules, the
+per-prefix-length beam settings (`beam_for`, `_caption_fn`),
+`dispatch_device_batch`, `_dispatch_batch`, `generate_batch`,
+`encode_prefix`, the variable-resolution batches of the MinMax high-res
+models (`dispatch_varshape`: images cut to whole patches and grouped into
+exact-grid buckets) and `resolve`.  Items are images [H, W, 3] or video
+clips [F, H, W, 3], one shape per dispatch.  As in gitax, the engine runs
+the plain vocab head (no `vocab_kernel`).  Not ported: the native libjpeg
+decode and the device mesh.  The beam loop reads the host once per step,
+so `dispatch` returns when the device is nearly done: the decode pool
+overlaps the search, detokenisation overlaps nothing.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import List, Optional
+import json
+import logging
+import os
+import os.path as op
+import time
+import weakref
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..common import json_dump
 from ..decode.beam import BeamSearchConfig
+from ..io import fileio
+from ..io.image import image_from_base64
+from ..io.tsv import TSVFile, concat_tsv_files, tsv_writer
 from ..models.git import GitModel
 from ..ops.quant import quantize_git_model_
+from ..preprocess.transforms import CLIP_MEAN, CLIP_STD
 from ..tokenization import encode_prefix
+from . import distributed
 
-# CLIP's normalization constants (the reference's image transform)
-CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
-CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+
+def shard_range(total: int, rank: int, world_size: int) -> Tuple[int, int]:
+    """Contiguous ceil-split row range (reference inference.py:165-169)."""
+    per = (total + world_size - 1) // world_size
+    start = per * rank
+    return start, min(start + per, total)
+
+
+def wait_and_concat_shards(out_tsv: str, world_size: int,
+                           poll_s: Optional[float] = None,
+                           timeout_s: Optional[float] = None):
+    """Rank-0 file-system barrier + concat (reference inference.py:214-225),
+    with an optional timeout instead of the reference's infinite wait.
+    Defaults come from GITAX_SHARD_POLL_S (5 s) and
+    GITAX_SHARD_WAIT_TIMEOUT_S (unset: wait forever, as the reference)."""
+    if poll_s is None:
+        poll_s = float(os.environ.get("GITAX_SHARD_POLL_S", "5"))
+    if timeout_s is None:
+        env_t = os.environ.get("GITAX_SHARD_WAIT_TIMEOUT_S")
+        timeout_s = float(env_t) if env_t else None
+    shards = ["{}.{}.{}.tsv".format(out_tsv, r, world_size) for r in range(world_size)]
+    deadline = None if timeout_s is None else time.time() + timeout_s
+    while True:
+        # the shards are written through the fileio seam, so the barrier
+        # polls through it too
+        missing = [s for s in shards if not fileio.isfile(s)]
+        if not missing:
+            break
+        if deadline and time.time() > deadline:
+            raise TimeoutError("missing shards: {}".format(missing))
+        logging.info("waiting for %s", ",".join(missing))
+        time.sleep(poll_s)
+    concat_tsv_files(shards, out_tsv)
+
+
+def finish_shards(out_tsv: str, rank: int, world_size: int):
+    """After this rank's shard is written: with a torch.distributed group
+    of more than one process, a barrier (every shard is closed before its
+    rank enters), then rank 0 concatenates; otherwise rank 0 polls the
+    file system for the shards (reference inference.py:214-225)."""
+    if world_size <= 1:
+        return
+    if distributed.is_active():
+        distributed.barrier("gitax_tsv_shards:" + op.basename(out_tsv))
+        if rank == 0:
+            concat_tsv_files(["{}.{}.{}.tsv".format(out_tsv, r, world_size)
+                              for r in range(world_size)], out_tsv)
+    elif rank == 0:
+        wait_and_concat_shards(out_tsv, world_size)
 
 
 class CaptionEngine(object):
     """Batched captioning around a port GitModel, whose parameters set the
     device.  `dispatch` runs the search batch by batch and returns a
     handle to the device sequences; `resolve` copies them to the host and
-    detokenizes.  (The beam loop reads the host once per step, so
-    `dispatch` returns when the device is nearly done.)"""
+    detokenizes; `run_caption_tsv` and `run_vqa_tsv` drive both over
+    TSVs.  transform: the image transform of the TSV loops, whose mean
+    and std normalise uint8 batches (None: CLIP's constants, and no TSV
+    loop).  The decode pool's threads end with `close()` or when the
+    engine is collected."""
 
     def __init__(self, model: GitModel, tokenizer, batch_size: int = 32,
                  beam: Optional[BeamSearchConfig] = None, dtype=torch.bfloat16,
                  max_text_len: int = 40, int8: bool = False,
-                 fast_prefill: Optional[bool] = None, decode_kernel=None):
+                 fast_prefill: Optional[bool] = None, decode_kernel=None,
+                 transform=None, decode_workers: int = 8):
         if int8:
             # weight-only int8 decoder and head matmuls (ops/quant.py); the
             # model is quantized in place
@@ -62,8 +144,26 @@ class CaptionEngine(object):
         self.beam = beam or BeamSearchConfig(num_beams=4, max_steps=40)
         self.dtype = dtype
         self.max_text_len = max_text_len
-        self.mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=self.device)
-        self.std = torch.tensor(CLIP_STD, dtype=torch.float32, device=self.device)
+        self.transform = transform
+        # on-device normalisation of uint8 batches uses the transform's
+        # constants, CLIP's only when it has none (gitax pipeline.py:219-225)
+        self.mean = torch.from_numpy(np.asarray(getattr(transform, "mean", CLIP_MEAN),
+                                                np.float32)).to(self.device)
+        self.std = torch.from_numpy(np.asarray(getattr(transform, "std", CLIP_STD),
+                                               np.float32)).to(self.device)
+        # the host decode stage; its threads start at the first submit
+        self.pool = ThreadPoolExecutor(max_workers=decode_workers)
+        self._close = weakref.finalize(self, self.pool.shutdown, wait=False)
+
+    def close(self):
+        """End the decode pool's threads."""
+        self._close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
     def beam_for(self, prefix_len: int) -> BeamSearchConfig:
         """The search settings for a prefix length: the beam buffer holds
@@ -81,8 +181,9 @@ class CaptionEngine(object):
         dtype = self.dtype
 
         def fn(images, prefix):
-            x = images.to(dtype) / 255.0
-            images = (x - self.mean.to(dtype)) / self.std.to(dtype)
+            if images.dtype == torch.uint8:
+                x = images.to(dtype) / 255.0
+                images = (x - self.mean.to(dtype)) / self.std.to(dtype)
             return self.model.generate(
                 images, prefix, beam=beam, dtype=dtype,
                 fast_prefill=self._fast_prefill, decode_kernel=self._decode_kernel,
@@ -92,16 +193,21 @@ class CaptionEngine(object):
 
     def dispatch_device_batch(self, imgs: np.ndarray, pref: np.ndarray):
         """Upload ONE same-shape batch (images [B, H, W, 3] or clips
-        [B, F, H, W, 3], uint8, normalized on the device) with prefixes
-        [B, Tp] and run the search.  Returns the device sequences [B, L]."""
-        if imgs.dtype != np.uint8:
-            raise ValueError("images must be uint8 HWC, got {}".format(imgs.dtype))
+        [B, F, H, W, 3]) with prefixes [B, Tp] and run the search: uint8
+        batches are normalised on the device with the transform's
+        constants; float batches (already normalised) are cast to the
+        engine's dtype on the host and uploaded as they are.  Returns the
+        device sequences [B, L]."""
         if imgs.ndim not in (4, 5) or imgs.shape[-1] != 3:
             raise ValueError("a batch must be [B, H, W, 3] images or [B, F, H, W, 3] clips, "
                              "got {}".format(imgs.shape))
+        if imgs.dtype == np.uint8:
+            dev_imgs = torch.from_numpy(imgs).to(self.device)
+        else:
+            dev_imgs = torch.from_numpy(np.asarray(imgs, np.float32)).to(self.dtype).to(self.device)
         pref = torch.from_numpy(np.asarray(pref, np.int64)).to(self.device)
         fn = self._caption_fn(pref.shape[1])
-        seqs, _ = fn(torch.from_numpy(imgs).to(self.device), pref)
+        seqs, _ = fn(dev_imgs, pref)
         return seqs
 
     def _dispatch_batch(self, images: List[np.ndarray], prefixes: List[List[int]]):
@@ -124,6 +230,8 @@ class CaptionEngine(object):
             raise ValueError("prefixes of one dispatch must have one length")
         pad_n = (-n) % b
         imgs = np.stack(images + [images[-1]] * pad_n)
+        if imgs.dtype != np.uint8:
+            imgs = np.asarray(imgs, np.float32)
         pref = np.asarray(prefixes + [prefixes[-1]] * pad_n, np.int64)
         return [self.dispatch_device_batch(imgs[i:i + b], pref[i:i + b])
                 for i in range(0, len(imgs), b)]
@@ -178,3 +286,151 @@ class CaptionEngine(object):
     def generate_varshape(self, images: List[np.ndarray], prefixes: List[List[int]]):
         """`dispatch_varshape` then `resolve`: the decoded strings."""
         return self.resolve(self.dispatch_varshape(images, prefixes))
+
+    # -- host-side preprocessing ------------------------------------------
+    def _decode_row(self, b64):
+        img = image_from_base64(b64)
+        if img is None:
+            return None
+        return self.transform(img)
+
+    def _decode_chunk(self, payloads):
+        """Decode a list of base64 payloads to a list of arrays (None for
+        failures)."""
+        return [self._decode_row(p) for p in payloads]
+
+    def _prefetched_chunks(self, image_tsv, idxs, granule, depth=2):
+        """Iterate (chunk_row_indices, decoded_arrays) with `depth` chunks
+        of host decode in flight on the thread pool while the device runs:
+        the host stage of both TSV loops."""
+        chunks = [idxs[i:i + granule] for i in range(0, len(idxs), granule)]
+        futures = collections.deque()
+
+        def submit(batch_idxs):
+            payloads = [image_tsv[j][1] for j in batch_idxs]
+            futures.append((batch_idxs, self.pool.submit(self._decode_chunk, payloads)))
+
+        for c in chunks[:depth]:
+            submit(c)
+        ci = depth
+        while futures:
+            batch_idxs, fut = futures.popleft()
+            decoded = fut.result()
+            if ci < len(chunks):
+                submit(chunks[ci])
+                ci += 1
+            yield batch_idxs, decoded
+
+    def _require_transform(self):
+        if self.transform is None:
+            raise ValueError("the TSV loops need the engine's image transform "
+                             "(CaptionEngine(..., transform=...))")
+
+    # -- TSV caption pipeline ---------------------------------------------
+    def run_caption_tsv(self, image_tsv_path, out_tsv, rank=0, world_size=1):
+        """Caption every decodable row of this rank's shard of a base64
+        image TSV; rows that do not decode are dropped."""
+        self._require_transform()
+        image_tsv = TSVFile(image_tsv_path)
+        start, end = shard_range(len(image_tsv), rank, world_size)
+        cur_out = ("{}.{}.{}.tsv".format(out_tsv, rank, world_size)
+                   if world_size > 1 else out_tsv)
+        cls = self.tokenizer.cls_token_id
+
+        def rows():
+            from .profiling import ThroughputMeter
+
+            idxs = list(range(start, end))
+            meter = ThroughputMeter(name="caption_tsv", unit="images")
+            # host decode of the next chunks (thread pool) || the search of
+            # this chunk || detokenization of the previous one (this thread)
+            pending = None  # (keys, dispatch handle)
+            for batch_idxs, decoded in self._prefetched_chunks(image_tsv, idxs,
+                                                               self.batch_size):
+                arrs, keys = [], []
+                for j, a in zip(batch_idxs, decoded):
+                    if a is not None:
+                        arrs.append(a)
+                        keys.append(image_tsv.get_key(j))
+                handle = (self.dispatch_varshape(arrs, [[cls]] * len(arrs))
+                          if arrs else None)
+                if pending is not None:
+                    pkeys, phandle = pending
+                    for k, cap in zip(pkeys, self.resolve(phandle)):
+                        yield k, json_dump([{"caption": cap}])
+                    meter.update(len(pkeys))
+                pending = (keys, handle) if handle is not None else None
+            if pending is not None:
+                pkeys, phandle = pending
+                for k, cap in zip(pkeys, self.resolve(phandle)):
+                    yield k, json_dump([{"caption": cap}])
+                meter.update(len(pkeys))
+
+        tsv_writer(rows(), cur_out)
+        finish_shards(out_tsv, rank, world_size)
+
+    # -- TSV VQA pipeline ---------------------------------------------------
+    def run_vqa_tsv(self, image_tsv_path, question_tsv_path, out_tsv,
+                    rank=0, world_size=1):
+        """Batched VQA over aligned image and question TSVs.  Images are
+        decoded once each by the prefetching pool; (image, prefix) pairs
+        are bucketed by prefix length, full buckets dispatch at once, at
+        most `max_inflight` stay unresolved, and the answers are written
+        in the reference's row order: image-major, question order within
+        an image (inference.py:178-199); an undecodable image's questions
+        are skipped with their slots consumed."""
+        self._require_transform()
+        image_tsv = TSVFile(image_tsv_path)
+        question_tsv = TSVFile(question_tsv_path)
+        assert len(image_tsv) == len(question_tsv)
+        start, end = shard_range(len(image_tsv), rank, world_size)
+        cur_out = ("{}.{}.{}.tsv".format(out_tsv, rank, world_size)
+                   if world_size > 1 else out_tsv)
+
+        def rows():
+            idxs = list(range(start, end))
+            dchunk = max(1, self.batch_size // 4)  # decode-prefetch granule
+            buckets = {}  # tp -> (arrays, prefixes, [(order, qid)])
+            # dispatched, unresolved handles, bounded: each pins its batch
+            pending = collections.deque()
+            max_inflight = 2
+            results = {}
+            order = 0
+
+            def drain(to_len):
+                while len(pending) > to_len:
+                    handle, meta = pending.popleft()
+                    for (pos, qid), ans in zip(meta, self.resolve(handle)):
+                        results[pos] = (qid, ans)
+
+            for batch_idxs, decoded in self._prefetched_chunks(image_tsv, idxs, dchunk):
+                for i, arr in zip(batch_idxs, decoded):
+                    ik = image_tsv.get_key(i)
+                    qrow = question_tsv[i]
+                    assert ik == qrow[0], (ik, qrow[0])  # key alignment (inference.py:176)
+                    questions = json.loads(qrow[1])
+                    if arr is None:
+                        order += len(questions)
+                        continue
+                    for q in questions:
+                        prefix = self.encode_prefix(q["question"])
+                        b = buckets.setdefault(len(prefix), ([], [], []))
+                        b[0].append(arr)
+                        b[1].append(prefix)
+                        b[2].append((order, q["question_id"]))
+                        order += 1
+                        if len(b[0]) == self.batch_size:
+                            pending.append((self.dispatch_varshape(b[0], b[1]), b[2]))
+                            buckets[len(prefix)] = ([], [], [])
+                            drain(max_inflight)
+            for tp in sorted(buckets):
+                arrs, prefs, meta = buckets[tp]
+                if arrs:
+                    pending.append((self.dispatch_varshape(arrs, prefs), meta))
+            drain(0)
+            for pos in sorted(results):
+                qid, ans = results[pos]
+                yield (json_dump({"answer": ans, "question_id": qid}),)
+
+        tsv_writer(rows(), cur_out)
+        finish_shards(out_tsv, rank, world_size)

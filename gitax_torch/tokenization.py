@@ -10,15 +10,17 @@ slow BertTokenizer for the same vocab.
 
 `encode_prefix` builds a VQA question prefix.  `build_tiny_vocab` makes a
 small deterministic vocabulary with bert-base-uncased's special-token
-ids, for runs without a vocab file.  Left out of the copy until a caller
-needs it: the search for a vocab file in user caches.
+ids, for runs without a vocab file.  `BertTokenizer.bert_base_uncased`
+looks for the vocab file where gitax's does (`VOCAB_SEARCH_PATHS`, then a
+HuggingFace hub cache).
 """
 
 from __future__ import annotations
 
+import os
 import re
 import unicodedata
-from typing import List, Sequence
+from typing import Iterable, List, Optional, Sequence
 
 # bert-base-uncased special token ids
 PAD_ID = 0
@@ -26,6 +28,23 @@ UNK_ID = 100
 CLS_ID = 101
 SEP_ID = 102
 MASK_ID = 103
+
+VOCAB_SEARCH_PATHS = (
+    "aux_data/tokenizer/bert-base-uncased-vocab.txt",
+    "aux_data/tokenizer/vocab.txt",
+    os.path.expanduser("~/.cache/gitax/bert-base-uncased-vocab.txt"),
+)
+
+
+def _hf_cache_vocab_paths():
+    """vocab.txt files inside a HuggingFace hub cache for
+    bert-base-uncased, when one exists locally."""
+    import glob
+
+    base = os.environ.get("HF_HOME", os.path.expanduser("~/.cache/huggingface"))
+    pattern = os.path.join(base, "hub", "models--*bert-base-uncased*", "snapshots", "*",
+                           "vocab.txt")
+    return sorted(glob.glob(pattern))
 
 
 def _is_whitespace(ch):
@@ -204,6 +223,18 @@ class BertTokenizer(object):
         while tokens and tokens[-1] == "":
             tokens.pop()
         return cls(tokens, do_lower_case=do_lower_case)
+
+    @classmethod
+    def bert_base_uncased(cls, search_paths: Optional[Iterable[str]] = None):
+        candidates = list(search_paths or VOCAB_SEARCH_PATHS)
+        if search_paths is None:
+            candidates += _hf_cache_vocab_paths()
+        for p in candidates:
+            if os.path.isfile(p):
+                return cls.from_vocab_file(p)
+        raise FileNotFoundError(
+            "bert-base-uncased vocab.txt not found; place it at one of: {}".format(
+                ", ".join(VOCAB_SEARCH_PATHS)))
 
     @property
     def vocab_size(self):

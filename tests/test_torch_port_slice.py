@@ -267,17 +267,42 @@ def test_caption_engine_beam_rules_follow_gitax(monkeypatch):
     assert seen["decode_kernel"] is True and seen["dtype"] == torch.bfloat16
 
 
-def test_caption_engine_takes_only_uint8_images():
+def test_caption_engine_takes_only_uint8_images(monkeypatch):
+    """uint8 images are normalised on the device (CLIP's constants without
+    a transform); float images, already normalised, go in as they are, as
+    in gitax (pipeline.py:346-358); anything but [B, H, W, 3] images or
+    [B, F, H, W, 3] clips raises."""
     from gitax_torch.runtime.engine import CaptionEngine
 
     _, model = _weights()
     eng = CaptionEngine(model, tokenizer=None, dtype=torch.float32)
-    imgs = [np.zeros((32, 32, 3), np.float32)]
-    with pytest.raises(ValueError, match="uint8"):
-        eng.generate_batch(imgs, [[101]])
+    seen = []
+
+    def fake_generate(images, prefix, **kw):
+        seen.append(images)
+        return torch.zeros(images.shape[0], 1, dtype=torch.long), None
+
+    monkeypatch.setattr(model, "generate", fake_generate)
+    u8 = np.random.RandomState(0).randint(0, 256, (2, 32, 32, 3)).astype(np.uint8)
+    eng.dispatch_device_batch(u8, np.ones((2, 1)))
+    mean = torch.tensor([0.48145466, 0.4578275, 0.40821073])
+    std = torch.tensor([0.26862954, 0.26130258, 0.27577711])
+    assert torch.equal(seen[0], (torch.from_numpy(u8).float() / 255.0 - mean) / std)
+    f32 = np.random.RandomState(1).randn(2, 32, 32, 3).astype(np.float32)
+    eng.dispatch_device_batch(f32, np.ones((2, 1)))
+    assert torch.equal(seen[1], torch.from_numpy(f32))
+    with pytest.raises(ValueError, match="images"):
+        eng.dispatch_device_batch(np.zeros((2, 32, 32), np.uint8), np.ones((2, 1)))
+    eng.close()
 
 
 def test_generate_rejects_modes_not_ported():
+    """'beam', 'greedy' and 'trie' are ported; any other mode raises, and
+    so do the beam-only kernel switches in greedy mode."""
     _, model = _weights()
-    with pytest.raises(NotImplementedError):
-        model.generate(torch.from_numpy(_images(1)), mode="greedy")
+    with pytest.raises(ValueError, match="generate mode"):
+        model.generate(torch.from_numpy(_images(1)), mode="sample")
+    with pytest.raises(ValueError, match="mode='beam' only"):
+        model.generate(torch.from_numpy(_images(1)), mode="greedy", decode_kernel=True)
+    seqs, lp = model.generate(torch.from_numpy(_images(1)), mode="greedy", max_steps=6, sos_id=1)
+    assert seqs.shape == (1, 6) and lp.shape == (1,)
