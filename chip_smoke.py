@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the gitax_torch port on one NVIDIA GPU (H100 / sm_90a).
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--seed N]
 
 Phases, each of which fails the run (non-zero exit) if it fails:
   1. device: the card's name and power limit; TF32 off for the parity
@@ -13,10 +13,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      plan, and the wrappers' shared-memory formulas against the C side's;
   3. decode attention against its plain PyTorch version at the COCO
      path's shapes (GIT_LARGE beam-4, B=32: K=4, H=12, Dh=64, M=257,
-     T=41), the VQA path's M=1201 and the video's M=1542, f32, bf16 and
-     int8 memory, pos 0 to T-1, with and without the memory bias; its
-     time per call beside the plain version's and its bound at the three
-     memory lengths;
+     T=41), the VQA path's M=1201, the video's M=1542 and the text
+     context's M=245 with its padded mem_bias, f32, bf16 and int8 memory,
+     pos 0 to T-1, with and without the memory bias; its time per call
+     beside the plain version's and its bound at the four memory lengths;
   4. fused attention against its plain version at the VQA path's shapes
      (encoder B=32 H=16 S 257/901/1201; prefill B=32 H=12 M=1201 Tp
      1/12/14; a video-length M=1542), f32 and bf16, in bf16 on a
@@ -99,7 +99,33 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      CPU's up to the first step whose f64 top-2 margin is under 2D
      (`parting_report`); then test_git_inference_single_image on a PNG
      file.
-Phases 14-17 write in build/gitax_torch/smoke_work, removed at the end.
+ 18. serving: GIT_LARGE_COCO through gitax_torch.serve.build_serving_stack
+     (phase 14's checkpoint) and make_http_server on an ephemeral
+     localhost port; in f32 (TF32 off) 24 caption and 8 question PNG
+     requests at once, each reply equal to generate_batch's for its image
+     at the batcher's device batch size; in bf16 + int8 (beam 4, batch
+     32, kernel 1 on) after warm(), the same as an agreement share, then
+     16 closed-loop clients for 15 s: requests/s, p50 and p99 latency,
+     /stats (batch-size histogram, padded slots, errors, rejections), ms
+     per beam step with the clients and alone beside phase 5's; 0 errors,
+     /stats' count = requests sent, 413 on a body over MAX_BODY_BYTES, 400
+     on an undecodable payload;
+ 19. sampling: GIT_LARGE_COCO bf16 + int8, do_sample (temperature 0.7,
+     top-k 50, top-p 0.9, repetition penalty 1.2), num_return_sequences
+     2, B=16, a torch.Generator on the card seeded from --seed (default
+     0): deterministic per seed, another seed another set, vocab_kernel
+     asked for and 0 vocab_topk launches; ms per beam step, distinct
+     outputs per input; f32 on 4 images: the card's tokens against the
+     CPU port's on one replayed noise table (`gumbel_noise`), a parting
+     allowed only at an f64 near-tie (`sampling_parting_report`);
+ 20. text context: GIT_BASE_COCO at full width (ViT-B/16 at 224 px, M =
+     197, D = 768), B=32, beam 4, two ragged contexts of up to 24 tokens
+     (M = 245 with a padded tail): kernel path against plain path (f32
+     identical, bf16 agreement), f32 card = CPU port on 8 rows,
+     flash_attention 0, decode_attention = 6 x steps, counted in the
+     kernels line as launches_with_mem_bias (kernel 1 at this shape with
+     its mem_bias is checked and timed in phase 3).
+Phases 14-19 write in build/gitax_torch/smoke_work, removed at the end.
 Each slice prints its peak device memory.
 Prints the card's name and power limit, one JSON line describing the
 kernels (launches on the main path; error, time, plain time, bound and
@@ -110,6 +136,7 @@ the gitax package.
 
 import collections
 import ctypes
+import gc
 import itertools
 import json
 import os
@@ -144,6 +171,11 @@ VQA_SOURCES = (((500, 500), 0), ((1920, 1080), 0), ((640, 480), 1), ((480, 640),
 # width against the vocab
 FRAMES, CLIPS, VIDEO_BATCH = 6, 64, 32
 HEAD_R, HEAD_W, HEAD_V = B * K, 768, 30522
+# the text-context path: GIT_BASE_COCO's 197 image tokens (ViT-B/16 at 224
+# px) and two contexts of up to 24 tokens (phase 20; kernel 1 with
+# mem_bias at this M in phase 3)
+CTX_IMAGE, CTX_TOKENS = 197, (24, 24)
+CTX_M = CTX_IMAGE + sum(CTX_TOKENS)
 # the H100 SXM's published peaks (dense): HBM bytes/s, bf16 tensor-core
 # FLOP/s, f32 FLOP/s outside the tensor cores
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -389,7 +421,10 @@ def ptxas_report(text):
 
 
 def decode_inputs(g, dtype, mem_int8, pos, m=M, bias=False):
-    """One decode-attention call's inputs on the card, N(0, 0.25) values."""
+    """One decode-attention call's inputs on the card, N(0, 0.25) values.
+    bias: False (no memory bias), True (N(0, 0.25)), or "pad": the text
+    context's bias, 0 over the image and each row's valid context tokens
+    and -1e18 over the rest, as `prefill` builds it from memory_valid."""
     import torch
 
     from gitax_torch.ops.decode_attention import quantize_memory
@@ -403,9 +438,13 @@ def decode_inputs(g, dtype, mem_int8, pos, m=M, bias=False):
         mem, scale = quantize_memory(mem)
     else:
         mem = mem.to(dtype)
+    mem_bias = r(B, m) if bias is True else None
+    if bias == "pad":
+        valid = torch.randint(CTX_IMAGE, m + 1, (B, 1), generator=g)
+        mem_bias = torch.where(torch.arange(m)[None, :] < valid, 0.0, -1e18).to(dev)
     return dict(q=r(B * K, H * DH).to(dtype), kv_new=r(B * K, H * 2 * DH).to(dtype),
                 txt_kv=r(T, B * K, H * 2 * DH).to(dtype), anc=anc, pos=pos,
-                mem_kv=mem, mem_bias=r(B, m) if bias else None, mem_scale=scale)
+                mem_kv=mem, mem_bias=mem_bias, mem_scale=scale)
 
 
 def check_decode_kernel():
@@ -437,7 +476,8 @@ def check_decode_kernel():
     # the COCO path's cases; the fourth build variant (f32 with int8
     # memory); the VQA path's memory (M=1201) and the video's (M=1542),
     # clusters of 5 and 7 CTAs, at the first and the last text slot; the
-    # additive memory bias, which no path of the port passes yet
+    # additive memory bias, random and, at the text context's memory
+    # (GIT_BASE_COCO, M = 197 + 2 x 24), as the context path pads it
     cases = [(name, dtype, mem_int8, M, pos, False)
              for name, dtype, mem_int8 in kinds for pos in (0, 1, 20, T - 1)]
     cases += [("f32+int8mem", torch.float32, True, M, 20, False)]
@@ -445,6 +485,8 @@ def check_decode_kernel():
               for m in (1201, 1542) for name, dtype, mem_int8 in kinds for pos in (0, T - 1)]
     cases += [(name + "+bias", dtype, mem_int8, m, 12, True)
               for m in (M, 1542) for name, dtype, mem_int8 in kinds]
+    cases += [(name + "+pad", dtype, mem_int8, CTX_M, pos, "pad")
+              for name, dtype, mem_int8 in kinds for pos in (0, 12, T - 1)]
     for name, dtype, mem_int8, m, pos, bias in cases:
         a = decode_inputs(g, dtype, mem_int8, pos, m, bias)
         label = "{:18s} M={:4d} pos={:2d} (cluster {})".format(
@@ -508,8 +550,8 @@ def phase_decode_kernel(card):
     # memory buffers in turn, as the 6 decoder layers read them, so the
     # memory K/V does not sit in the 50 MB L2 from the call before
     out = {}
-    for m in (M, 1201, 1542):
-        layers = [decode_inputs(g, torch.bfloat16, False, 12, m) for _ in range(6)]
+    for m, bias in ((M, False), (CTX_M, "pad"), (1201, False), (1542, False)):
+        layers = [decode_inputs(g, torch.bfloat16, False, 12, m, bias) for _ in range(6)]
         it = {"i": 0}
 
         def run(fn):
@@ -523,18 +565,23 @@ def phase_decode_kernel(card):
                                         20 if m > M else 60, 300)
         ker_ms = device_ms(run(decode_attention_cuda), 60, "decode_attention")
         # bytes: the memory K/V, the live text rows the ancestry selects
-        # (k|v), q, the new rows read and written into the cache, ctx;
-        # operations: q.k and p.v over [memory ; live text], f32
+        # (k|v), q, the new rows read and written into the cache, ctx, the
+        # bias; operations: q.k and p.v over [memory ; live text], f32.
+        # Under the padded bias only the valid memory rows count (a masked
+        # row weighs exp(-1e18) = 0): what this run's data needs
         npos = 12 + 1
-        mem_bytes = B * H * m * 2 * DH * 2
+        m_live = sum((a["mem_bias"] == 0).sum().item() for a in layers) / (6 * B) if bias else m
+        mem_bytes = B * H * m_live * 2 * DH * 2
         nbytes = mem_bytes + B * K * H * npos * 2 * DH * 2 + B * K * H * DH * 2 * 2 \
-            + B * K * H * 2 * DH * 2 * 2
-        bound_ms, bound_by = bound(nbytes, 2 * 2 * B * K * H * (m + npos) * DH, F32_FLOPS)
-        log("decode kernel time, bf16 B={} K={} H={} Dh={} M={} T={} pos=12: kernel {:.4f} ms "
+            + B * K * H * 2 * DH * 2 * 2 + (B * m * 4 if bias else 0)
+        bound_ms, bound_by = bound(nbytes, 2 * 2 * B * K * H * (m_live + npos) * DH, F32_FLOPS)
+        log("decode kernel time, bf16 B={} K={} H={} Dh={} M={}{} T={} pos=12: kernel {:.4f} ms "
             "on the device (profiler), {:.4f} ms per call back to back (events, host launch "
             "included); plain {:.4f} ms per call (plain,kernel,kernel,plain = {}); bound {:.4f} ms "
             "({}: {:.1f} MB), {:.1%} of it; memory K/V {:.0f} GB/s [{}]".format(
-                B, K, H, DH, m, T, ker_ms, call_ms, plain_ms, ["%.4f" % x for x in t], bound_ms,
+                B, K, H, DH, m, " with mem_bias (text context; {:.1f} valid rows a row on "
+                "average)".format(m_live) if bias else "", T, ker_ms,
+                call_ms, plain_ms, ["%.4f" % x for x in t], bound_ms,
                 bound_by, nbytes / 1e6, bound_ms / ker_ms, mem_bytes / (ker_ms * 1e-3) / 1e9, card))
         out[m] = dict(ms=ker_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
         del layers
@@ -809,7 +856,7 @@ def phase_coco_slice(card, cpu_model, tok):
     peak_memory("coco slice", card)
     del engine, model
     torch.cuda.empty_cache()
-    return launches, images, 96 / seconds
+    return launches, images, 96 / seconds, step_ms
 
 
 def normalized(images, dtype):
@@ -2106,12 +2153,694 @@ def phase_greedy_trie(card, cpu_model, work):
     torch.cuda.empty_cache()
 
 
+# -- serving, sampling and text context (phases 18-20) ----------------------
+
+SERVE_CAPTIONS, SERVE_QUESTIONS = 24, 8
+SERVE_QUESTION = "what is in the picture?"
+LOAD_CLIENTS, LOAD_SECONDS = 16, 15.0
+SAMPLE_B, SAMPLE_R, SAMPLE_F32_B = 16, 2, 4
+
+
+def http_post(base, body, timeout=600):
+    """POST raw bytes to /v1/caption: (status, parsed JSON reply)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + "/v1/caption", data=body,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def http_get(base, path):
+    import urllib.request
+
+    with urllib.request.urlopen(base + path, timeout=60) as r:
+        return r.status, json.loads(r.read())
+
+
+class Served(object):
+    """`serve.make_http_server` on an ephemeral localhost port, served by a
+    thread until the block ends; the root logger is held at WARNING
+    meanwhile (the CLI of phase 14 left it printing INFO, and the server
+    logs every request)."""
+
+    def __init__(self, batcher):
+        import logging
+        import threading
+
+        from gitax_torch import serve
+
+        self.httpd = serve.make_http_server(batcher, "GIT_LARGE_COCO", host="127.0.0.1", port=0)
+        self.port = self.httpd.server_address[1]
+        self.base = "http://127.0.0.1:{}".format(self.port)
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.root, self.level = logging.getLogger(), logging.getLogger().level
+
+    def __enter__(self):
+        import logging
+
+        self.root.setLevel(logging.WARNING)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=60)
+        self.root.setLevel(self.level)
+        check(not self.thread.is_alive(), "the HTTP server thread did not stop")
+
+
+def serving_stack(work, dtype, int8):
+    """`gitax_torch.serve.build_serving_stack` for GIT_LARGE_COCO, from the
+    checkpoint phase 14 wrote into `work` (the model loads from the
+    working directory's output/, as the CLI's does)."""
+    from gitax_torch import serve
+
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        return serve.build_serving_stack("GIT_LARGE_COCO", batch_size=32, dtype=dtype,
+                                         int8=int8)
+    finally:
+        os.chdir(cwd)
+
+
+def concurrent_requests(base, bodies):
+    """POST every body at once, one thread each; the replies in order."""
+    import threading
+
+    replies = [None] * len(bodies)
+    start = threading.Barrier(len(bodies))
+
+    def send(i):
+        start.wait()
+        try:
+            replies[i] = http_post(base, bodies[i])
+        except OSError as e:  # a refused or reset connection fails the check below
+            replies[i] = (None, {"error": repr(e)})
+
+    threads = [threading.Thread(target=send, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads), "a request thread did not finish")
+    return replies
+
+
+def served_against_direct(label, engine, batcher, base, payloads, questions):
+    """Send every (payload, question) at once through the endpoint; hold
+    each reply to `engine.generate_batch` of the same rows at the device
+    batch size the batcher used, matched by image.  The batches are read
+    from the engine's `dispatch_device_batch` calls; a row that repeats one
+    already in its batch is the batcher's padding.  Returns (replies,
+    references, the dispatched batches' sizes, the disagreeing images)."""
+    import numpy as np
+
+    from gitax_torch.io.image import image_from_base64
+
+    arrays = [np.asarray(engine.transform(image_from_base64(p)), np.float32) for p in payloads]
+    prefixes = [engine.encode_prefix(q) for q in questions]
+    bodies = [json.dumps(dict(image=p, **({"question": q} if q else {}))).encode()
+              for p, q in zip(payloads, questions)]
+    calls = Captured(engine, "dispatch_device_batch")
+    try:
+        replies = concurrent_requests(base, bodies)
+    finally:
+        calls.remove()
+        del engine.dispatch_device_batch  # the instance attribute remove() left
+    check(all(code == 200 for code, _ in replies), "{}: replies {}".format(
+        label, [r for r in replies if r[0] != 200][:3]))
+    refs, sizes = {}, []
+    for imgs, pref in calls.args:
+        idxs = []
+        for row, p in zip(imgs, pref):
+            hit = [i for i in range(len(arrays))
+                   if i not in idxs and prefixes[i] == list(p) and np.array_equal(arrays[i], row)]
+            if hit:
+                idxs.append(hit[0])
+        sizes.append((len(idxs), len(imgs)))
+        saved = engine.batch_size
+        engine.batch_size = len(imgs)
+        try:
+            out = engine.generate_batch([arrays[i] for i in idxs], [prefixes[i] for i in idxs])
+        finally:
+            engine.batch_size = saved
+        refs.update(zip(idxs, out))
+    check(sorted(refs) == list(range(len(payloads))), "{}: {} of {} images found in the "
+          "dispatched batches".format(label, len(refs), len(payloads)))
+    got = [body["caption"] for _, body in replies]
+    differ = [i for i in range(len(payloads)) if got[i] != refs[i]]
+    return got, [refs[i] for i in range(len(payloads))], sizes, differ
+
+
+def phase_serving(card, cpu_model, images, work, coco_step_ms):
+    """18. Serving: GIT_LARGE_COCO through `build_serving_stack` (from phase
+    14's checkpoint) and `make_http_server` on an ephemeral localhost port.
+    f32 (int8 off, TF32 off): 24 caption and 8 question requests at once,
+    each reply equal to generate_batch's at the batcher's device batch
+    size.  bf16 + int8 (the served setting, beam 4, batch 32, kernel 1 on)
+    after warm(): the same, as an agreement share; 16 closed-loop clients
+    for LOAD_SECONDS; 413 and 400.  Returns the decode_attention launches
+    of the served runs."""
+    import base64
+    import http.client
+    import threading
+
+    import numpy as np
+    import torch
+
+    from gitax_torch.io.image import image_from_base64
+    from gitax_torch.ops import flash_attention as fa
+    from gitax_torch.ops.decode_attention import decode_attention
+    from gitax_torch.serve import MAX_BODY_BYTES
+
+    torch.cuda.reset_peak_memory_stats()
+    n = SERVE_CAPTIONS + SERVE_QUESTIONS
+    payloads = [base64.b64encode(png_bytes(a)).decode() for a in images[:n]]
+    questions = [""] * SERVE_CAPTIONS + [SERVE_QUESTION] * SERVE_QUESTIONS
+    launches = steps = 0
+
+    # f32: equality required.  The attention x SHARPEN_17 (phase 17's) so
+    # that replies depend on the image and a reply matched to the wrong
+    # image would show; served and direct paths run the same model
+    engine, batcher = serving_stack(work, "float32", int8=False)
+    sharpen_(engine.model, attention=SHARPEN_17, projection=1)
+    try:
+        with Served(batcher) as srv:
+            decode_attention.launches = fa.launches = engine.model.decode_step_calls = 0
+            got, refs, sizes, differ = served_against_direct(
+                "serving f32", engine, batcher, srv.base, payloads, questions)
+            launches += decode_attention.launches
+            steps += engine.model.decode_step_calls
+            check(fa.launches == 0, "flash_attention launched at S=257")
+        snap = batcher.snapshot()
+    finally:
+        batcher.close()
+        engine.close()
+    # the two paths run the same code on the same rows at one batch shape,
+    # so no rounding can part them: any difference fails
+    for i in differ:
+        log("serving f32: image {} ({}): served {!r}, generate_batch {!r}".format(
+            i, "question" if questions[i] else "caption", got[i], refs[i]))
+    check(not differ, "serving f32: {} of {} replies differ from generate_batch at the same "
+          "device batch size".format(len(differ), n))
+    log("serving f32 (attention x{}): {} requests at once ({} captions, {} questions) through the "
+        "endpoint: every reply equals generate_batch's for its image at the batcher's device batch "
+        "size; "
+        "dispatches (real, device rows) {}; {} distinct replies; stats {}".format(
+            SHARPEN_17, n, SERVE_CAPTIONS, SERVE_QUESTIONS, sizes, len(set(got)),
+            {k: snap[k] for k in ("requests", "batches", "padded_slots", "errors")}))
+    del engine, batcher
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bf16 + int8, as served
+    engine, batcher = serving_stack(work, "bfloat16", int8=True)
+    model = engine.model
+    try:
+        t0 = time.perf_counter()
+        batcher.warm(prefix_lens=(1, len(engine.encode_prefix(SERVE_QUESTION))))
+        warm_s = time.perf_counter() - t0
+        # ms per beam step without clients: one batch through the engine at
+        # the load's usual bucket (16) and at phase 5's 32
+        arrays = [np.asarray(engine.transform(image_from_base64(p)), np.float32)
+                  for p in payloads]
+        alone = {}
+        for bs in (16, 32):
+            spans = DeviceSpans(model, "decode_step")
+            model.decode_step_calls = 0
+            engine.batch_size = bs
+            t0 = time.perf_counter()
+            try:
+                engine.generate_batch(arrays[:bs], [[101]] * bs)
+                torch.cuda.synchronize()
+            finally:
+                engine.batch_size = 32
+            alone[bs] = (sum(spans.ms()) / len(spans.events),
+                         (time.perf_counter() - t0) / model.decode_step_calls * 1e3)
+            spans.remove()
+        with Served(batcher) as srv:
+            check(http_get(srv.base, "/healthz") == (200, {"ok": True, "model": "GIT_LARGE_COCO"}),
+                  "/healthz")
+            decode_attention.launches = fa.launches = model.decode_step_calls = 0
+            got, refs, sizes, differ = served_against_direct(
+                "serving bf16", engine, batcher, srv.base, payloads, questions)
+            agree = 1 - len(differ) / n
+
+            # load: closed-loop clients, each sending its next request when
+            # its reply comes
+            spans = DeviceSpans(model, "decode_step")
+            # per bucket: the dispatches' wall seconds (the search, encode
+            # and prefill included, as alone) and their beam steps
+            per_bucket = collections.defaultdict(lambda: [0.0, 0])
+            dispatch = engine.dispatch_device_batch
+
+            def timed(imgs, pref):
+                s0, t = model.decode_step_calls, time.perf_counter()
+                out = dispatch(imgs, pref)
+                per_bucket[len(imgs)][0] += time.perf_counter() - t
+                per_bucket[len(imgs)][1] += model.decode_step_calls - s0
+                return out
+
+            engine.dispatch_device_batch = timed
+            steps0 = model.decode_step_calls
+            bodies = [json.dumps({"image": p}).encode() for p in payloads]
+            lat, bad, sent = [], [], [0]
+            lock = threading.Lock()
+            stop_at = time.perf_counter() + LOAD_SECONDS
+
+            def client(ci):
+                i = ci
+                while time.perf_counter() < stop_at:
+                    t = time.perf_counter()
+                    try:
+                        code, _ = http_post(srv.base, bodies[i % len(bodies)])
+                    except OSError as e:
+                        code = repr(e)
+                    with lock:
+                        sent[0] += 1
+                        lat.append(time.perf_counter() - t)
+                        if code != 200:
+                            bad.append(code)
+                    i += LOAD_CLIENTS
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(c,)) for c in range(LOAD_CLIENTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            load_s = time.perf_counter() - t0
+            check(not any(t.is_alive() for t in threads), "a load client did not finish")
+            torch.cuda.synchronize()
+            del engine.dispatch_device_batch
+            load_steps = model.decode_step_calls - steps0
+            load_dev = sum(spans.ms()) / max(1, len(spans.events))
+            load_wall = {b: sec / st * 1e3 for b, (sec, st) in sorted(per_bucket.items()) if st}
+            spans.remove()
+            launches += decode_attention.launches
+            steps += model.decode_step_calls
+            check(fa.launches == 0, "flash_attention launched at S=257")
+            _, stats = http_get(srv.base, "/stats")
+
+            # the boundaries: an oversized body, an undecodable payload
+            conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=60)
+            conn.putrequest("POST", "/v1/caption")
+            conn.putheader("Content-Length", str(MAX_BODY_BYTES + 1))
+            conn.putheader("Content-Type", "application/json")
+            conn.endheaders()
+            too_big = conn.getresponse().status
+            conn.close()
+            undecodable, _ = http_post(srv.base, json.dumps(
+                {"image": base64.b64encode(b"not an image").decode()}).encode())
+    finally:
+        batcher.close()
+        engine.close()
+    check(too_big == 413, "an oversized body got {}".format(too_big))
+    check(undecodable == 400, "an undecodable payload got {}".format(undecodable))
+    check(not bad and stats["errors"] == 0, "serving errors: clients {} stats {}".format(
+        sorted(set(bad)), stats["errors"]))
+    check(stats["requests"] == n + sent[0], "stats count {} requests, {} sent".format(
+        stats["requests"], n + sent[0]))
+    check(steps > 0 and launches == model.cfg.num_layers * steps,
+          "decode_attention launches {} != {} layers x {} steps".format(
+              launches, model.cfg.num_layers, steps))
+    lat = np.sort(np.asarray(lat)) * 1e3
+    log("serving bf16+int8: warm() {:.1f} s for buckets {} x prefix lengths 1 and {}; {} requests "
+        "at once: {} of {} replies equal generate_batch's at the batcher's device batch size "
+        "(agreement {:.1%}), dispatches (real, device rows) {}".format(
+            warm_s, batcher.buckets, len(engine.encode_prefix(SERVE_QUESTION)), n, n - len(differ),
+            n, agree, sizes))
+    log("serving load: {} closed-loop clients for {:.1f} s: {} requests, {:.2f} requests/s, latency "
+        "p50 {:.1f} ms p99 {:.1f} ms; /stats: batches {} batch-size histogram {} padded slots {} "
+        "errors {} rejected {}; 413 on a body over MAX_BODY_BYTES, 400 on an undecodable payload "
+        "[{}]".format(LOAD_CLIENTS, load_s, sent[0], sent[0] / load_s, np.percentile(lat, 50),
+                      np.percentile(lat, 99), stats["batches"],
+                      dict(sorted((int(k), v) for k, v in stats["batch_size_hist"].items())),
+                      stats["padded_slots"], stats["errors"], stats["rejected"], card))
+    log("serving: ms per beam step (6 layers + head): with the clients {:.3f} device (events, "
+        "all {} steps), wall per bucket {} (a dispatch's seconds over its steps, encode and "
+        "prefill included); alone, one batch of 16 {:.3f} device {:.3f} wall, of 32 {:.3f} device "
+        "{:.3f} wall; phase 5's engine (32) {:.3f} device; decode_attention launches {} = {} x {} "
+        "steps, flash_attention 0 [{}]".format(
+            load_dev, load_steps, {b: round(w, 3) for b, w in load_wall.items()}, *alone[16],
+            *alone[32], coco_step_ms, launches, model.cfg.num_layers, steps, card))
+    peak_memory("serving", card)
+    del engine, batcher, model
+    gc.collect()  # the stacks' reference cycles (threads, closures) hold their weights
+    torch.cuda.empty_cache()
+    return launches
+
+
+class StepLog(object):
+    """Records a model's prefill and decode_step calls until `remove`: the
+    tokens and ancestry table each step was fed, and the f32 logits of
+    each call (on the CPU); logits[t] are what the search's step t
+    decided on."""
+
+    def __init__(self, model):
+        self.model, self.fed, self.logits = model, [], []
+        prefill, step = model.prefill, model.decode_step
+
+        def logged_prefill(*a, **kw):
+            out = prefill(*a, **kw)
+            self.logits.append(out[0].float().cpu())
+            return out
+
+        def logged_step(tokens, cache, *a, **kw):
+            self.fed.append((tokens.cpu(), cache.anc.cpu()))
+            out = step(tokens, cache, *a, **kw)
+            self.logits.append(out[0].float().cpu())
+            return out
+
+        model.prefill, model.decode_step = logged_prefill, logged_step
+
+    def remove(self):
+        del self.model.prefill, self.model.decode_step
+
+
+def sampling_parting_report(cpu_model, x, logs, table, beam, parted):
+    """Where the sampled f32 searches of the card and the CPU part, held to
+    an f64 witness, as phase 17's `parting_report` holds greedy.  The
+    parting step s is the first whose fed tokens or ancestry differ; up to
+    it both searches decided on the same state, so their logits there
+    differ by rounding.  The f64 model replays the CPU's fed tokens to s.
+    In the sampled branch's units (lt = penalised logits / temperature),
+    D = ROUNDING_X x the CPU f32's largest error against f64 over the
+    parting groups' rows; the card's error must be within D, and the
+    decision must be a near-tie in f64: the gap between the P-th and the
+    next Gumbel-perturbed value, or between the top-k cut's k-th and next
+    logit, or the top-p cut's distance in cumulative probability, under
+    2D on some row of the group.  Fails otherwise; returns the report."""
+    import dataclasses
+
+    import torch
+
+    from gitax_torch.decode.beam import _tile_beams, top_k_top_p_filter
+    from gitax_torch.models.git import GitModel
+
+    card, cpu = logs["card"], logs["cpu"]
+    n = min(len(card.fed), len(cpu.fed))
+    diff = [t for t in range(n) if not (torch.equal(card.fed[t][0], cpu.fed[t][0])
+                                        and torch.equal(card.fed[t][1], cpu.fed[t][1]))]
+    check(diff or len(card.fed) != len(cpu.fed), "sampling f32: rows {} part with every fed "
+          "token equal (a hypothesis-score tie); no witness for that".format(parted))
+    s = diff[0] if diff else n
+    k, p = beam.num_beams, beam.per_node_beam_size
+    rows = sorted({int(r) for r in torch.nonzero(
+        (card.fed[s][0] != cpu.fed[s][0]) | (card.fed[s][1] != cpu.fed[s][1]).any(1)).flatten()}
+        if s < n else range(card.logits[0].shape[0] * k))
+    groups = sorted({r // k for r in rows})
+    m64 = GitModel(cpu_model.cfg, device="cpu", dtype=torch.float64)
+    m64.load_state_dict(cpu_model.state_dict())
+    with torch.inference_mode():
+        visual, _ = m64.build_memory(x.double(), dtype=torch.float64)
+        visual = visual.repeat_interleave(SAMPLE_R, 0)
+        prefix = torch.full((visual.shape[0], 1), 101, dtype=torch.long)
+        logits, cache = m64.prefill(visual, prefix, beam.max_steps, None, torch.float64)
+        logits = logits.repeat_interleave(k, 0)
+        cache = _tile_beams(cache, k)
+        for t in range(s):
+            cache = dataclasses.replace(cache, anc=cpu.fed[t][1].to(torch.int32))
+            logits, cache = m64.decode_step(cpu.fed[t][0], cache, torch.float64)
+    del m64
+
+    def lt_of(lg, r):
+        """The sampled branch's tempered, penalised logits of row r at
+        step s, in f64 (the penalty's mask from the CPU's fed tokens)."""
+        lg = lg[r].double()
+        # the [CLS] prefix and the tokens of the row's ancestry: position
+        # 1 + t holds what step t fed to the row the last table names
+        seen = {101}
+        if s:
+            anc = cpu.fed[s - 1][1][r]
+            seen |= {int(cpu.fed[t][0][(r // k) * k + int(anc[1 + t])]) for t in range(s)}
+        idx = torch.tensor(sorted(seen))
+        v = lg[idx]
+        lg = lg.clone()
+        lg[idx] = torch.where(v < 0, v * beam.repetition_penalty, v / beam.repetition_penalty)
+        return lg / beam.temperature
+
+    lines = []
+    group_rows = [r for g in groups for r in range(g * k, (g + 1) * k)]
+    # step 0 decides on the prefill's logits, one row per group
+    at_s = {w: lg.logits[s] if s else lg.logits[0].repeat_interleave(k, 0)
+            for w, lg in (("cpu", cpu), ("card", card))}
+    errs = {w: max((lt_of(lg, r) - lt_of(logits, r)).abs().max().item() for r in group_rows)
+            for w, lg in at_s.items()}
+    d = ROUNDING_X * max(errs["cpu"], 1e-30)
+    check(errs["card"] <= d, "sampling f32: at step {} the card's logits are {:.3e} from f64's, "
+          "over D = {:.3e}".format(s, errs["card"], d))
+    for g in groups:
+        margins = []
+        for r in range(g * k, (g + 1) * k):
+            lt = lt_of(logits, r)
+            srt = torch.sort(lt, descending=True).values
+            kept = top_k_top_p_filter(lt, beam.top_k, beam.top_p, min_tokens_to_keep=max(2, p))
+            noisy = torch.sort(torch.where(torch.isfinite(kept), kept + table[s][r].double(),
+                                           float("-inf")), descending=True).values
+            cum = torch.cumsum(torch.softmax(srt[:beam.top_k], -1), -1)
+            margins.append(min((noisy[p - 1] - noisy[p]).item(),
+                               (srt[beam.top_k - 1] - srt[beam.top_k]).item(),
+                               (cum - beam.top_p).abs().min().item()))
+        lines.append("group {} step {}: f64 margin {:.3e}, 2D {:.3e} (CPU error {:.3e}, card "
+                     "{:.3e})".format(g, s, min(margins), 2 * d, errs["cpu"], errs["card"]))
+        check(min(margins) < 2 * d, "sampling f32: group {} parts at step {} where the f64 "
+              "margin {:.3e} is not under 2D = {:.3e}".format(g, s, min(margins), 2 * d))
+    return "; ".join(lines)
+
+
+def noise_table(shape, steps, seed):
+    """[steps, *shape] standard Gumbel noise drawn on the CPU from `seed`
+    with the port's `gumbel_noise`."""
+    import torch
+
+    from gitax_torch.decode.beam import gumbel_noise
+
+    return torch.stack([gumbel_noise(shape, torch.Generator().manual_seed(seed * 1000 + i))
+                        for i in range(steps)])
+
+
+def replayed(table):
+    """A stand-in for `gumbel_noise` whose i-th call returns table[i] on
+    its generator's device."""
+    calls = {"i": 0}
+
+    def replay(shape, generator):
+        check(tuple(shape) == tuple(table.shape[1:]), "noise asked for {}".format(tuple(shape)))
+        calls["i"] += 1
+        return table[calls["i"] - 1].to(generator.device)
+
+    return replay
+
+
+def phase_sampling(card, cpu_model, images, seed):
+    """19. Sampling on GIT_LARGE_COCO, bf16 + int8: do_sample with
+    temperature 0.7, top-k 50, top-p 0.9, repetition penalty 1.2,
+    num_return_sequences 2, B = SAMPLE_B, a torch.Generator on the card
+    seeded from `seed`: deterministic per seed, another seed another set;
+    vocab_kernel asked for and gated off (0 vocab_topk launches).  f32 on
+    SAMPLE_F32_B images: the card's tokens equal the CPU port's with both
+    given one replayed noise table.  Returns the decode_attention
+    launches."""
+    import torch
+
+    from gitax_torch.decode import beam as beam_mod
+    from gitax_torch.decode.beam import BeamSearchConfig
+    from gitax_torch.ops import vocab_topk as vt
+    from gitax_torch.ops.decode_attention import decode_attention
+    from gitax_torch.ops.quant import quantize_git_model_
+
+    torch.cuda.reset_peak_memory_stats()
+    beam = BeamSearchConfig(num_beams=4, max_steps=41, norm_max_length=1024, do_sample=True,
+                            temperature=0.7, top_k=50, top_p=0.9, repetition_penalty=1.2)
+    model = quantize_git_model_(build_model("cuda", torch.bfloat16, cpu_model))
+    check(not model.vocab_kernel_applies(beam), "the vocab kernel's gates let sampling through")
+    x = normalized(images[:SAMPLE_B], torch.bfloat16)
+
+    def run(s):
+        g = torch.Generator("cuda").manual_seed(s)
+        return model.generate(x, cls_prefix(x), beam=beam, dtype=torch.bfloat16, fast_prefill=True,
+                              decode_kernel=True, vocab_kernel=True,
+                              num_return_sequences=SAMPLE_R, rng=g)[0].cpu()
+
+    run(seed)  # warm-up
+    torch.cuda.synchronize()
+    spans = DeviceSpans(model, "decode_step")
+    vt.launches = decode_attention.launches = model.decode_step_calls = 0
+    t0 = time.perf_counter()
+    a = run(seed)
+    wall = time.perf_counter() - t0
+    steps, launches = model.decode_step_calls, decode_attention.launches
+    step_ms = sum(spans.ms()) / len(spans.events)
+    spans.remove()
+    b, c = run(seed), run(seed + 1)
+    check(vt.launches == 0, "vocab_topk launched {} times under sampling".format(vt.launches))
+    check(launches == model.cfg.num_layers * steps, "decode_attention launches {} != {} x {} "
+          "steps".format(launches, model.cfg.num_layers, steps))
+    check(a.shape == (SAMPLE_B * SAMPLE_R, 40), "sampled shape {}".format(tuple(a.shape)))
+    check(torch.equal(a, b), "two runs with seed {} differ".format(seed))
+    check(not torch.equal(a, c), "seeds {} and {} give the same tokens".format(seed, seed + 1))
+    per_input = [len({tuple(r) for r in a[i * SAMPLE_R:(i + 1) * SAMPLE_R].tolist()})
+                 for i in range(SAMPLE_B)]
+    log("sampling bf16+int8: B={} x R={} (beam 4, temperature 0.7, top-k 50, top-p 0.9, "
+        "repetition penalty 1.2, torch.Generator('cuda') seed {}): {} beam steps, {:.3f} ms per "
+        "beam step (device, events), {:.1f} ms per step wall; same seed identical, seed {} "
+        "differs; distinct outputs per input {} (of {}), {} distinct in all; vocab_topk launches "
+        "0 (vocab_kernel asked for, gated off), decode_attention {} = {} x {} [{}]".format(
+            SAMPLE_B, SAMPLE_R, seed, steps, step_ms, wall / steps * 1e3, seed + 1,
+            dict(collections.Counter(per_input)), SAMPLE_R, len({tuple(r) for r in a.tolist()}),
+            launches, model.cfg.num_layers, steps, card))
+    peak_memory("sampling", card)
+    del model, x
+    torch.cuda.empty_cache()
+
+    # f32: the card against the CPU port on one replayed noise table
+    x32 = normalized(images[:SAMPLE_F32_B], torch.float32)
+    bk = SAMPLE_F32_B * SAMPLE_R * beam.num_beams
+    model = build_model("cuda", torch.float32, cpu_model)
+    out, logs = {}, {}
+    table = noise_table((bk, cpu_model.cfg.vocab_size), beam.max_steps, seed)
+    orig = beam_mod.gumbel_noise
+    try:
+        for where, m, xx in (("card", model, x32), ("cpu", cpu_model, x32.cpu())):
+            beam_mod.gumbel_noise = replayed(table)
+            logs[where] = StepLog(m)
+            decode_attention.launches = m.decode_step_calls = 0
+            try:
+                out[where] = m.generate(xx, cls_prefix(xx), beam=beam, decode_kernel=True,
+                                        vocab_kernel=True, num_return_sequences=SAMPLE_R,
+                                        rng=torch.Generator(xx.device.type))[0].cpu()
+            finally:
+                logs[where].remove()
+            if where == "card":
+                check(decode_attention.launches == m.cfg.num_layers * m.decode_step_calls,
+                      "f32 decode_attention launches {} != {} x {} steps".format(
+                          decode_attention.launches, m.cfg.num_layers, m.decode_step_calls))
+                launches += decode_attention.launches
+    finally:
+        beam_mod.gumbel_noise = orig
+    parted = [i for i in range(out["card"].shape[0])
+              if not torch.equal(out["card"][i], out["cpu"][i])]
+    report = "none"
+    if parted:
+        report = sampling_parting_report(cpu_model, x32.cpu(), logs, table, beam, parted)
+    log("sampling f32: {} images x R={} on one replayed noise table: {} of {} rows equal on the "
+        "card and the CPU; {} distinct on the card; partings: {}".format(
+            SAMPLE_F32_B, SAMPLE_R, out["card"].shape[0] - len(parted), out["card"].shape[0],
+            len({tuple(r) for r in out["card"].tolist()}), report))
+    del model, logs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def context_inputs(n, seed):
+    """n random 224 px images and the phase's two ragged contexts: word ids
+    of the tiny vocabulary, lengths 1 to CTX_TOKENS per row."""
+    import numpy as np
+    import torch
+
+    from gitax_torch.tokenization import build_tiny_vocab
+
+    rng = np.random.RandomState(seed)
+    images = [rng.randint(0, 256, (224, 224, 3)).astype(np.uint8) for _ in range(n)]
+    words = len(build_tiny_vocab())
+    toks, lens = [], []
+    for tc in CTX_TOKENS:
+        toks.append(torch.from_numpy(rng.randint(1000, words, (n, tc))).long())
+        lens.append(torch.from_numpy(rng.randint(1, tc + 1, (n,))).long())
+    return images, toks, lens
+
+
+def phase_context(card, seed):
+    """20. Text context on GIT_BASE_COCO at full width (ViT-B/16 at 224 px,
+    M = 197, D = 768): B = 32, beam 4, two ragged contexts, so the memory
+    is M + 48 = CTX_M tokens with a padded tail that kernel 1 reads
+    through mem_bias.  bf16 and f32, kernel path against plain path; f32
+    card against the CPU port on 8 rows; flash_attention 0 launches,
+    decode_attention 6 x steps.  Returns those launches."""
+    import torch
+
+    from gitax_torch.decode.beam import BeamSearchConfig
+    from gitax_torch.ops import flash_attention as fa
+    from gitax_torch.ops.decode_attention import decode_attention
+
+    torch.cuda.reset_peak_memory_stats()
+    cpu_model = random_model("GIT_BASE_COCO", seed=3, gate=12)
+    cfg = cpu_model.cfg
+    check(cfg.visual_feature_size == cfg.hidden_size == 768 and cfg.encoder.num_tokens ==
+          CTX_IMAGE, "not GIT_BASE at 224 px")
+    images, toks, lens = context_inputs(32, seed)
+    beam = BeamSearchConfig(num_beams=4, max_steps=41, norm_max_length=1024)
+    out, launches, steps = {}, 0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        model = build_model("cuda", dtype, cpu_model)
+        x = normalized(images, dtype)
+        ct, cl = [t.cuda() for t in toks], [l.cuda() for l in lens]
+        with torch.inference_mode():
+            _, valid = model.build_memory(x, ct, cl, dtype=dtype)
+        check(valid.shape == (32, CTX_M) and not valid.all(), "memory_valid {}".format(
+            tuple(valid.shape)))
+        for kernel in (True, False):
+            decode_attention.launches = fa.launches = model.decode_step_calls = 0
+            t0 = time.perf_counter()
+            seqs, lp = model.generate(x, cls_prefix(x), beam=beam, dtype=dtype,
+                                      decode_kernel=kernel, context_tokens=ct, context_lengths=cl)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            check(seqs.shape == (32, 40) and torch.isfinite(lp.float()).all().item(),
+                  "context {}: shape {}".format(dtype, tuple(seqs.shape)))
+            check(fa.launches == 0, "flash_attention launched on a padded memory")
+            if kernel:
+                check(decode_attention.launches == cfg.num_layers * model.decode_step_calls,
+                      "decode_attention launches {} != {} x {} steps".format(
+                          decode_attention.launches, cfg.num_layers, model.decode_step_calls))
+                launches += decode_attention.launches
+                steps += model.decode_step_calls
+            else:
+                check(decode_attention.launches == 0, "the plain path launched kernel 1")
+            out[dtype, kernel] = seqs.cpu()
+            log("context {} {} path: 32 images + 2 contexts (M = {}), {} beam steps in {:.2f} s, "
+                "{} distinct outputs [{}]".format(
+                    str(dtype)[6:], "kernel" if kernel else "plain", CTX_M,
+                    model.decode_step_calls, seconds, len({tuple(r) for r in seqs.tolist()}), card))
+        if dtype == torch.float32:
+            check(torch.equal(out[dtype, True], out[dtype, False]),
+                  "context f32: the kernel path's tokens differ from the plain path's")
+            cpu_seqs, _ = cpu_model.generate(x[:8].cpu(), cls_prefix(x[:8].cpu()), beam=beam,
+                                             context_tokens=[t[:8] for t in toks],
+                                             context_lengths=[l[:8] for l in lens])
+            check(torch.equal(out[dtype, True][:8], cpu_seqs),
+                  "context f32: the card's tokens differ from the CPU port's on 8 rows")
+        del model, x
+        torch.cuda.empty_cache()
+    bf16 = (out[torch.bfloat16, True] == out[torch.bfloat16, False]).all(1).float().mean().item()
+    log("context: f32 kernel path = plain path (32 rows), = the CPU port (8 rows); bf16 kernel "
+        "path against plain path: {:.1%} of rows agree; flash_attention 0; decode_attention "
+        "{} launches with mem_bias = {} x {} steps".format(bf16, launches, cfg.num_layers, steps))
+    peak_memory("context", card)
+    return launches
+
+
 def main(argv):
     import torch
 
     global PROFILE
-    check(argv in ([], ["--profile"]), "usage: python3 chip_smoke.py [--profile]")
-    PROFILE = bool(argv)
+    args = list(argv)
+    PROFILE = "--profile" in args
+    if PROFILE:
+        args.remove("--profile")
+    seed = 0
+    if args[:1] == ["--seed"] and len(args) == 2 and args[1].isdigit():
+        seed, args = int(args[1]), []
+    check(not args, "usage: python3 chip_smoke.py [--profile] [--seed N]")
     check(os.path.isdir(os.path.join(ROOT, "gitax_torch")),
           "gitax_torch/ not found beside chip_smoke.py")
     check(torch.cuda.is_available(), "no CUDA device")
@@ -2139,12 +2868,18 @@ def main(argv):
 
     # 5, 6, 14, 16, 17: the COCO path
     coco = random_model("GIT_LARGE_COCO", seed=0, gate=12)
-    coco_launches, images, coco_rate = phase_coco_slice(card, coco,
-                                                        BertTokenizer(build_tiny_vocab()))
+    coco_launches, images, coco_rate, coco_step_ms = phase_coco_slice(
+        card, coco, BertTokenizer(build_tiny_vocab()))
     phase_coco_f32_parity(coco, images)
     tsv_d, _ = phase_coco_tsv(card, coco, images, work, coco_rate)
     phase_tsv_f32_parity(coco, work)
     phase_greedy_trie(card, coco, work)
+    t0 = time.perf_counter()
+    serve_d = phase_serving(card, coco, images, work, coco_step_ms)  # 18
+    t1 = time.perf_counter()
+    sample_d = phase_sampling(card, coco, images, seed)  # 19
+    log("phase 18 (serving) {:.1f} s, phase 19 (sampling) {:.1f} s".format(
+        t1 - t0, time.perf_counter() - t1))
     del coco
 
     # 7, 8, 15: the VQA path
@@ -2167,15 +2902,25 @@ def main(argv):
     del model, engine
     torch.cuda.empty_cache()
     phase_video_f32_parity(video, clips, beam)
+    del video, clips
+    torch.cuda.empty_cache()
 
-    launches = {"decode_attention": coco_launches + vqa_d + video_d + tsv_d + vqa_tsv_d,
+    # 20: text context
+    t0 = time.perf_counter()
+    context_d = phase_context(card, seed)
+    log("phase 20 (text context) {:.1f} s".format(time.perf_counter() - t0))
+
+    launches = {"decode_attention": coco_launches + vqa_d + video_d + tsv_d + vqa_tsv_d
+                + serve_d + sample_d + context_d,
                 "flash_attention": vqa_f + video_f + vqa_tsv_f, "vocab_topk": vocab_launches}
+    stats["decode_attention"]["launches_with_mem_bias"] = context_d
     log("main-path launches: decode_attention {} (COCO {} + VQA {} + video {} + COCO TSV {} + VQA "
-        "TSV {}), flash_attention {} (VQA {} + video {} + VQA TSV {}), vocab_topk {} (video, "
-        "vocab_kernel on); all phases {:.1f} s".format(
-            launches["decode_attention"], coco_launches, vqa_d, video_d, tsv_d, vqa_tsv_d,
-            launches["flash_attention"], vqa_f, video_f, vqa_tsv_f, vocab_launches,
-            time.perf_counter() - t_start))
+        "TSV {} + serving {} + sampling {} + text context {}, the last with mem_bias), "
+        "flash_attention {} (VQA {} + video {} + VQA TSV {}), vocab_topk {} (video, vocab_kernel "
+        "on; 0 under sampling); all phases {:.1f} s".format(
+            launches["decode_attention"], coco_launches, vqa_d, video_d, tsv_d, vqa_tsv_d, serve_d,
+            sample_d, context_d, launches["flash_attention"], vqa_f, video_f, vqa_tsv_f,
+            vocab_launches, time.perf_counter() - t_start))
     log(card)
     log(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],

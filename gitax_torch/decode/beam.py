@@ -21,8 +21,15 @@ path it takes the maxima itself, on the `vocab_stats` path it reads the
 block maxima and sums of exponentials that the fused vocab-head kernel
 (ops/vocab_topk.py) emits.
 
-Sampling and the repetition penalty are not ported yet: the config has no
-fields for them.
+The CTRL repetition penalty reads a `seen` [BK, V] mask: it starts from
+the prefix, is gathered by parent beam each step and takes the chosen
+words.  Sampling (gitax beam.py:288-338) filters the tempered logits with
+gitax's positional top-k/top-p, draws P words per beam without
+replacement by Gumbel top-k, and scores them by the log-softmax of the
+filtered logits; parents are labelled as gitax labels them.  The noise
+comes from `gumbel_noise` with the caller's `torch.Generator`: RNG
+streams cannot match jax.random, so the parity tests replace
+`gumbel_noise` with gitax's own draws.
 """
 
 from __future__ import annotations
@@ -48,8 +55,15 @@ class BeamSearchConfig:
     max_steps: int = 1024  # sequence buffer length, prefix included
     num_keep_best: int = 1
     eos_id: int = 102
+    repetition_penalty: float = 1.0
     # length-norm max_length for is_done; None couples it to max_steps
     norm_max_length: Optional[int] = None
+    # sampling (decoder.py:1146-1166): per-beam draws without replacement
+    # (Gumbel top-k) after temperature and top-k/top-p filtering
+    do_sample: bool = False
+    temperature: float = 1.0
+    top_k: int = 0
+    top_p: Optional[float] = None
 
 
 def _length_norm(length, alpha):
@@ -62,6 +76,39 @@ def top_k_stable(x, k):
     """Top-k along the last axis; ties go to the lower index."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def top_k_top_p_filter(logits, top_k=0, top_p=None, min_tokens_to_keep=1,
+                       filter_value=float("-inf")):
+    """Top-k / nucleus filtering (reference decoder.py:1343-1375), gitax's
+    (beam.py:67-100): top-p removal is positional, by rank in a stable
+    descending sort scattered back, so a token tied with the last kept
+    logit is still removed."""
+    v = logits.shape[-1]
+    if top_k and top_k > 0:
+        k = min(max(top_k, min_tokens_to_keep), v)
+        kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, filter_value, logits)
+    if top_p is not None and top_p < 1.0:
+        sorted_logits, order = torch.sort(logits, dim=-1, descending=True, stable=True)
+        cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+        # keep tokens until the cumulative probability passes top_p (the
+        # first token past it is kept), and at least min_tokens_to_keep
+        remove_sorted = torch.zeros_like(cum, dtype=torch.bool)
+        remove_sorted[..., 1:] = cum[..., :-1] > top_p
+        if min_tokens_to_keep > 1:
+            remove_sorted[..., :min_tokens_to_keep] = False
+        removed = torch.empty_like(remove_sorted).scatter_(-1, order, remove_sorted)
+        logits = torch.where(removed, filter_value, logits)
+    return logits
+
+
+def gumbel_noise(shape, generator):
+    """Standard Gumbel noise [shape] f32 on the generator's device:
+    -log(E), E ~ Exponential(1).  The sampling search's one source of
+    randomness (gitax draws `jax.random.gumbel`, beam.py:325-326)."""
+    e = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    return -e.exponential_(generator=generator).log()
 
 
 def _top_k_blocked(x, k, block=TILE, bmax=None):
@@ -105,22 +152,32 @@ def _tile_beams(cache, num_beams: int):
 
 
 def beam_search(decode_step_fn, prefill_logits, cache, prefix_tokens,
-                cfg: BeamSearchConfig, vocab_stats=False):
+                cfg: BeamSearchConfig, rng=None, vocab_stats=False):
     """Run the search.  Returns (decoded [B, N, max_steps] int64,
     logprobs [B, N] f32); sequences include the prefix and are
     EOS-padded.  decode_step_fn(tokens [BK], cache) -> (logits [BK, V],
-    cache).
+    cache).  rng: a torch.Generator on the logits' device, required with
+    cfg.do_sample.
 
     vocab_stats=True: decode_step_fn returns (logits [BK, NB*512]
     -inf-padded, cache, (bmax, bsum) [BK, NB]), the vocab-head kernel's
     outputs (ops/vocab_topk.py), and each step's top-k and logsumexp read
     the block statistics instead of passing over the full logits.  The
     first step's statistics come from the prefill's plain-head logits
-    (`block_stats`).  The vocab size stays the unpadded prefill logits'."""
+    (`block_stats`).  The vocab size stays the unpadded prefill logits'.
+    It serves the plain beam only: with sampling or a repetition penalty
+    it raises, as gitax asserts."""
     b, tp = prefix_tokens.shape
     k = cfg.num_beams
     n = cfg.num_keep_best
-    c = cfg.per_node_beam_size * k  # candidates per batch element
+    p = cfg.per_node_beam_size
+    c = p * k  # candidates per batch element
+    penalty = cfg.repetition_penalty != 1.0
+    if cfg.do_sample and rng is None:
+        raise ValueError("do_sample needs a torch.Generator (rng)")
+    if vocab_stats and (cfg.do_sample or penalty):
+        raise ValueError("vocab_stats serves the plain beam only: no sampling, no "
+                         "repetition penalty")
     v = prefill_logits.shape[-1]
     max_len = cfg.max_steps
     alpha = cfg.length_penalty
@@ -147,6 +204,10 @@ def beam_search(decode_step_fn, prefill_logits, cache, prefix_tokens,
     logits = prefill_logits.repeat_interleave(k, dim=0)
     if vocab_stats:
         logits, bmax, bsum = block_stats(logits.float())
+    if penalty:
+        seen = torch.zeros((b, v), dtype=torch.bool, device=dev)
+        seen.scatter_(1, prefix_tokens.long(), True)
+        seen = seen.repeat_interleave(k, dim=0)  # [BK, V]
 
     # length norms are 0-dim CPU tensors: scalars to device ops, no upload
     done_norm = _length_norm((cfg.norm_max_length or max_len) - 1, alpha)
@@ -156,27 +217,51 @@ def beam_search(decode_step_fn, prefill_logits, cache, prefix_tokens,
     batch_base = torch.arange(b, device=dev)[:, None] * k
 
     cur_len = tp
+    sample_beam_of = torch.arange(k, device=dev).repeat_interleave(p)  # [C]
     while cur_len < max_len and not bool(done.all()):
-        # top-C per beam over raw logits, normalized by logsumexp only for
-        # the candidates, then merged over the group's K*C candidates
-        if vocab_stats:
-            pb_vals, pb_idx = _top_k_blocked(logits, c, block=TILE, bmax=bmax)
-            lse = combine_lse(bmax, bsum)
+        if penalty:
+            # CTRL (decoder.py:1137-1144): a seen token's positive logit is
+            # divided by the penalty, a negative one multiplied
+            pen = cfg.repetition_penalty
+            logits = torch.where(seen, torch.where(logits < 0, logits * pen, logits / pen),
+                                 logits)
+        if cfg.do_sample:
+            # temperature, top-k/top-p, then P draws per beam without
+            # replacement; the reference keeps at least 2 tokens, gitax at
+            # least P as well (beam.py:309-318)
+            lt = logits.float()
+            if cfg.temperature != 1.0:
+                lt = lt / cfg.temperature
+            lt = top_k_top_p_filter(lt, cfg.top_k, cfg.top_p, min_tokens_to_keep=max(2, p))
+            noisy = torch.where(torch.isfinite(lt), lt + gumbel_noise(lt.shape, rng),
+                                float("-inf"))
+            _, words_s = top_k_stable(noisy, p)  # [BK, P]
+            samp_lp = torch.log_softmax(lt, dim=-1).gather(1, words_s)
+            # candidates stay beam-major: parent j's P draws at j*P.. (the
+            # reference mislabels the parents here; gitax does not)
+            next_scores = (samp_lp.reshape(b, k, p) + beam_scores[:, :, None]).reshape(b, c)
+            next_idx = words_s.reshape(b, c) + (sample_beam_of * v)[None, :]
         else:
-            pb_vals, pb_idx = _top_k_blocked(logits, c)  # [BK, C]
-            lse = torch.logsumexp(logits.float(), dim=-1)
-        cand = pb_vals.float() - lse[:, None] + beam_scores.reshape(-1)[:, None]
-        merged_scores = cand.reshape(b, k * c)
-        merged_idx = pb_idx.reshape(b, k * c) + (beam_of * v)[None, :]
-        next_scores, sel = top_k_stable(merged_scores, c)
-        next_idx = merged_idx.gather(1, sel)
+            # top-C per beam over raw logits, normalized by logsumexp only
+            # for the candidates, then merged over the group's K*C
+            if vocab_stats:
+                pb_vals, pb_idx = _top_k_blocked(logits, c, block=TILE, bmax=bmax)
+                lse = combine_lse(bmax, bsum)
+            else:
+                pb_vals, pb_idx = _top_k_blocked(logits, c)  # [BK, C]
+                lse = torch.logsumexp(logits.float(), dim=-1)
+            cand = pb_vals.float() - lse[:, None] + beam_scores.reshape(-1)[:, None]
+            merged_scores = cand.reshape(b, k * c)
+            merged_idx = pb_idx.reshape(b, k * c) + (beam_of * v)[None, :]
+            next_scores, sel = top_k_stable(merged_scores, c)
+            next_idx = merged_idx.gather(1, sel)
         beam_id = next_idx // v
         word_id = next_idx % v
 
         # done check: hypotheses from BEFORE this step vs the best candidate
-        newly_done = (hyp_count >= n) & (
-            hyp_scores.amin(dim=1) >= next_scores[:, 0] / done_norm
-        )
+        # (sampled candidates are unsorted)
+        best = next_scores.amax(dim=1) if cfg.do_sample else next_scores[:, 0]
+        newly_done = (hyp_count >= n) & (hyp_scores.amin(dim=1) >= best / done_norm)
         done_now = done | newly_done
 
         force_add = (cur_len + 1) == max_len  # decoder.py:1202
@@ -218,9 +303,13 @@ def beam_search(decode_step_fn, prefill_logits, cache, prefix_tokens,
 
         # no cache reorder: inherit the parent's ancestry row and claim
         # position cur_len for this row
-        anc = cache.anc[(parents + batch_base).reshape(-1)]
+        flat_parents = (parents + batch_base).reshape(-1)
+        anc = cache.anc[flat_parents]
         anc[:, cur_len] = own_row
         cache = dataclasses.replace(cache, anc=anc)
+        if penalty:
+            seen = seen[flat_parents]
+            seen.scatter_(1, words.reshape(-1, 1), True)
         if vocab_stats:
             logits, cache, (bmax, bsum) = decode_step_fn(words.reshape(-1), cache)
         else:

@@ -7,11 +7,12 @@ of a gitax tree and this module's `state_dict()` agree key for key (see
 `gitax_torch.ckpt`).  Ported: single-image encoding at any grid of whole
 patches (the MinMax high-res inputs included), video clips (frames
 encoded one by one, offset by their temporal embeddings and concatenated
-or averaged), memory with no text context, and generation with or
-without a question prefix: beam search, the encoder and the prefill
-taking the fused-attention kernel by gitax's auto rule and the int8 head
-optionally taking the fused vocab-head kernel; greedy; and trie-constrained
-greedy.  Text context is not ported.
+or averaged), memory with or without text context (`memory_valid`
+masks the context's padding), and generation with or without a question
+prefix: beam search, sampled or not, with the repetition penalty and
+`num_return_sequences`, the encoder and the prefill taking the
+fused-attention kernel by gitax's auto rule and the int8 head optionally
+taking the fused vocab-head kernel; greedy; and trie-constrained greedy.
 """
 
 from __future__ import annotations
@@ -110,10 +111,40 @@ class GitModel(nn.Module):
             return feats.mean(dim=1)
         return feats.reshape(b, f * feats.shape[2], feats.shape[3])
 
-    def build_memory(self, images, dtype=torch.float32, fast=None, flash=None):
-        """(memory, memory_valid): the image tokens, all valid (the text
-        context memory is not ported yet)."""
-        return self.encode_images(images, dtype, fast=fast, flash=flash), None
+    def append_text_context(self, visual, context_tokens, context_lengths,
+                            dtype=torch.float32):
+        """Concatenate embedded text context(s) onto the raw visual
+        features, with a validity mask (reference decoder.py:859-871, gitax
+        git.py:92-127): each context goes through the decoder's word and
+        positional embedding, positions restarting at 0, before the visual
+        projection, which needs visual_feature_size == hidden_size.
+
+        context_tokens [B, Tc] or a list of such; context_lengths [B] per
+        context.  Returns (memory [B, M + sum(Tc), D], memory_valid
+        [B, M + sum(Tc)] bool)."""
+        if self.cfg.visual_feature_size != self.cfg.hidden_size:
+            raise ValueError("text context needs visual_feature_size == hidden_size ({} != {}), "
+                             "as in the reference (decoder.py:863-870)".format(
+                                 self.cfg.visual_feature_size, self.cfg.hidden_size))
+        if not isinstance(context_tokens, (list, tuple)):
+            context_tokens, context_lengths = [context_tokens], [context_lengths]
+        b, dev = visual.shape[0], visual.device
+        parts = [visual.to(dtype)]
+        valids = [torch.ones((b, visual.shape[1]), dtype=torch.bool, device=dev)]
+        for tokens, lengths in zip(context_tokens, context_lengths):
+            parts.append(T.embed_captions(self.textual, tokens, self.cfg).to(dtype))
+            valids.append(torch.arange(tokens.shape[1], device=dev)[None, :]
+                          < lengths.to(dev)[:, None])
+        return torch.cat(parts, 1), torch.cat(valids, 1)
+
+    def build_memory(self, images, context_tokens=None, context_lengths=None,
+                     dtype=torch.float32, fast=None, flash=None):
+        """Encode images and, given text context, append it (gitax
+        git.py:129-142).  Returns (memory, memory_valid or None)."""
+        visual = self.encode_images(images, dtype, fast=fast, flash=flash)
+        if context_tokens is None:
+            return visual, None
+        return self.append_text_context(visual, context_tokens, context_lengths, dtype)
 
     # -- decode glue -------------------------------------------------------
     def prefill(self, visual_features, prefix_tokens, max_text_len,
@@ -130,29 +161,36 @@ class GitModel(nn.Module):
                              kernel=kernel, vocab_kernel=vocab_kernel)
 
     def vocab_kernel_applies(self, beam: BeamSearchConfig) -> bool:
-        """gitax's gate of `vocab_kernel` (git.py:321-333): the int8 head,
-        and at least max(C, 4) vocab blocks, so that the prefilter's
-        blocks cover the C candidates.  (gitax also needs no sampling and
-        no repetition penalty; the port's search has neither.)"""
+        """gitax's gate of `vocab_kernel` (git.py:321-333): no sampling, no
+        repetition penalty, the int8 head, and at least max(C, 4) vocab
+        blocks, so that the prefilter's blocks cover the C candidates."""
         nblk = (self.cfg.vocab_size + TILE - 1) // TILE
-        return (self.textual.output.quantized
+        return (not beam.do_sample and beam.repetition_penalty == 1.0
+                and self.textual.output.quantized
                 and nblk >= max(beam.per_node_beam_size * beam.num_beams, 4))
 
     # -- generation --------------------------------------------------------
     @torch.inference_mode()
     def generate(self, images, prefix_tokens=None, beam: Optional[BeamSearchConfig] = None,
-                 dtype=torch.float32, sos_id=101, mode="beam", fast_prefill=False,
-                 decode_kernel=False, flash=None, vocab_kernel=False, max_steps=None,
-                 trie=None):
+                 memory_valid=None, dtype=torch.float32, sos_id=101, mode="beam",
+                 max_steps=None, num_return_sequences=1, rng=None, trie=None,
+                 context_tokens=None, context_lengths=None, fast_prefill=False,
+                 decode_kernel=False, flash=None, vocab_kernel=False):
         """Caption generation (reference decoder.py:977-1011) by beam
         search, greedy search (mode='greedy') or trie-constrained greedy
         search (mode='trie', over `trie`, a `decode.trie.TokenTrie`).
 
         prefix_tokens [B, Tp] defaults to [CLS]; an explicit prefix is
         stripped from the output.  With num_keep_best == 1 the keep axis
-        is squeezed.  decode_kernel: False (the plain decode path), True
-        (the decode-attention kernel path) or 'int8' (the kernel path
-        with int8 memory K/V).  flash: the encoder's and the prefill's
+        is squeezed.  Text context (context_tokens, context_lengths, see
+        `append_text_context`) is appended to the memory with its validity
+        mask; memory_valid [B, M] bool marks the image tokens to attend
+        to; not both.  num_return_sequences R > 1 repeats each input R
+        times on the batch axis (decoder.py:1093-1096): outputs stay flat
+        [B*R, ...].  rng: the torch.Generator of a sampling search
+        (beam.do_sample), on the images' device.  decode_kernel: False
+        (the plain decode path), True (the decode-attention kernel path)
+        or 'int8' (the kernel path with int8 memory K/V).  flash: the encoder's and the prefill's
         fused-attention switch; None, gitax's only setting, applies the
         auto rule to each.  vocab_kernel=True runs the int8 head of every
         beam step through the fused vocab-head kernel and the search on its
@@ -175,12 +213,22 @@ class GitModel(nn.Module):
                                  "mode='beam' only".format(mode))
             if mode == "trie" and trie is None:
                 raise ValueError("mode='trie' needs a TokenTrie (decode.trie.build_vocab_trie)")
-        visual, memory_valid = self.build_memory(images, dtype=dtype, flash=flash)
+        visual, ctx_valid = self.build_memory(images, context_tokens, context_lengths,
+                                              dtype=dtype, flash=flash)
+        if ctx_valid is not None:
+            if memory_valid is not None:
+                raise ValueError("pass text context or memory_valid, not both")
+            memory_valid = ctx_valid
         bsz = visual.shape[0]
         strip = prefix_tokens is not None
         if prefix_tokens is None:
             prefix_tokens = torch.full((bsz, 1), sos_id, dtype=torch.long,
                                        device=visual.device)
+        if num_return_sequences > 1:
+            visual = visual.repeat_interleave(num_return_sequences, dim=0)
+            prefix_tokens = prefix_tokens.repeat_interleave(num_return_sequences, dim=0)
+            if memory_valid is not None:
+                memory_valid = memory_valid.repeat_interleave(num_return_sequences, dim=0)
         tp = prefix_tokens.shape[1] if strip else 0
         if mode != "beam":
             max_steps = max_steps or 40
@@ -207,7 +255,7 @@ class GitModel(nn.Module):
             return self.decode_step(tokens, cache, dtype, kernel=bool(decode_kernel),
                                     vocab_kernel=vocab_kernel)
 
-        decoded, logprobs = beam_search(step, logits, cache, prefix_tokens, beam,
+        decoded, logprobs = beam_search(step, logits, cache, prefix_tokens, beam, rng=rng,
                                         vocab_stats=vocab_kernel)
         decoded = decoded[:, :, tp:]
         if beam.num_keep_best == 1:

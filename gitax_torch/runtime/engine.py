@@ -23,7 +23,7 @@ is no transform); float batches, the transform's own normalised output,
 are uploaded cast to the engine's dtype and not normalised again.  Also
 ported: the constructor's int8 / fast-prefill / decode-kernel rules, the
 per-prefix-length beam settings (`beam_for`, `_caption_fn`),
-`dispatch_device_batch`, `_dispatch_batch`, `generate_batch`,
+`dispatch_device_batch`, `_dispatch_batch`, `generate_batch`, `to_host`,
 `encode_prefix`, the variable-resolution batches of the MinMax high-res
 models (`dispatch_varshape`: images cut to whole patches and grouped into
 exact-grid buckets) and `resolve`.  Items are images [H, W, 3] or video
@@ -267,13 +267,19 @@ class CaptionEngine(object):
             dispatched.append((idxs, seqs))
         return len(images), dispatched
 
+    def to_host(self, seqs) -> np.ndarray:
+        """Device sequences -> a numpy array: the one place where the
+        engine's device results reach the host (gitax's batcher reads them
+        with np.asarray, serving.py:297, 436)."""
+        return seqs.cpu().numpy()
+
     def resolve(self, handle):
         """Copy a dispatched handle's sequences to the host and detokenize
         them, in the order the images were given."""
         n, dispatched = handle
         results = [None] * n
         for idxs, seqs in dispatched:
-            arr = torch.cat([s.cpu() for s in seqs], dim=0)[:len(idxs)].numpy()
+            arr = self.to_host(torch.cat(seqs, dim=0))[:len(idxs)]
             for i, row in zip(idxs, arr):
                 results[i] = self.tokenizer.decode(row.tolist(), skip_special_tokens=True)
         return results

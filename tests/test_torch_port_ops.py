@@ -347,7 +347,8 @@ def test_port_imports_no_jax():
     assert len(mods) >= 16
     # every kernel module, the vocab head's included
     assert {"gitax_torch.ops.decode_attention", "gitax_torch.ops.flash_attention",
-            "gitax_torch.ops.vocab_topk", "gitax_torch.models.git"} <= set(mods)
+            "gitax_torch.ops.vocab_topk", "gitax_torch.models.git",
+            "gitax_torch.runtime.serving", "gitax_torch.serve"} <= set(mods)
 
 
 def test_port_sources_never_import_jax():
@@ -356,6 +357,8 @@ def test_port_sources_never_import_jax():
                for f in files if f.endswith(".py")]
     assert {os.path.join(REPO, "gitax_torch", "ops", name + ".py")
             for name in ("decode_attention", "flash_attention", "vocab_topk")} <= set(sources)
+    assert {os.path.join(REPO, "gitax_torch", "runtime", "serving.py"),
+            os.path.join(REPO, "gitax_torch", "serve.py")} <= set(sources)
     for path in sources + [os.path.join(REPO, "chip_smoke.py")]:
         text = open(path).read()
         for banned in ("import jax", "from jax", "import gitax\n", "import gitax.",
