@@ -125,7 +125,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      flash_attention 0, decode_attention = 6 x steps, counted in the
      kernels line as launches_with_mem_bias (kernel 1 at this shape with
      its mem_bias is checked and timed in phase 3).
-Phases 14-19 write in build/gitax_torch/smoke_work, removed at the end.
+ 21. training: GIT_LARGE_COCO at full width and depth through
+     gitax_torch.train.speed_test_forward_backward (B=32 synthesized
+     images, bf16, fast_softmax, AdamW in f32; 2 warm-up + 10 timed
+     steps): images/s, ms per step, peak memory, the loss per step
+     (finite, falling); the same with remat=True (lower peak, the same
+     losses within 2^-7); one step split by CUDA events into encoder
+     forward, decoder forward + loss, decoder backward, encoder backward
+     and AdamW, with and without fast_softmax, and one step profiled; f32
+     card against CPU at GIT_LARGE_COCO's widths with 2 encoder blocks and
+     1 decoder layer (loss 1e-5 rel, each gradient 1e-4 relative L2); one
+     ScstTrainer.step (B=8, 5 samples, f32); run_finetune over a 64-row
+     PNG TSV for 4 steps saving every 2, and a run resumed from step 2
+     that ends equal to it; every kernel wrapper raising under autograd.
+     No kernel launches.
+Phases 14-19 and 21 write in build/gitax_torch/smoke_work, removed after.
 Each slice prints its peak device memory.
 Prints the card's name and power limit, one JSON line describing the
 kernels (launches on the main path; error, time, plain time, bound and
@@ -2829,6 +2843,376 @@ def phase_context(card, seed):
     return launches
 
 
+# -- training (phase 21) ----------------------------------------------------
+
+TRAIN_TIMED = 10  # timed steps after the speed test's 2 warm-up steps
+TRAIN_ROWS = 64  # the fine-tune's PNG TSV
+# bf16 tolerance for two loss trajectories of the same steps
+BF16_REL = 2.0 ** -7
+
+
+def reduced_large(layers=2, num_layers=1):
+    """GIT_LARGE_COCO's widths at a cut depth: `layers` encoder blocks and
+    `num_layers` decoder layers."""
+    import dataclasses
+
+    from gitax_torch.models.config import config_from_param, get_model_param
+
+    cfg = config_from_param(get_model_param("GIT_LARGE_COCO"))
+    return dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, layers=layers),
+                               num_layers=num_layers)
+
+
+def kernel_launches():
+    from gitax_torch.ops import flash_attention as fa
+    from gitax_torch.ops import vocab_topk as vt
+    from gitax_torch.ops.decode_attention import decode_attention
+
+    return decode_attention.launches, fa.launches, vt.launches
+
+
+def train_speed(card):
+    """21a. GIT_LARGE_COCO at full width and depth through
+    `train.speed_test_forward_backward` (B=32, bf16, fast_softmax, AdamW
+    1e-5 in f32, 2 warm-up + TRAIN_TIMED steps on one batch), then with
+    remat=True: finite and falling losses, lower peak memory with remat,
+    the two loss trajectories within bf16's tolerance."""
+    import math
+
+    import torch
+
+    from gitax_torch import train
+
+    runs = {}
+    for remat in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        out = train.speed_test_forward_backward(duplicate=16, iterations=TRAIN_TIMED,
+                                                dtype="bfloat16", model_name="GIT_LARGE_COCO",
+                                                remat=remat)
+        losses = out["losses"]
+        check(out["batch"] == 32 and len(losses) == TRAIN_TIMED + 2, "speed test: {} images, "
+              "{} losses".format(out["batch"], len(losses)))
+        check(all(math.isfinite(x) for x in losses), "train loss not finite: {}".format(losses))
+        check(losses[-1] < losses[0], "train loss did not fall: {}".format(losses))
+        log("train GIT_LARGE_COCO B=32 bf16 fast_softmax remat={}: {:.2f} images/s, {:.2f} ms per "
+            "step over {} steps, peak {:.1f} MiB allocated; loss per step {} [{}]".format(
+                remat, out["images_per_s"], out["ms_per_step"], TRAIN_TIMED,
+                out["peak_memory_bytes"] / 2**20, ["%.4f" % x for x in losses], card))
+        runs[remat] = out
+    plain, remat = runs[False], runs[True]
+    check(remat["peak_memory_bytes"] < plain["peak_memory_bytes"],
+          "remat did not lower the peak: {} >= {}".format(remat["peak_memory_bytes"],
+                                                          plain["peak_memory_bytes"]))
+    worst = max(abs(a - b) / abs(b) for a, b in zip(remat["losses"], plain["losses"]))
+    check(worst <= BF16_REL, "remat's losses part from the plain run's by {:.3g} rel".format(worst))
+    log("train remat: peak {:.1f} -> {:.1f} MiB ({:.1%}), {:.2f} -> {:.2f} ms per step, losses "
+        "within {:.3g} rel of the plain run's (bound 2^-7) [{}]".format(
+            plain["peak_memory_bytes"] / 2**20, remat["peak_memory_bytes"] / 2**20,
+            remat["peak_memory_bytes"] / plain["peak_memory_bytes"], plain["ms_per_step"],
+            remat["ms_per_step"], worst, card))
+    return plain
+
+
+def caption_batch(n, seed, t=14):
+    """n random normalized 224 px images and token rows [CLS] w.. [SEP]
+    with need_predict on the words and [SEP], from a seeded generator."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, 224, 224, 3, generator=g)
+    tokens = torch.randint(1000, 30000, (n, t), generator=g)
+    tokens[:, 0], tokens[:, -1] = 101, 102
+    need = torch.ones_like(tokens)
+    need[:, 0] = 0
+    return x, tokens, need
+
+
+def train_step_profile(card, seed):
+    """21b. Where one training step's time goes: GIT_LARGE_COCO B=32 bf16,
+    split with CUDA events into the encoder's forward, the decoder's
+    forward and loss, the decoder's backward, the encoder's backward (the
+    memory's gradient carried across by hand) and AdamW; with
+    fast_softmax (bf16 score math) and without (f32 score matmuls, TF32
+    off); then one fast step under torch.profiler."""
+    import torch
+
+    from gitax_torch.models.config import config_from_param, get_model_param
+    from gitax_torch.models import textual
+    from gitax_torch.models.git import GitModel
+    from gitax_torch.training import caption_loss, init_train_state
+    from gitax_torch.training.trainer import ConstantSchedule, adamw, apply_gradients
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = config_from_param(get_model_param("GIT_LARGE_COCO"))
+    model = GitModel(cfg, device="cuda").init_params(torch.Generator().manual_seed(seed))
+    state = init_train_state(model, *adamw(model, ConstantSchedule(1e-5), weight_decay=1e-4))
+    x, tokens, need = (t.cuda() for t in caption_batch(32, seed))
+    x = x.to(torch.bfloat16)
+    names = ("encoder fwd", "decoder fwd + loss", "decoder bwd", "encoder bwd", "AdamW")
+
+    def step(fast, events=None):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(6)] if events is not None \
+            else None
+        mark = (lambda i: marks[i].record()) if marks else (lambda i: None)
+        mark(0)
+        visual, _ = model.build_memory(x, dtype=torch.bfloat16, fast=True if fast else None,
+                                       flash=False)
+        mark(1)
+        leaf = visual.detach().requires_grad_()
+        logits = textual.textual_forward(model.textual, leaf, tokens, cfg,
+                                         dtype=torch.bfloat16, fast=fast)
+        loss = caption_loss(logits, tokens, need)
+        mark(2)
+        loss.backward()
+        mark(3)
+        visual.backward(leaf.grad)
+        mark(4)
+        apply_gradients(state)
+        mark(5)
+        if marks:
+            torch.cuda.synchronize()
+            events.append([marks[i].elapsed_time(marks[i + 1]) for i in range(5)])
+        return loss
+
+    for fast in (True, False):
+        for _ in range(2):
+            step(fast)
+        spans = []
+        for _ in range(3):
+            step(fast, spans)
+        mean = [sum(s[i] for s in spans) / len(spans) for i in range(5)]
+        log("train step split, GIT_LARGE_COCO B=32 bf16 {}: {} = {:.2f} ms [{}]".format(
+            "fast_softmax (bf16 scores)" if fast else "f32 scores",
+            ", ".join("{} {:.2f}".format(n, v) for n, v in zip(names, mean)), sum(mean), card))
+    profile_batch("train step (fast_softmax)", card, lambda: step(True))
+    del model, state
+    torch.cuda.empty_cache()
+
+
+def train_f32_parity(card, seed):
+    """21c. f32 (TF32 off) on the card against the CPU: GIT_LARGE_COCO's
+    widths with 2 encoder blocks and 1 decoder layer, B=4: the loss within
+    1e-5 rel, each parameter's gradient within 1e-4 relative L2 error (the
+    decoder's key biases, zero in exact arithmetic, within 1e-6 of the
+    largest gradient norm on both)."""
+    import torch
+
+    from gitax_torch.models.git import GitModel
+    from gitax_torch.training import caption_loss
+
+    cfg = reduced_large()
+    cpu = GitModel(cfg, device="cpu").init_params(torch.Generator().manual_seed(seed))
+    card_model = build_model("cuda", torch.float32, cpu)
+    x, tokens, need = caption_batch(4, seed + 1)
+    losses, grads = [], []
+    for model in (cpu, card_model):
+        dev = model.textual.output.bias.device
+        model.trainable_(True)
+        xt, tt, nt = x.to(dev), tokens.to(dev), need.to(dev)
+        loss = caption_loss(model.forward_logits(xt, tt), tt, nt)
+        loss.backward()
+        losses.append(loss.item())
+        grads.append({n: p.grad.double().cpu() for n, p in model.named_parameters()})
+    rel = abs(losses[1] - losses[0]) / abs(losses[0])
+    check(rel <= 1e-5, "f32 train loss card {} CPU {}: {:.3g} rel".format(losses[1], losses[0],
+                                                                          rel))
+    top = max(g.norm().item() for g in grads[0].values())
+    worst, worst_name = 0.0, None
+    for n, g in grads[0].items():
+        d = grads[1][n]
+        if n.endswith(".attention.self.key.bias"):
+            check(g.norm() <= 1e-6 * top and d.norm() <= 1e-6 * top,
+                  "{}: the key bias gradient is not ~0".format(n))
+            continue
+        err = ((d - g).norm() / g.norm()).item()
+        if err > worst:
+            worst, worst_name = err, n
+    check(worst <= 1e-4, "f32 gradient {} card vs CPU: {:.3g} relative L2".format(worst_name,
+                                                                                  worst))
+    log("train f32 card vs CPU (GIT_LARGE_COCO widths, 2 encoder blocks, 1 decoder layer, B=4): "
+        "loss {:.6f} vs {:.6f} ({:.3g} rel), worst gradient relative L2 {:.3g} ({}), {} "
+        "parameters [{}]".format(losses[1], losses[0], rel, worst, worst_name, len(grads[0]), card))
+    del cpu, card_model
+    torch.cuda.empty_cache()
+
+
+def train_scst(card, seed):
+    """21d. One ScstTrainer.step on GIT_LARGE_COCO at full width and depth,
+    f32 (run_scst's default), B=8, 5 samples, 40 decode steps, each
+    image's references holding its first sample's caption: finite
+    rewards and loss, a positive sample reward."""
+    import math
+
+    import torch
+
+    from gitax_torch.models.config import config_from_param, get_model_param
+    from gitax_torch.models.git import GitModel
+    from gitax_torch.tokenization import BertTokenizer, build_tiny_vocab
+    from gitax_torch.training import init_train_state
+    from gitax_torch.training.scst import ScstTrainer
+    from gitax_torch.training.trainer import ConstantSchedule, adamw
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    words = ["a", "dog", "cat", "on", "the", "mat", "red", "car"]
+    tok = BertTokenizer(build_tiny_vocab(words))
+    cfg = config_from_param(get_model_param("GIT_LARGE_COCO"))
+    model = GitModel(cfg, device="cuda").init_params(torch.Generator().manual_seed(seed))
+    state = init_train_state(model, *adamw(model, ConstantSchedule(2e-6)))
+    trainer = ScstTrainer(model, tok, num_samples=5, max_steps=40)
+    x = caption_batch(8, seed + 2)[0].cuda()
+    # a first rollout from the same generator seed gives each image's
+    # first sampled caption, which joins its references: the step's
+    # rewards and advantages are then not all 0 (random weights emit
+    # random words)
+    seqs = trainer.rollout(x, [["a dog"]] * 8, torch.Generator(device="cuda").manual_seed(seed))[0]
+    gts = [[trainer._decode(seqs[5 * i]), "a dog on the mat"] for i in range(8)]
+    t0 = time.perf_counter()
+    state, metrics = trainer.step(state, x, gts, torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(state.step == 1 and all(math.isfinite(v) for v in metrics.values()),
+          "SCST step: {}".format(metrics))
+    check(metrics["reward_sample"] > 0 and metrics["loss"] != 0,
+          "SCST step: the first samples scored nothing against their own captions: "
+          "{}".format(metrics))
+    log("train SCST GIT_LARGE_COCO f32 B=8 x 5 samples: loss {:.4f}, reward sample {:.4f} greedy "
+        "{:.4f}, {:.2f} s [{}]".format(metrics["loss"], metrics["reward_sample"],
+                                       metrics["reward_greedy"], seconds, card))
+    peak_memory("train SCST", card)
+    del model, state, trainer
+    torch.cuda.empty_cache()
+
+
+def train_finetune_resume(card, work, seed):
+    """21e. run_finetune on the card over a TRAIN_ROWS-row PNG TSV
+    (GIT_LARGE_COCO's widths, 2 encoder blocks, 1 decoder layer, bf16,
+    B=8, 224 px single-scale): 4 steps saving every 2, then a second run
+    resuming from the first's step 2 (copied alone into its own save_dir,
+    as after a crash there): its weights and AdamW moments equal the
+    continuous run's."""
+    import json as js
+
+    import numpy as np
+    import torch
+
+    from gitax_torch.ckpt import serialization
+    from gitax_torch.io.tsv import tsv_writer
+    from gitax_torch.models.git import GitModel
+    from gitax_torch.tokenization import BertTokenizer, build_tiny_vocab
+    from gitax_torch.training import run_finetune
+
+    words = ["a", "dog", "cat", "on", "the", "mat", "red", "car", "sits", "road"]
+    tok = BertTokenizer(build_tiny_vocab(words))
+    rng = np.random.RandomState(seed)
+    img_tsv, cap_tsv = os.path.join(work, "ft.img.tsv"), os.path.join(work, "ft.cap.tsv")
+    keys = write_image_tsv(img_tsv, [rng.randint(0, 256, (256, 288, 3)).astype(np.uint8)
+                                     for _ in range(TRAIN_ROWS)])
+    tsv_writer(([k, js.dumps([{"caption": " ".join(rng.choice(words, 6))} for _ in range(2)])]
+                for k in keys), cap_tsv)
+    cfg = reduced_large()
+    runs = {}
+    for label in ("continuous", "resumed"):
+        save_dir = os.path.join(work, "ft_" + label)
+        if label == "resumed":
+            shutil.copytree(os.path.join(work, "ft_continuous", "step_00000002"),
+                            os.path.join(save_dir, "step_00000002"))
+        model = GitModel(cfg, device="cuda").init_params(torch.Generator().manual_seed(
+            seed if label == "continuous" else seed + 1))
+        t0 = time.perf_counter()
+        state = run_finetune(img_tsv, cap_tsv, model, num_steps=4, batch_size=8,
+                             learning_rate=1e-4, warmup_steps=1, multi_scale=False,
+                             save_dir=save_dir, save_every=2, tokenizer=tok, log_every=1,
+                             seed=seed)
+        torch.cuda.synchronize()
+        check(state.step == 4 and serialization.latest_step(save_dir) == 4,
+              "fine-tune {} ended at step {}".format(label, state.step))
+        runs[label] = (state, time.perf_counter() - t0)
+    (a, ta), (b, tb) = runs["continuous"], runs["resumed"]
+    for (n, x), y in zip(a.model.state_dict().items(), b.model.state_dict().values()):
+        check(torch.equal(x, y), "fine-tune: the resumed {} differs from the continuous "
+              "run's".format(n))
+    sa, sb = a.optimizer.state_dict()["state"], b.optimizer.state_dict()["state"]
+    check(all(torch.equal(sa[k][m], sb[k][m]) for k in sa for m in ("exp_avg", "exp_avg_sq")),
+          "fine-tune: the resumed AdamW moments differ from the continuous run's")
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(
+        os.path.join(work, "ft_continuous", "step_00000002")) for f in fs)
+    log("train fine-tune (GIT_LARGE_COCO widths, 2 + 1 layers, bf16, B=8, {} PNG rows): 4 steps "
+        "in {:.2f} s saving steps 2 and 4 ({:.1f} MiB a step); resumed from step 2: steps 3-4 in "
+        "{:.2f} s, weights and moments equal the continuous run's [{}]".format(
+            TRAIN_ROWS, ta, size / 2**20, tb, card))
+    del a, b, runs
+    torch.cuda.empty_cache()
+
+
+def train_refusals(card):
+    """21f. Each kernel wrapper raises on CUDA inputs that autograd
+    tracks, before it launches; so does the encoder's fused-attention
+    path of a trainable model."""
+    import torch
+
+    from gitax_torch.ops import decode_attention as da
+    from gitax_torch.ops import flash_attention as fa
+    from gitax_torch.ops import vocab_topk as vt
+    from gitax_torch.models.git import GitModel
+
+    bf = dict(device="cuda", dtype=torch.bfloat16)
+    q = torch.randn(2, 16, 64, 64, requires_grad=True, **bf)
+    h = torch.randn(8, 768, requires_grad=True, **bf)
+    qd = torch.zeros(8, H * DH, requires_grad=True, **bf)
+    calls = {
+        "flash_attention_cuda": lambda: fa.flash_attention_cuda(q, q, q, torch.empty_like(q)),
+        "flash_qkv_attention": lambda: fa.flash_qkv_attention(
+            torch.randn(2, 64, 3 * 1024, requires_grad=True, **bf), 16),
+        "decode_attention_cuda": lambda: da.decode_attention_cuda(
+            qd, torch.zeros(8, 2 * H * DH, **bf), torch.zeros(T, 8, 2 * H * DH, **bf),
+            torch.zeros(8, T, dtype=torch.int32, device="cuda"), 0,
+            torch.zeros(2, H, M, 2 * DH, **bf), beams=4, num_heads=H, head_dim=DH),
+        "vocab_logits_topk_cuda": lambda: vt.vocab_logits_topk_cuda(
+            h, torch.zeros(768, 1024, dtype=torch.int8, device="cuda"),
+            torch.ones(1024, device="cuda"), torch.zeros(1024, device="cuda")),
+    }
+    cfg = reduced_large(layers=1, num_layers=1)
+    model = GitModel(cfg, device="cuda").init_params(torch.Generator().manual_seed(0))
+    model.trainable_(True)
+    calls["encode_images(flash=True)"] = lambda: model.encode_images(
+        torch.randn(2, 224, 224, 3, **bf), dtype=torch.bfloat16, flash=True)
+    before = kernel_launches()
+    for name, fn in calls.items():
+        try:
+            fn()
+        except RuntimeError as e:
+            check("no backward" in str(e), "{}: {}".format(name, e))
+        else:
+            check(False, "{} took inputs that require grad".format(name))
+    check(kernel_launches() == before, "a refused call launched a kernel")
+    log("train: the kernel wrappers raise under autograd on the card ({}), no launch "
+        "[{}]".format(", ".join(calls), card))
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_train(card, work, seed):
+    """21. Training on the card: speed and remat, the step's split and
+    profile, f32 card vs CPU, SCST, a fine-tune with resume, the
+    wrappers' refusals.  Launches none of the three kernels."""
+    before = kernel_launches()
+    t0 = time.perf_counter()
+    train_speed(card)
+    train_step_profile(card, seed)
+    train_f32_parity(card, seed)
+    train_scst(card, seed)
+    train_finetune_resume(card, work, seed)
+    train_refusals(card)
+    check(kernel_launches() == before, "training launched kernels: {} -> {}".format(
+        before, kernel_launches()))
+    log("phase 21 (training) {:.1f} s; launched none of the three kernels (decode_attention, "
+        "flash_attention, vocab_topk: +0 each)".format(time.perf_counter() - t0))
+
+
 def main(argv):
     import torch
 
@@ -2909,6 +3293,11 @@ def main(argv):
     t0 = time.perf_counter()
     context_d = phase_context(card, seed)
     log("phase 20 (text context) {:.1f} s".format(time.perf_counter() - t0))
+
+    # 21: training; its fine-tune writes in the work dir, removed after
+    os.makedirs(work)
+    phase_train(card, work, seed)
+    shutil.rmtree(work)
 
     launches = {"decode_attention": coco_launches + vqa_d + video_d + tsv_d + vqa_tsv_d
                 + serve_d + sample_d + context_d,

@@ -2,7 +2,9 @@
 
 It imports torch and never jax.  Subpackages mirror gitax's: `models/`,
 `ops/` (with the CUDA kernels' sources in `csrc/`), `decode/` (beam,
-greedy, trie), `runtime/` (the batch engine and its TSV loops), `io/`
-and `preprocess/`; `ckpt.py` carries gitax weights and reference
-checkpoints across, and `inference.py` is the `-p` CLI.
+greedy, trie), `runtime/` (the batch engine and its TSV loops), `io/`,
+`preprocess/`, `training/` (the loss, the AdamW step, the fine-tune and
+SCST loops) and `evalcap/`; `ckpt/` carries gitax weights and reference
+checkpoints across and saves training state, `inference.py` and
+`train.py` are the `-p` CLIs.
 """

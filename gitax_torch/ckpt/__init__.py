@@ -26,8 +26,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .models.config import GitConfig, ViTConfig
-from .models.git import GitModel
+from ..models.config import GitConfig, ViTConfig
+from ..models.git import GitModel
 
 
 def _t(a):
@@ -128,7 +128,7 @@ def load_torch_checkpoint(path):
     """Load a model.pt on the CPU; returns the state dict (the inner one
     of a reference {'model': state_dict}) with 'module.' prefixes
     stripped (reference torch_common.py:41-56)."""
-    from .io import fileio
+    from ..io import fileio
 
     with fileio.open_file(path, "rb") as fp:
         src = fp if getattr(fp, "seekable", lambda: False)() else io.BytesIO(fp.read())

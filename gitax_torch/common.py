@@ -6,17 +6,19 @@ PyYAML at module level, and the port must import where PyYAML is absent).
 Copied: the `$`-path dict helpers that `parse_general_args` needs, the
 `-c/-p/-bp` YAML CLI convention and `dispatch_main`, `init_logging`,
 `json_dump` (its separators and key order fix the bytes of every output
-TSV), `write_to_file`, `ensure_directory`, `load_list_file` and the
-env-var rank discovery.  Changed: PyYAML is imported inside the two YAML
-readers (only a `parameter.yaml` or a `-p` string needs it), and an
-initialised `torch.distributed` process group wins over the env vars
-where gitax asks `jax.distributed`.
+TSV), `hash_sha1`, `write_to_file`, `read_to_buffer`,
+`ensure_directory`, `load_list_file` and the env-var rank discovery.
+Changed: PyYAML is imported inside the two YAML readers (only a
+`parameter.yaml` or a `-p` string needs it), and an initialised
+`torch.distributed` process group wins over the env vars where gitax
+asks `jax.distributed`.
 """
 
 from __future__ import annotations
 
 import argparse
 import base64
+import hashlib
 import json
 import logging
 import os
@@ -224,6 +226,12 @@ def json_dump(obj):
     return json.dumps(obj, sort_keys=True, separators=(",", ":"))
 
 
+def hash_sha1(s):
+    if not isinstance(s, str):
+        s = repr(s)
+    return hashlib.sha1(s.encode("utf-8")).hexdigest()
+
+
 def ensure_directory(path):
     if path and not op.isdir(path):
         os.makedirs(path, exist_ok=True)
@@ -235,6 +243,11 @@ def write_to_file(content, file_name, append=False):
         content = content.encode()
     with open(file_name, "ab" if append else "wb") as fp:
         fp.write(content)
+
+
+def read_to_buffer(file_name):
+    with open(file_name, "rb") as fp:
+        return fp.read()
 
 
 def load_list_file(fname):

@@ -11,9 +11,9 @@ The functions run on the CUDA card and raise without one unless the
 caller passes device='cpu' (Python callers; the tests do).  The model
 comes from `output/{model}/snapshot/model.pt` when it exists (the port's
 parameters carry the reference's names), else from a random init with a
-warning.  Not ported, and raising: `mesh_shape` (SPMD over several
-chips), `use_native=True` (gitax's libjpeg loader) and
-`evaluate_on_coco_caption` (it needs gitax's `evalcap/`).
+warning.  `evaluate_on_coco_caption` scores a result TSV with the port's
+copy of gitax's `evalcap/`.  Not ported, and raising: `mesh_shape` (SPMD
+over several chips) and `use_native=True` (gitax's libjpeg loader).
 """
 
 from __future__ import annotations
@@ -234,9 +234,12 @@ def iter_caption_to_json(iter_caption, json_file):
 
 
 def evaluate_on_coco_caption(res_file, label_file, outfile=None):
-    """COCO caption metrics (reference inference.py:277-313): not ported."""
-    raise NotImplementedError("evaluate_on_coco_caption needs gitax's evalcap/ scorers, which "
-                              "are not ported")
+    """COCO caption metrics (reference inference.py:277-313): pycocoevalcap
+    where installed, else the native BLEU, METEOR, ROUGE-L and CIDEr-D
+    (`evalcap.evaluate`)."""
+    from .evalcap import evaluate_on_coco_caption as evaluate
+
+    return evaluate(res_file, label_file, outfile)
 
 
 if __name__ == "__main__":

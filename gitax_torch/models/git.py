@@ -13,6 +13,8 @@ prefix: beam search, sampled or not, with the repetition penalty and
 `num_return_sequences`, the encoder and the prefill taking the
 fused-attention kernel by gitax's auto rule and the int8 head optionally
 taking the fused vocab-head kernel; greedy; and trie-constrained greedy.
+Training: `trainable_` and `forward_logits`, the teacher-forced logits
+under autograd on the plain attention (gitax git.py:145-183).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from ..decode.trie import trie_greedy_search
 from ..ops.vocab_topk import TILE
 from . import textual as T
 from .config import GitConfig
-from .nn import empty_param
+from .nn import Linear, empty_param
 from .vit import VisualTransformer, vit_forward
 
 
@@ -46,10 +48,10 @@ def resolve_device(device=None) -> torch.device:
 
 
 class GitModel(nn.Module):
-    """Inference-only GIT: parameters are created with
-    requires_grad=False on `device` (default: the CUDA card, see
-    `resolve_device`) in `dtype` (random values until `init_params` or
-    `ckpt.params_from_gitax` fills them).  A video config
+    """GIT: parameters are created frozen (requires_grad=False, the
+    inference default; `trainable_` thaws them) on `device` (default: the
+    CUDA card, see `resolve_device`) in `dtype` (random values until
+    `init_params` or `ckpt.params_from_gitax` fills them).  A video config
     (num_image_with_embedding = F > 0) adds `img_temperal_embedding`, F
     parameters [1, 1, Dv]: the reference's key and spelling, as gitax
     exports its [F, Dv] `img_temporal_embedding`."""
@@ -82,17 +84,37 @@ class GitModel(nn.Module):
                     p.zero_()  # gitax initialises them to zeros
         return self
 
+    def trainable_(self, flag: bool = True):
+        """Make every floating parameter trainable (flag=True) or frozen.
+        Raises on a model with an int8 `Linear` or head
+        (`Linear.quantized`): weight-only int8 is an inference format, as
+        in gitax.  The tied head is one Parameter shared by
+        `textual.embedding.words` and `textual.output`, so the gradients of
+        the embedding and of the head sum into it, as into gitax's one
+        `embedding.words` leaf."""
+        if flag:
+            int8 = [name for name, m in self.named_modules()
+                    if isinstance(m, Linear) and m.quantized]
+            if int8:
+                raise ValueError("int8 Linears cannot train (weight-only int8 is an inference "
+                                 "format): {}".format(", ".join(int8)))
+        for p in self.parameters():
+            if p.is_floating_point():
+                p.requires_grad_(flag)
+        return self
+
     # -- encoder ---------------------------------------------------------
-    def encode_images(self, images, dtype=torch.float32, fast=None, flash=None):
+    def encode_images(self, images, dtype=torch.float32, fast=None, flash=None, remat=False):
         """images [B, H, W, 3] (one image per element) or [B, F, H, W, 3]
         (video frames) -> tokens.  Frames are encoded as one batch of B*F
         images, each offset by its temporal embedding, then concatenated on
         the token axis ([B, F*S, Dv]) or, with pooling_images='avg',
         averaged ([B, S, Dv]) (gitax git.py:56-90).  Frames beyond
         num_image_with_embedding are dropped, as the reference's zip does.
-        flash: the fused-attention switch of `vit_forward` (None: auto)."""
+        flash and remat: `vit_forward`'s (flash None: auto)."""
         if images.dim() == 4:
-            return vit_forward(self.image_encoder, images, dtype, fast=fast, flash=flash)
+            return vit_forward(self.image_encoder, images, dtype, fast=fast, flash=flash,
+                               remat=remat)
         if images.dim() != 5:
             raise ValueError("images must be [B, H, W, 3] or [B, F, H, W, 3], got {}".format(
                 tuple(images.shape)))
@@ -102,7 +124,7 @@ class GitModel(nn.Module):
             f = min(f, n_emb)
             images = images[:, :f]
         feats = vit_forward(self.image_encoder, images.reshape((b * f,) + images.shape[2:]),
-                            dtype, fast=fast, flash=flash)
+                            dtype, fast=fast, flash=flash, remat=remat)
         feats = feats.reshape(b, f, feats.shape[1], feats.shape[2])
         if n_emb:
             emb = torch.cat([self.img_temperal_embedding[i].reshape(1, -1) for i in range(f)])
@@ -138,13 +160,37 @@ class GitModel(nn.Module):
         return torch.cat(parts, 1), torch.cat(valids, 1)
 
     def build_memory(self, images, context_tokens=None, context_lengths=None,
-                     dtype=torch.float32, fast=None, flash=None):
+                     dtype=torch.float32, fast=None, flash=None, remat=False):
         """Encode images and, given text context, append it (gitax
         git.py:129-142).  Returns (memory, memory_valid or None)."""
-        visual = self.encode_images(images, dtype, fast=fast, flash=flash)
+        visual = self.encode_images(images, dtype, fast=fast, flash=flash, remat=remat)
         if context_tokens is None:
             return visual, None
         return self.append_text_context(visual, context_tokens, context_lengths, dtype)
+
+    # -- training forward --------------------------------------------------
+    def forward_logits(self, images, caption_tokens, memory_valid=None, bi_valid_mask=None,
+                       context_tokens=None, context_lengths=None, dtype=torch.float32,
+                       fast=None, remat=False):
+        """Teacher-forced caption logits [B, T, vocab] (reference
+        decoder.py:926-932, gitax git.py:145-183), with grad enabled: the
+        training path.  images [B, H, W, 3] or clips [B, F, H, W, 3];
+        optional text context appended to the memory, or memory_valid
+        [B, M], not both; bi_valid_mask [B, T] opens full attention to the
+        marked caption positions.  The attention is the plain one on both
+        towers (flash=False: the kernels have no backward), as gitax's is
+        XLA's.  fast=True keeps the score math in the activation dtype in
+        both towers (None leaves the encoder to its config); remat: the
+        encoder's per-block checkpoint (`vit_forward`)."""
+        visual, ctx_valid = self.build_memory(images, context_tokens, context_lengths, dtype,
+                                              fast=fast, flash=False, remat=remat)
+        if ctx_valid is not None:
+            if memory_valid is not None:
+                raise ValueError("pass text context or memory_valid, not both")
+            memory_valid = ctx_valid
+        return T.textual_forward(self.textual, visual, caption_tokens, self.cfg,
+                                 memory_valid=memory_valid, bi_valid_mask=bi_valid_mask,
+                                 dtype=dtype, fast=bool(fast))
 
     # -- decode glue -------------------------------------------------------
     def prefill(self, visual_features, prefix_tokens, max_text_len,

@@ -12,7 +12,12 @@ and the decoder's softmax accumulate in float32 (`acc_dtype`), so the
 bf16 activation mode keeps the parity-critical numerics; float64
 activations accumulate in float64, a reference for f32's rounding.
 
-Inference only: every parameter is created with `requires_grad=False`.
+Parameters are created with `requires_grad=False`, the inference
+default; `GitModel.trainable_(True)` makes every floating parameter
+trainable (the training path, `GitModel.forward_logits`), and refuses a
+model whose `Linear`s or head are int8: weight-only int8 is an inference
+format, as in gitax.  The casts to the activation dtype below carry
+gradients back to the f32 masters.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from ..ops.flash_attention import flash_qkv_attention
 
 
 def empty_param(shape, device=None, dtype=None):
-    """An uninitialized inference-only Parameter."""
+    """An uninitialized Parameter, frozen (`GitModel.trainable_` thaws it)."""
     return nn.Parameter(
         torch.empty(shape, device=device, dtype=dtype), requires_grad=False
     )

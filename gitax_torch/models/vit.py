@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import auto_flash
 from .config import ViTConfig
@@ -124,11 +125,21 @@ def _pos_embed_for(vit: VisualTransformer, gh, gw, dtype):
     return torch.cat([pos[:1], resized[0].permute(1, 2, 0).reshape(gh * gw, cfg.width)], 0)
 
 
-def vit_forward(vit: VisualTransformer, images, dtype=torch.float32, fast=None, flash=None):
+def vit_forward(vit: VisualTransformer, images, dtype=torch.float32, fast=None, flash=None,
+                remat=False):
     """images [B, H, W, 3] (NHWC, normalized; H and W whole patches) ->
     tokens [B, 1 + gh*gw, width].  flash=None applies gitax's auto rule
     (`ops.flash_attention.auto_flash`: S >= 640, not f32, on a CUDA
-    device); True or False forces the fused-attention kernel on or off."""
+    device); True or False forces the fused-attention kernel on or off
+    (the kernel has no backward: training passes False).
+
+    remat=True runs each residual block under
+    `torch.utils.checkpoint.checkpoint` (use_reentrant=False), so the
+    backward recomputes one block at a time and keeps only the blocks'
+    inputs: gitax's per-block `jax.checkpoint` inside its scan
+    (vit.py:153-161), not a checkpoint of the whole forward, which
+    holds every recomputed block's intermediates at once (gitax
+    trainer.py:88-92)."""
     cfg = vit.cfg
     if fast is None:
         fast = cfg.fast_softmax
@@ -151,5 +162,8 @@ def vit_forward(vit: VisualTransformer, images, dtype=torch.float32, fast=None, 
     x = x + _pos_embed_for(vit, gh, gw, dtype)
     x = vit.ln_pre(x)
     for blk in vit.transformer.resblocks:
-        x = _block(x, blk, cfg.heads, fast, flash)
+        if remat:
+            x = checkpoint(_block, x, blk, cfg.heads, fast, flash, use_reentrant=False)
+        else:
+            x = _block(x, blk, cfg.heads, fast, flash)
     return vit.ln_post(x)

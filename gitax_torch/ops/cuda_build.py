@@ -20,6 +20,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gitax_torch"
 NVCC_FLAGS = (
@@ -33,6 +35,19 @@ DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 _LOADED = {}
 # name -> seconds its compile took in this process
 _BUILT = {}
+
+
+def refuse_autograd(module: str, *tensors) -> None:
+    """Raise when autograd would record a kernel call: grad mode on and an
+    input that requires grad.  The kernels have no backward, as gitax's
+    Pallas kernels have no VJP, and an output written through raw
+    pointers carries no grad_fn: training through one would get a zero
+    gradient and no error.  There is no fallback to the plain version."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "{}: the CUDA kernel has no backward; call it under torch.no_grad() or "
+            "torch.inference_mode(), or take the plain path (training's forward_logits "
+            "passes flash=False, as gitax's does)".format(module))
 
 
 def find_nvcc() -> str:

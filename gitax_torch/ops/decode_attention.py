@@ -149,7 +149,10 @@ def decode_attention_cuda(q, kv_new, txt_kv, anc, pos, mem_kv, mem_bias=None,
                           mem_scale=None, *, beams, num_heads, head_dim):
     """Launch the CUDA kernel on PyTorch's current stream.  Validates
     device, dtypes, shapes, contiguity and alignment and raises on
-    anything the kernel does not take."""
+    anything the kernel does not take, and on inputs that autograd would
+    track (`cuda_build.refuse_autograd`)."""
+    cuda_build.refuse_autograd("decode_attention", q, kv_new, txt_kv, mem_kv, mem_bias,
+                               mem_scale)
     t_max, bk, width = txt_kv.shape
     k, h, dh = beams, num_heads, head_dim
     _check(bk % k == 0, "B*K={} rows do not split into beams={}".format(bk, k))

@@ -145,8 +145,10 @@ def flash_attention_cuda(q, k, v, out, num_memory=0, masked=False):
     """Launch the CUDA kernel on PyTorch's current stream: q, k, v -> out,
     all [B, H, T, Dh] views whose last dim is contiguous (any batch, head
     and token strides).  Validates device, dtype, shape, strides and
-    alignment and raises on anything the kernel does not take."""
+    alignment and raises on anything the kernel does not take, and on
+    inputs that autograd would track (`cuda_build.refuse_autograd`)."""
     global launches
+    cuda_build.refuse_autograd("flash_attention", q, k, v)
     tensors = dict(q=q, k=k, v=v, out=out)
     for name, t in tensors.items():
         _check(t.is_cuda and t.device == q.device,

@@ -186,8 +186,10 @@ def vocab_logits_topk_cuda(hidden, wq8t, scale, bias, tile=TILE):
     port's int8 Linear stores (`models/nn.py::Linear.set_int8`), with W a
     multiple of 16 and its data 16-byte aligned (the kernel's loads and its
     tensor map).  Validates device, dtypes, shapes and layout and raises on
-    anything the kernel does not take; allocates the three outputs."""
+    anything the kernel does not take, and on inputs that autograd would
+    track (`cuda_build.refuse_autograd`); allocates the three outputs."""
     global launches
+    cuda_build.refuse_autograd("vocab_topk", hidden, scale, bias)
     dev = hidden.device
     for name, t in (("hidden", hidden), ("wq8t", wq8t), ("scale", scale), ("bias", bias)):
         _check(t.is_cuda and t.device == dev,

@@ -254,8 +254,6 @@ def test_cli_refuses_what_is_not_ported(workdir):
                                              use_native=True, device="cpu")
     with pytest.raises(NotImplementedError, match="mesh_shape"):
         pt_inf.test_git_inference_single_image("x.png", "TINY_CAP", mesh_shape=[1, 2])
-    with pytest.raises(NotImplementedError, match="evalcap"):
-        pt_inf.evaluate_on_coco_caption("pred.tsv", "gt.tsv")
 
 
 def test_cli_imports_without_pil_or_yaml():
