@@ -139,7 +139,22 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      PNG TSV for 4 steps saving every 2, and a run resumed from step 2
      that ends equal to it; every kernel wrapper raising under autograd.
      No kernel launches.
-Phases 14-19 and 21 write in build/gitax_torch/smoke_work, removed after.
+ 22. training on a mesh: the ranks are spawned processes that import
+     gitax_torch only, NCCL one card a rank where the machine has a card
+     for each, else sharing card 0 over gloo (a rehearsal, which its lines
+     say); (a) GIT_LARGE_COCO's widths at 2 encoder blocks and 1 decoder
+     layer, f32 (TF32 off), global B=8, ZeRO-1, 3 steps on meshes [2, 1],
+     [1, 2] and [2, 2] against the one-card run in this process: the loss
+     within 1e-5 relative, the weights within 1e-6 relative L2; (b)
+     GIT_LARGE_COCO at full width and depth, bf16 with fast_softmax,
+     global B=32, 1 warm-up and 3 timed steps on [2, 1] with ZeRO-1 on
+     and off and on [1, 2]: ms a step and each rank's peak memory (ZeRO-1
+     must lower it), and with a card a rank the images/s of DP = cards at
+     32 rows a rank beside phase 21's; (c) run_finetune on a [2, 1] mesh,
+     4 steps saving 2 and 4, and a run resumed from step 2 whose weights,
+     moments and step count equal the continuous run's.  No rank launches
+     a kernel.
+Phases 14-19, 21 and 22 write in build/gitax_torch/smoke_work, removed after.
 Each slice prints its peak device memory.
 Prints the card's name and power limit, one JSON line describing the
 kernels (launches on the main path; error, time, plain time, bound and
@@ -3201,7 +3216,7 @@ def phase_train(card, work, seed):
     wrappers' refusals.  Launches none of the three kernels."""
     before = kernel_launches()
     t0 = time.perf_counter()
-    train_speed(card)
+    rate = train_speed(card)["images_per_s"]
     train_step_profile(card, seed)
     train_f32_parity(card, seed)
     train_scst(card, seed)
@@ -3211,6 +3226,345 @@ def phase_train(card, work, seed):
         before, kernel_launches()))
     log("phase 21 (training) {:.1f} s; launched none of the three kernels (decode_attention, "
         "flash_attention, vocab_topk: +0 each)".format(time.perf_counter() - t0))
+    return rate
+
+
+# -- training on a mesh (phase 22) -------------------------------------------
+
+MESH_STEPS = 3  # (a)'s steps; (b) times this many after one warm-up
+MESH_TIMEOUT_S = 600  # a group of ranks that runs longer is killed and fails the phase
+MESH_WORDS = ["a", "dog", "cat", "on", "the", "mat", "red", "car", "sits", "road"]
+
+
+def mesh_layout(world, cards):
+    """(share_card, label): NCCL, one card a rank, where the machine has
+    a card for every rank; else every rank on card 0 over gloo (a
+    rehearsal of the mesh, which measures nothing about scaling)."""
+    if cards >= world:
+        return False, "NCCL, one card a rank"
+    return True, "{} ranks sharing card 0 over gloo (a rehearsal: no scaling figure)".format(world)
+
+
+def mesh_batch(n, seed):
+    """`caption_batch` as a dict of CPU tensors (every rank builds the
+    same global batch from the seed and keeps its rows)."""
+    x, tokens, need = caption_batch(n, seed)
+    return {"image": x, "caption_tokens": tokens, "need_predict": need}
+
+
+def mesh_parity_model(device, seed):
+    """(a)'s model and optimizer: GIT_LARGE_COCO's widths at 2 encoder
+    blocks and 1 decoder layer, f32 from the seeded CPU generator, AdamW
+    at a constant 1e-5 (weight decay 1e-4)."""
+    import torch
+
+    from gitax_torch.models.git import GitModel
+
+    return GitModel(reduced_large(), device=device).init_params(
+        torch.Generator().manual_seed(seed))
+
+
+def mesh_f32_steps(model, batch, zero1=True):
+    """MESH_STEPS f32 steps on `batch` (this rank's rows); the losses."""
+    from gitax_torch.training import init_train_state, make_train_step
+    from gitax_torch.training.trainer import ConstantSchedule, adamw, to_device
+
+    state = init_train_state(model, *adamw(model, ConstantSchedule(1e-5), weight_decay=1e-4,
+                                           zero1=zero1))
+    step = make_train_step(model)
+    dev = model.textual.output.bias.device
+    b = to_device(batch, dev)
+    return [step(state, b)[1]["loss"].item() for _ in range(MESH_STEPS)]
+
+
+def mesh_reference(work, seed):
+    """22a's one-card run in this process: its losses; its weights saved
+    to work/mesh_ref.pt for the ranks to compare with."""
+    import torch
+
+    model = mesh_parity_model("cuda", seed)
+    losses = mesh_f32_steps(model, mesh_batch(8, seed + 3), zero1=False)
+    torch.save({n: t.detach().cpu() for n, t in model.state_dict().items()},
+               os.path.join(work, "mesh_ref.pt"))
+    del model
+    torch.cuda.empty_cache()
+    return losses
+
+
+def rank_parity(shape, dev, backend, work, seed):
+    """22a on one rank: the same model sharded on a `shape` mesh, ZeRO-1,
+    the rows of the same batch; on rank 0 the relative L2 distance of the
+    gathered weights from the one-card run's."""
+    import torch
+
+    from gitax_torch.parallel.mesh import gather_params, make_mesh, shard_params
+
+    mesh = make_mesh(*shape, device=dev, backend=backend)
+    model = shard_params(mesh_parity_model(dev, seed), mesh)
+    t0 = time.perf_counter()
+    losses = mesh_f32_steps(model, mesh.local_batch(mesh_batch(8, seed + 3)))
+    seconds = time.perf_counter() - t0
+    full = gather_params(model)
+    out = {"losses": losses, "seconds": seconds}
+    if mesh.rank == 0:
+        ref = torch.load(os.path.join(work, "mesh_ref.pt"), weights_only=True)
+        names = [n for n in ref if n != "textual.output.weight"]  # the tied head: words
+        diff = sum((full[n].double().cpu() - ref[n].double()).square().sum() for n in names)
+        norm = sum(ref[n].double().square().sum() for n in names)
+        out["rel_l2"] = float((diff / norm).sqrt())
+    del model, full
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_speed(shape, zero1, global_batch, dev, backend, seed):
+    """22b on one rank: GIT_LARGE_COCO at full width and depth on a
+    `shape` mesh, bf16 with fast_softmax, AdamW(1e-5) in f32, ZeRO-1 on or
+    off, `global_batch` rows split over the data ranks: one warm-up step,
+    then MESH_STEPS timed (host clock, each end behind a synchronize and a
+    barrier); ms a step, the losses and this rank's peak memory from the
+    model's creation on."""
+    import math
+
+    import torch
+
+    from gitax_torch.models.config import config_from_param, get_model_param
+    from gitax_torch.models.git import GitModel
+    from gitax_torch.parallel import comm
+    from gitax_torch.parallel.mesh import make_mesh, shard_params
+    from gitax_torch.training import init_train_state, make_train_step
+    from gitax_torch.training.trainer import ConstantSchedule, adamw, to_device
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mesh = make_mesh(*shape, device=dev, backend=backend)
+    cfg = config_from_param(get_model_param("GIT_LARGE_COCO"))
+    model = GitModel(cfg, device=dev).init_params(torch.Generator().manual_seed(seed))
+    shard_params(model, mesh)
+    state = init_train_state(model, *adamw(model, ConstantSchedule(1e-5), weight_decay=1e-4,
+                                           zero1=zero1))
+    step = make_train_step(model, dtype=torch.bfloat16, fast_softmax=True)
+    batch = to_device(mesh.local_batch(mesh_batch(global_batch, seed)), dev)
+    batch["image"] = batch["image"].to(torch.bfloat16)
+    losses = [step(state, batch)[1]["loss"]]
+    torch.cuda.synchronize(dev)
+    comm.barrier(dev)
+    t0 = time.perf_counter()
+    for _ in range(MESH_STEPS):
+        losses.append(step(state, batch)[1]["loss"])
+    torch.cuda.synchronize(dev)
+    comm.barrier(dev)
+    ms = (time.perf_counter() - t0) / MESH_STEPS * 1e3
+    losses = [x.item() for x in losses]
+    check(all(math.isfinite(x) for x in losses), "mesh {} losses {}".format(shape, losses))
+    out = {"ms": ms, "losses": losses, "peak": torch.cuda.max_memory_allocated(dev),
+           "batch": global_batch, "images_per_s": global_batch / ms * 1e3}
+    del model, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_finetune(dev, backend, work, seed):
+    """22c on one rank: run_finetune on a [2, 1] mesh over work's PNG TSV
+    (GIT_LARGE_COCO's widths, 2 + 1 layers, bf16, B=8, ZeRO-1), 4 steps
+    saving every 2, then a run resumed from its step 2 (copied alone into
+    a save_dir of its own, from other starting weights); on rank 0 whether
+    the resumed run's step-4 checkpoint (weights and moments) equals the
+    continuous run's."""
+    import torch
+    import torch.distributed as dist
+
+    from gitax_torch.models.git import GitModel
+    from gitax_torch.parallel import comm
+    from gitax_torch.parallel.mesh import make_mesh
+    from gitax_torch.tokenization import BertTokenizer, build_tiny_vocab
+    from gitax_torch.training import run_finetune
+
+    tok = BertTokenizer(build_tiny_vocab(MESH_WORDS))
+    seconds = {}
+    for label in ("continuous", "resumed"):
+        save_dir = os.path.join(work, "mesh_ft_" + label)
+        if label == "resumed" and dist.get_rank() == 0:
+            shutil.copytree(os.path.join(work, "mesh_ft_continuous", "step_00000002"),
+                            os.path.join(save_dir, "step_00000002"))
+        comm.barrier(dev)
+        mesh = make_mesh(data=2, model=1, device=dev, backend=backend)
+        model = GitModel(reduced_large(), device=dev).init_params(torch.Generator().manual_seed(
+            seed if label == "continuous" else seed + 1))
+        t0 = time.perf_counter()
+        state = run_finetune(os.path.join(work, "mesh.img.tsv"), os.path.join(work, "mesh.cap.tsv"),
+                             model, num_steps=4, batch_size=8, learning_rate=1e-4, warmup_steps=1,
+                             multi_scale=False, save_dir=save_dir, save_every=2, tokenizer=tok,
+                             log_every=1, seed=seed, mesh=mesh)
+        seconds[label] = time.perf_counter() - t0
+        check(state.step == 4, "mesh fine-tune {} ended at step {}".format(label, state.step))
+        del model, state
+        torch.cuda.empty_cache()
+    out = {"seconds": seconds}
+    if dist.get_rank() == 0:
+        a, b = (torch.load(os.path.join(work, "mesh_ft_" + label, "step_00000004", "state.pt"),
+                           weights_only=True) for label in ("continuous", "resumed"))
+        out["weights_equal"] = all(torch.equal(x, b["model"][n]) for n, x in a["model"].items())
+        sa, sb = a["optimizer"]["state"], b["optimizer"]["state"]
+        out["moments_equal"] = all(torch.equal(sa[k][m], sb[k][m]) for k in sa
+                                   for m in ("exp_avg", "exp_avg_sq"))
+        out["steps"] = sorted({float(st["step"]) for st in sb.values()})
+        out["files"] = sorted(os.listdir(os.path.join(work, "mesh_ft_continuous")))
+    return out
+
+
+def mesh_rank(rank, world, init_method, work, seed, share):
+    """One rank of phase 22 (a spawned process: it imports gitax_torch and
+    nothing of JAX): joins the group, runs its world's parts and writes
+    its results to work/mesh{world}_rank{rank}.json."""
+    import torch
+    import torch.distributed as dist
+
+    from gitax_torch.runtime.distributed import init_training_group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, backend = init_training_group(rank, world, init_method, share_card=share,
+                                       timeout_s=MESH_TIMEOUT_S)
+    try:
+        out = {}
+        b = {}
+        if world == 2:
+            out["a"] = {"2x1": rank_parity((2, 1), dev, backend, work, seed),
+                        "1x2": rank_parity((1, 2), dev, backend, work, seed)}
+            # ZeRO-1 off first: run first in its process on two H100s, ZeRO-1
+            # read 326 ms a step at 16 rows a rank, and 179.5 ms at 32 rows a
+            # rank after the others; its cost is read after a warm process
+            b = {"2x1": rank_speed((2, 1), False, 32, dev, backend, seed),
+                 "2x1 zero1": rank_speed((2, 1), True, 32, dev, backend, seed),
+                 "1x2": rank_speed((1, 2), True, 32, dev, backend, seed)}
+            out["c"] = rank_finetune(dev, backend, work, seed)
+        else:
+            out["a"] = {"2x2": rank_parity((2, 2), dev, backend, work, seed)}
+        if not share:  # one card a rank: the scaling figure, 32 rows a rank as phase 21
+            b["{}x1 zero1, 32 a rank".format(world)] = rank_speed((world, 1), True, 32 * world,
+                                                                  dev, backend, seed)
+        out["b"] = b
+        out["launches"] = list(kernel_launches())
+        out["jax"] = "jax" in sys.modules
+        with open(os.path.join(work, "mesh{}_rank{}.json".format(world, rank)), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(world, work, seed, share):
+    """Start `world` ranks of `mesh_rank` (spawned interpreters, a file://
+    rendezvous in work), wait for them (killing them all after
+    MESH_TIMEOUT_S) and return each rank's results."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    init = "file://" + os.path.abspath(os.path.join(work, "rendezvous{}".format(world)))
+    procs = [ctx.Process(target=mesh_rank, args=(r, world, init, work, seed, share))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + MESH_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(1.0, deadline - time.perf_counter()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * world, "phase 22: the ranks of the {}-rank group exited {}".format(
+        world, codes))
+    out = []
+    for r in range(world):
+        with open(os.path.join(work, "mesh{}_rank{}.json".format(world, r))) as f:
+            out.append(json.load(f))
+    return out
+
+
+def phase_mesh(card, work, seed, train_rate):
+    """22. Training on a mesh: f32 parity of the [2, 1], [1, 2] and [2, 2]
+    meshes with the one-card run (a), GIT_LARGE_COCO at full width and
+    depth on [2, 1] with ZeRO-1 on and off and on [1, 2] with each rank's
+    peak memory (b), a fine-tune resumed on the mesh (c).  The ranks are
+    spawned processes; launches none of the three kernels."""
+    import numpy as np
+    import torch
+
+    from gitax_torch.io.tsv import tsv_writer
+
+    t_phase = time.perf_counter()
+    before = kernel_launches()
+    cards = torch.cuda.device_count()
+    rng = np.random.RandomState(seed)
+    keys = write_image_tsv(os.path.join(work, "mesh.img.tsv"),
+                           [rng.randint(0, 256, (256, 288, 3)).astype(np.uint8)
+                            for _ in range(32)])
+    tsv_writer(([k, json.dumps([{"caption": " ".join(rng.choice(MESH_WORDS, 6))}
+                                for _ in range(2)])] for k in keys),
+               os.path.join(work, "mesh.cap.tsv"))
+    ref = mesh_reference(work, seed)
+    groups = {}
+    for world in (2, 4):
+        share, label = mesh_layout(world, cards)
+        t0 = time.perf_counter()
+        groups[world] = run_ranks(world, work, seed, share)
+        log("mesh: the {}-rank group ({}) ran in {:.1f} s".format(world, label,
+                                                                   time.perf_counter() - t0))
+    for world, ranks in groups.items():
+        check(not any(r["jax"] for r in ranks), "a rank imported jax")
+        check(all(r["launches"] == [0, 0, 0] for r in ranks),
+              "a rank launched a kernel: {}".format([r["launches"] for r in ranks]))
+    # (a) f32 parity with the one-card run
+    for world, ranks in groups.items():
+        for shape, res in ranks[0]["a"].items():
+            rel = max(abs(a - b) / abs(b) for a, b in zip(res["losses"], ref))
+            check(rel <= 1e-5, "mesh {} f32 loss {} vs one card {}: {:.3g} rel".format(
+                shape, res["losses"], ref, rel))
+            check(res["rel_l2"] <= 1e-6, "mesh {} f32 weights after {} steps: {:.3g} relative L2 "
+                  "from the one-card run's".format(shape, MESH_STEPS, res["rel_l2"]))
+            log("mesh {} f32 (GIT_LARGE_COCO widths, 2 encoder blocks, 1 decoder layer, B=8, "
+                "ZeRO-1, {} steps): losses {} vs one card {} (worst {:.3g} rel), weights {:.3g} "
+                "relative L2 from the one-card run's, {:.2f} s [{}]".format(
+                    shape, MESH_STEPS, ["%.7f" % x for x in res["losses"]],
+                    ["%.7f" % x for x in ref], rel, res["rel_l2"], res["seconds"], card))
+    # (b) full width and depth, bf16
+    speeds = {}
+    for world, ranks in groups.items():
+        for name in ranks[0]["b"]:
+            res = [r["b"][name] for r in ranks]
+            speeds[name] = res
+            log("mesh {} GIT_LARGE_COCO B={} bf16 fast_softmax: {:.2f} ms a step ({:.2f} images/s; "
+                "one card, phase 21: {:.2f} images/s), peak memory per rank {} MiB, losses {} "
+                "[{}; {}]".format(name, res[0]["batch"], res[0]["ms"], res[0]["images_per_s"],
+                                  train_rate,
+                                  ["%.1f" % (r["peak"] / 2**20) for r in res],
+                                  ["%.4f" % x for x in res[0]["losses"]], card,
+                                  mesh_layout(world, cards)[1]))
+    on, off = speeds["2x1 zero1"], speeds["2x1"]
+    check(all(a["peak"] < b["peak"] for a, b in zip(on, off)),
+          "ZeRO-1 did not lower a rank's peak: {} vs {}".format(
+              [a["peak"] for a in on], [b["peak"] for b in off]))
+    log("mesh 2x1 ZeRO-1: peak per rank {} -> {} MiB (saves {} MiB) [{}]".format(
+        ["%.1f" % (b["peak"] / 2**20) for b in off], ["%.1f" % (a["peak"] / 2**20) for a in on],
+        ["%.1f" % ((b["peak"] - a["peak"]) / 2**20) for a, b in zip(on, off)], card))
+    # (c) the fine-tune resumed on the mesh
+    ft = groups[2][0]["c"]
+    check(ft["files"] == ["step_00000002", "step_00000004"], "mesh fine-tune wrote {}".format(
+        ft["files"]))
+    check(ft["weights_equal"] and ft["moments_equal"] and ft["steps"] == [4.0],
+          "mesh fine-tune: the resumed run differs from the continuous one: {}".format(ft))
+    log("mesh fine-tune [2, 1] (GIT_LARGE_COCO widths, 2 + 1 layers, bf16, B=8, ZeRO-1, 32 PNG "
+        "rows): 4 steps saving 2 and 4 in {:.2f} s; resumed from step 2 in {:.2f} s: weights, "
+        "moments and step count equal the continuous run's [{}]".format(
+            ft["seconds"]["continuous"], ft["seconds"]["resumed"], card))
+    check(kernel_launches() == before, "phase 22 launched kernels")
+    log("phase 22 (training on a mesh) {:.1f} s; launched none of the three kernels (+0 each, "
+        "in every rank)".format(time.perf_counter() - t_phase))
 
 
 def main(argv):
@@ -3294,9 +3648,11 @@ def main(argv):
     context_d = phase_context(card, seed)
     log("phase 20 (text context) {:.1f} s".format(time.perf_counter() - t0))
 
-    # 21: training; its fine-tune writes in the work dir, removed after
+    # 21: training; 22: training on a mesh; their fine-tunes write in the
+    # work dir, removed after
     os.makedirs(work)
-    phase_train(card, work, seed)
+    train_rate = phase_train(card, work, seed)
+    phase_mesh(card, work, seed, train_rate)
     shutil.rmtree(work)
 
     launches = {"decode_attention": coco_launches + vqa_d + video_d + tsv_d + vqa_tsv_d

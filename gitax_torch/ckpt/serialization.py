@@ -9,6 +9,13 @@ final one and renamed into place, so a run cut mid-write leaves no
 half-written step for `latest_step` to find.  gitax's Orbax directories
 are not read here: that needs jax (carry gitax weights across with
 `ckpt.params_from_gitax` instead).
+
+A training state on a mesh (`parallel.mesh`) is saved in the same
+one-card format: the weights gathered over the model group, ZeRO-1's
+moments consolidated over the data group, written by global rank 0 while
+the others wait; restoring onto a mesh loads the one-card state and keeps
+this rank's shards.  So a checkpoint from any mesh resumes on one card,
+and the reverse.
 """
 
 from __future__ import annotations
@@ -20,6 +27,9 @@ import shutil
 from typing import Optional
 
 import torch
+
+from ..parallel import comm
+from ..parallel import mesh as pmesh
 
 STATE_FILE = "state.pt"
 PARAMS_FILE = "params.pt"
@@ -72,26 +82,46 @@ def latest_step(directory: str) -> Optional[int]:
 
 def save_train_state(directory: str, state, step: Optional[int] = None) -> str:
     """Save a `training.trainer.TrainState` as directory/step_N (N: the
-    state's step unless given)."""
+    state's step unless given).  For a model on a mesh every rank calls
+    it: the one-card state is gathered, global rank 0 writes it, and all
+    return once it is written."""
     step = state.step if step is None else step
-    return _save_atomic(_step_dir(directory, step), STATE_FILE, {
-        "step": state.step,
-        "model": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
-        "schedule": state.schedule.state_dict(),
-    })
+    path = _step_dir(directory, step)
+    mesh = state.model.mesh
+    if mesh is None:
+        model, optimizer = state.model.state_dict(), state.optimizer.state_dict()
+    else:
+        model = pmesh.gather_params(state.model)
+        optimizer = pmesh.gather_optimizer_state(state.optimizer, state.model)
+    if mesh is None or mesh.rank == 0:
+        _save_atomic(path, STATE_FILE, {
+            "step": state.step,
+            "model": model,
+            "optimizer": optimizer,
+            "schedule": state.schedule.state_dict(),
+        })
+    if mesh is not None:
+        comm.barrier(mesh.device)
+    return path
 
 
 def restore_train_state(directory: str, state, step: Optional[int] = None):
     """Load directory/step_N (default: the latest) into `state`'s model,
-    optimizer and schedule in place, and set its step; returns it."""
+    optimizer and schedule in place, and set its step; returns it.  A
+    model on a mesh takes its shards of the weights and of the moments
+    (each rank reads the file)."""
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError("no checkpoints in {}".format(directory))
     blob = torch.load(op.join(_step_dir(directory, step), STATE_FILE), map_location="cpu",
                       weights_only=True)
-    state.model.load_state_dict(blob["model"], strict=True)
-    state.optimizer.load_state_dict(blob["optimizer"])
+    if state.model.mesh is None:
+        state.model.load_state_dict(blob["model"], strict=True)
+        state.optimizer.load_state_dict(blob["optimizer"])
+    else:
+        pmesh.load_sharded(state.model, blob["model"])
+        state.optimizer.load_state_dict(pmesh.shard_optimizer_state(blob["optimizer"],
+                                                                    state.model))
     state.schedule.load_state_dict(blob["schedule"])
     state.step = int(blob["step"])
     return state

@@ -14,7 +14,9 @@ prefix: beam search, sampled or not, with the repetition penalty and
 fused-attention kernel by gitax's auto rule and the int8 head optionally
 taking the fused vocab-head kernel; greedy; and trie-constrained greedy.
 Training: `trainable_` and `forward_logits`, the teacher-forced logits
-under autograd on the plain attention (gitax git.py:145-183).
+under autograd on the plain attention (gitax git.py:145-183), on one card
+or, sharded by `parallel.mesh.shard_params`, on a (data, model) mesh;
+generation runs on one card and raises on a tensor-parallel model.
 """
 
 from __future__ import annotations
@@ -72,6 +74,8 @@ class GitModel(nn.Module):
         # decode steps run through this model (beam iterations summed over
         # calls); read by chip_smoke.py to match kernel launches
         self.decode_step_calls = 0
+        # the parallel.mesh.Mesh of a model sharded for training, else None
+        self.mesh = None
 
     def init_params(self, generator: torch.Generator):
         """Random weights with gitax's shapes and scales, from a CPU
@@ -181,7 +185,9 @@ class GitModel(nn.Module):
         towers (flash=False: the kernels have no backward), as gitax's is
         XLA's.  fast=True keeps the score math in the activation dtype in
         both towers (None leaves the encoder to its config); remat: the
-        encoder's per-block checkpoint (`vit_forward`)."""
+        encoder's per-block checkpoint (`vit_forward`).  On a model sharded
+        for tensor parallelism the same logits come out on every rank of
+        its model group (the tied head is replicated)."""
         visual, ctx_valid = self.build_memory(images, context_tokens, context_lengths, dtype,
                                               fast=fast, flash=False, remat=remat)
         if ctx_valid is not None:
@@ -250,6 +256,7 @@ class GitModel(nn.Module):
         beam's `beam` settings do not apply.  decode_kernel, vocab_kernel
         and fast_prefill raise there: gitax ignores them in these modes,
         and the port does not ignore a kernel switch silently."""
+        T.check_one_card(self.textual, "generate")
         if mode not in ("beam", "greedy", "trie"):
             raise ValueError("generate mode {!r}: 'beam', 'greedy' or 'trie'".format(mode))
         if mode != "beam":

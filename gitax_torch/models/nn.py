@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import flash_qkv_attention
+from ..parallel.comm import reduce_from_model
 
 
 def empty_param(shape, device=None, dtype=None):
@@ -118,6 +119,17 @@ def linear(x, lin: Linear):
     return y
 
 
+def row_linear(x, lin: Linear, tp_group=None):
+    """A row-parallel `linear` under tensor parallelism: this rank's
+    partial product x @ W_shard^T summed over the model group, then the
+    (replicated) bias, added once.  `linear` itself when tp_group is
+    None."""
+    if tp_group is None:
+        return linear(x, lin)
+    y = reduce_from_model(F.linear(x, lin.weight.to(x.dtype)), tp_group)
+    return y + lin.bias.to(x.dtype) if lin.bias is not None else y
+
+
 def quick_gelu(x):
     """CLIP's QuickGELU: x * sigmoid(1.702 x)."""
     return x * torch.sigmoid(1.702 * x)
@@ -162,15 +174,18 @@ def qkv_project(x, attn, num_heads):
     return tuple(split_heads(t, num_heads) for t in attn.project(x))
 
 
-def self_attention(x, attn, num_heads, mask=None, fast=False, flash=False):
+def self_attention(x, attn, num_heads, mask=None, fast=False, flash=False, tp_group=None):
     """Multi-head self-attention: projections from `attn.project`, the
     output map `attn.out_proj`.  flash=True (unmasked only) runs the fused
     attention (ops/flash_attention.py) straight off `attn.fused_qkv(x)`,
     the [B, T, 3D] projection; `fast` does not apply there (the kernel's
-    softmax is f32), as in gitax (nn.py:127-133)."""
+    softmax is f32), as in gitax (nn.py:127-133).  Under tensor
+    parallelism (tp_group) `attn` holds this rank's `num_heads` heads and
+    the output map is row-parallel (`row_linear`)."""
     if flash and mask is None:
-        return linear(flash_qkv_attention(attn.fused_qkv(x), num_heads), attn.out_proj)
-    q, k, v = qkv_project(x, attn, num_heads)
-    probs = attention_weights(q, k, mask, fast=fast).to(v.dtype)
-    ctx = torch.matmul(probs, v)
-    return linear(merge_heads(ctx), attn.out_proj)
+        ctx = flash_qkv_attention(attn.fused_qkv(x), num_heads)
+    else:
+        q, k, v = qkv_project(x, attn, num_heads)
+        probs = attention_weights(q, k, mask, fast=fast).to(v.dtype)
+        ctx = merge_heads(torch.matmul(probs, v))
+    return row_linear(ctx, attn.out_proj, tp_group)

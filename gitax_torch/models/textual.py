@@ -16,6 +16,15 @@ k|v interleaved per head.  Unlike gitax (functional JAX), the port
 updates the text cache IN PLACE: each step writes one row per layer, and
 a `KVCache` returned by `decode_step` shares its buffers with the one
 passed in.
+
+Under tensor parallelism (`parallel.mesh.shard_params` sets `tp_group`)
+`textual_forward` runs each layer on its rank's heads and FFN columns:
+query, key, value and `intermediate.dense` column-parallel behind
+Megatron's f, `attention.output.dense` and `output.dense` row-parallel
+with g; the visual projection, the embeddings, the LayerNorms and the
+tied head are replicated, so the logits are full-width on every rank.
+The prefill and the decode steps run on one card and raise on a sharded
+head.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from torch import nn
 from ..ops.decode_attention import decode_attention, quantize_memory
 from ..ops.flash_attention import auto_flash, fused_attention
 from ..ops.vocab_topk import vocab_logits_topk
+from ..parallel.comm import copy_to_model
 from .config import GitConfig
 from .nn import (
     LayerNorm,
@@ -41,6 +51,7 @@ from .nn import (
     linear,
     merge_heads,
     qkv_project,
+    row_linear,
 )
 
 NEG_INF = -1e18  # additive-mask "blocked"; avoids inf-inf NaN edge cases
@@ -122,6 +133,8 @@ class TextualHead(nn.Module):
         # tied head: logits = h @ words^T + bias (decoder.py:500-505)
         self.output = Linear(d, v, device=device, dtype=dtype)
         self.output.weight = self.embedding.words.weight
+        # the model group under tensor parallelism (parallel/mesh.py)
+        self.tp_group = None
 
     def layers(self) -> List[BertLayer]:
         return list(self.transformer.encoder.layer)
@@ -214,31 +227,44 @@ def build_unified_mask(num_memory: int, num_text: int, memory_valid=None,
     return mask[:, None, :, :]
 
 
-def _attn_tail(xcur, ctx_merged, layer: BertLayer, cfg: GitConfig):
+def _attn_tail(xcur, ctx_merged, layer: BertLayer, cfg: GitConfig, tp_group=None):
     """Out-projection + residual post-norm + MLP + residual post-norm;
     the one home of this sequence for the full forward, the prefill and
-    both decode-step paths."""
+    both decode-step paths.  tp_group: the model group of a sharded layer
+    (the output maps row-parallel)."""
     ln1 = layer.attention.output.LayerNorm
-    attn_out = linear(ctx_merged, layer.attention.output.dense)
+    attn_out = row_linear(ctx_merged, layer.attention.output.dense, tp_group)
     x = layer_norm(attn_out + xcur, ln1.weight, ln1.bias, cfg.bert_ln_eps)
-    inter = gelu_erf(linear(x, layer.intermediate.dense))
+    inter = gelu_erf(linear(copy_to_model(x, tp_group), layer.intermediate.dense))
     ln2 = layer.output.LayerNorm
-    return layer_norm(linear(inter, layer.output.dense) + x, ln2.weight, ln2.bias,
+    return layer_norm(row_linear(inter, layer.output.dense, tp_group) + x, ln2.weight, ln2.bias,
                       cfg.bert_ln_eps)
 
 
-def _bert_layer(x, layer: BertLayer, cfg: GitConfig, mask, fast=False, flash_memory=None):
+def _bert_layer(x, layer: BertLayer, cfg: GitConfig, mask, fast=False, flash_memory=None,
+                tp_group=None):
     """One decoder layer; returns (output, (q, k, v)).  flash_memory=M
     runs the attention through `ops.flash_attention.fused_attention` with
     GIT's block mask over M leading memory tokens (built in the kernel
     from indices; `mask` and `fast` are not read), else the plain path
-    with the additive `mask`."""
-    q, k, v = qkv_project(x, layer.attention.qkv, cfg.num_heads)
+    with the additive `mask`.  The head count is the layer's own (its
+    rank's under tensor parallelism, tp_group)."""
+    heads = layer.attention.qkv.query.bias.shape[0] // cfg.head_dim
+    q, k, v = qkv_project(copy_to_model(x, tp_group), layer.attention.qkv, heads)
     if flash_memory is not None:
         ctx = fused_attention(q, k, v, num_memory=flash_memory, masked=True)
     else:
         ctx = torch.matmul(attention_weights(q, k, mask, fast=fast).to(v.dtype), v)
-    return _attn_tail(x, merge_heads(ctx), layer, cfg), (q, k, v)
+    return _attn_tail(x, merge_heads(ctx), layer, cfg, tp_group), (q, k, v)
+
+
+def check_one_card(tx: TextualHead, what: str):
+    """Raise on a head sharded for tensor parallelism: `what` (the
+    prefill, a decode step) runs on one card."""
+    if tx.tp_group is not None:
+        raise ValueError("{} runs on one card; this model is sharded for tensor-parallel "
+                         "training (gather its weights into a one-card model: "
+                         "parallel.mesh.gather_params)".format(what))
 
 
 # ---------------------------------------------------------------------------
@@ -262,7 +288,7 @@ def textual_forward(tx: TextualHead, visual_features, caption_tokens, cfg: GitCo
     mask = build_unified_mask(m, t, memory_valid, bi_valid_mask, batch=b,
                               device=x.device)
     for layer in tx.layers():
-        x, _ = _bert_layer(x, layer, cfg, mask, fast=fast)
+        x, _ = _bert_layer(x, layer, cfg, mask, fast=fast, tp_group=tx.tp_group)
     return output_logits(tx, x[:, m:])
 
 
@@ -324,6 +350,7 @@ def prefill(tx: TextualHead, visual_features, prefix_tokens, cfg: GitConfig,
     applies gitax's auto rule to M + Tp; either way only for a fully valid
     memory (the kernel has no validity input).  The cache is built from
     the same k and v on both paths."""
+    check_one_card(tx, "the prefill")
     b, tp = prefix_tokens.shape
     mem = project_visual(tx, visual_features.to(dtype), cfg)
     m = mem.shape[1]
@@ -386,6 +413,7 @@ def decode_step(tx: TextualHead, tokens, cache: KVCache, cfg: GitConfig,
     selects through the ancestry one-hot.  Score math is f32 in both; in
     f32 they agree to rounding, in bf16 the kernel sums both contexts in
     f32 before one cast."""
+    check_one_card(tx, "a decode step")
     bk = tokens.shape[0]
     b = cache.batch
     beams = bk // b

@@ -13,6 +13,11 @@ patches runs: the stored positional table serves the configured square
 grid, and other grids (the MinMax high-res inputs) interpolate it
 bicubically (`_pos_embed_for`, CLIP/model.py:245-251).  Attention takes
 the fused-attention kernel (ops/flash_attention.py) by gitax's auto rule.
+
+Under tensor parallelism (`parallel.mesh.shard_params` sets `tp_group`)
+each block holds its rank's heads and FFN columns: the fused qkv and
+`c_fc` are column-parallel behind Megatron's f, `out_proj` and `c_proj`
+row-parallel with g; the head count is read from the block's width.
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import auto_flash
 from .config import ViTConfig
-from .nn import LayerNorm, Linear, empty_param, linear, quick_gelu, self_attention
+from ..parallel.comm import copy_to_model
+from .nn import LayerNorm, Linear, empty_param, linear, quick_gelu, row_linear, self_attention
 
 
 class MultiheadSelfAttention(nn.Module):
@@ -83,6 +89,8 @@ class VisualTransformer(nn.Module):
         self.ln_pre = LayerNorm(w, cfg.ln_eps, device, dtype)
         self.transformer = Transformer(cfg, device, dtype)
         self.ln_post = LayerNorm(w, cfg.ln_eps, device, dtype)
+        # the model group under tensor parallelism (parallel/mesh.py)
+        self.tp_group = None
 
     @torch.no_grad()
     def init_params(self, generator):
@@ -101,11 +109,11 @@ class VisualTransformer(nn.Module):
             p.copy_(torch.randn(p.shape, generator=generator) * std)
 
 
-def _block(x, blk: ResidualAttentionBlock, num_heads, fast, flash):
-    h1 = blk.ln_1(x)
-    x = x + self_attention(h1, blk.attn, num_heads, fast=fast, flash=flash)
-    h = blk.ln_2(x)
-    h = linear(quick_gelu(linear(h, blk.mlp.c_fc)), blk.mlp.c_proj)
+def _block(x, blk: ResidualAttentionBlock, num_heads, fast, flash, tp_group=None):
+    h1 = copy_to_model(blk.ln_1(x), tp_group)
+    x = x + self_attention(h1, blk.attn, num_heads, fast=fast, flash=flash, tp_group=tp_group)
+    h = copy_to_model(blk.ln_2(x), tp_group)
+    h = row_linear(quick_gelu(linear(h, blk.mlp.c_fc)), blk.mlp.c_proj, tp_group)
     return x + h
 
 
@@ -139,7 +147,8 @@ def vit_forward(vit: VisualTransformer, images, dtype=torch.float32, fast=None, 
     inputs: gitax's per-block `jax.checkpoint` inside its scan
     (vit.py:153-161), not a checkpoint of the whole forward, which
     holds every recomputed block's intermediates at once (gitax
-    trainer.py:88-92)."""
+    trainer.py:88-92).  Under tensor parallelism the recomputation issues
+    the block's collectives again, in the same order on every rank."""
     cfg = vit.cfg
     if fast is None:
         fast = cfg.fast_softmax
@@ -161,9 +170,12 @@ def vit_forward(vit: VisualTransformer, images, dtype=torch.float32, fast=None, 
     x = torch.cat([cls, x], dim=1)
     x = x + _pos_embed_for(vit, gh, gw, dtype)
     x = vit.ln_pre(x)
+    head_dim = cfg.width // cfg.heads
+    tp = vit.tp_group
     for blk in vit.transformer.resblocks:
+        heads = blk.attn.in_proj_bias.shape[0] // (3 * head_dim)  # this rank's
         if remat:
-            x = checkpoint(_block, x, blk, cfg.heads, fast, flash, use_reentrant=False)
+            x = checkpoint(_block, x, blk, heads, fast, flash, tp, use_reentrant=False)
         else:
-            x = _block(x, blk, cfg.heads, fast, flash)
+            x = _block(x, blk, heads, fast, flash, tp)
     return vit.ln_post(x)

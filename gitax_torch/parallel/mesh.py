@@ -1,0 +1,327 @@
+"""The (data, model) mesh of multi-card training and its tensor-parallel
+split, the counterpart of gitax `parallel/mesh.py`.
+
+gitax runs one SPMD program over a `jax.sharding.Mesh` and lets XLA place
+the collectives from its partition specs.  The port runs one process per
+rank in a `torch.distributed` group of data x model ranks, laid out as
+gitax's `np.reshape(devices, (data, model))`: global rank r sits at data
+index r // model and model index r % model.
+
+- `data`: the batch is split by rows (`Mesh.batch_rows`); the gradients
+  are summed over the data group (`training.trainer`), and with ZeRO-1
+  the Adam moments are split over it.
+- `model`: Megatron tensor parallelism over attention heads and FFN
+  columns in both towers (`split_rule`): q, k, v and the FFN's first
+  product are column-parallel, the attention's output map and the FFN's
+  second product row-parallel, everything else replicated.  The ViT's
+  fused `in_proj` [3D, D] is q | k | v, so rank m takes its heads' rows
+  of each third (`QKV`), where gitax's spec shards the fused kernel's
+  last axis contiguously and GSPMD reshards.
+
+`shard_params` replaces a full model's parameters by this rank's shards;
+`gather_params` and `load_sharded` go back and forth between shards and
+the one-card state dict, and `gather_optimizer_state` /
+`shard_optimizer_state` do the same for AdamW's state, so a checkpoint
+written on any mesh is a one-card checkpoint.  Every collective is an
+all-reduce or a broadcast (`parallel/comm.py`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import re
+from typing import Optional
+
+import torch
+from torch import nn
+
+from . import comm
+
+COLUMN, ROW, QKV = "column", "row", "qkv"
+
+# the block-local parameter name -> how it splits over the model axis
+# (gitax mesh.py:63-80: qkv, c_fc, intermediate column; attn/out, c_proj,
+# mlp/output row; row-parallel biases replicated, added after the sum)
+_RULES = {
+    "attn.in_proj_weight": QKV,
+    "attn.in_proj_bias": QKV,
+    "attn.out_proj.weight": ROW,
+    "mlp.c_fc.weight": COLUMN,
+    "mlp.c_fc.bias": COLUMN,
+    "mlp.c_proj.weight": ROW,
+    "attention.self.query.weight": COLUMN,
+    "attention.self.query.bias": COLUMN,
+    "attention.self.key.weight": COLUMN,
+    "attention.self.key.bias": COLUMN,
+    "attention.self.value.weight": COLUMN,
+    "attention.self.value.bias": COLUMN,
+    "attention.output.dense.weight": ROW,
+    "intermediate.dense.weight": COLUMN,
+    "intermediate.dense.bias": COLUMN,
+    "output.dense.weight": ROW,
+}
+_BLOCK = re.compile(r"(?:image_encoder\.transformer\.resblocks|textual\.transformer\.encoder\.layer)"
+                    r"\.\d+\.(.+)$")
+
+
+def split_rule(name: str) -> Optional[str]:
+    """How the parameter `name` (a `GitModel` state-dict name) splits over
+    the model axis: COLUMN (its output rows), ROW (its input columns), QKV
+    (each third's rows by heads) or None (replicated)."""
+    m = _BLOCK.match(name)
+    return _RULES.get(m.group(1)) if m else None
+
+
+def _block(t, kind, model):
+    """`t` seen with a model-rank axis: index it by rank to get a shard."""
+    if kind == COLUMN:
+        return t.view(model, t.shape[0] // model, *t.shape[1:])
+    if kind == ROW:
+        return t.view(t.shape[0], model, t.shape[1] // model).transpose(0, 1)
+    return t.view(3, model, t.shape[0] // (3 * model), *t.shape[1:]).transpose(0, 1)
+
+
+def shard_tensor(kind, full, model, rank):
+    """Rank `rank`'s shard of `full` under split `kind` (None: `full`)."""
+    if kind is None or model == 1:
+        return full
+    shard = _block(full, kind, model)[rank]
+    return shard.reshape(-1, *shard.shape[2:]) if kind == QKV else shard.contiguous()
+
+
+def _full_shape(kind, shape, model):
+    if kind == ROW:
+        return (shape[0], shape[1] * model)
+    return (shape[0] * model,) + tuple(shape[1:])
+
+
+def unshard_tensor(kind, shard, mesh: "Mesh"):
+    """The full tensor from each model rank's `shard` (an all-reduce of
+    zero-padded copies over the model group); `shard` when unsplit."""
+    if kind is None or mesh.model == 1:
+        return shard
+    full = torch.zeros(_full_shape(kind, shard.shape, mesh.model), dtype=shard.dtype,
+                       device=mesh.device)
+    view = _block(full, kind, mesh.model)[mesh.model_rank]
+    view.copy_(shard.reshape(view.shape))
+    return comm.all_reduce(full, mesh.model_group)
+
+
+@dataclasses.dataclass
+class Mesh:
+    """This rank's place in a (data, model) mesh: the axis sizes, its
+    coordinates, its device and the process groups of its row (model
+    group) and column (data group); a group of one rank is None."""
+
+    data: int
+    model: int
+    rank: int
+    device: torch.device
+    data_group: object = None
+    model_group: object = None
+
+    @property
+    def data_rank(self):
+        return self.rank // self.model
+
+    @property
+    def model_rank(self):
+        return self.rank % self.model
+
+    def batch_rows(self, batch_size: int):
+        """The rows [lo, hi) of a global batch this data rank takes
+        (gitax's `batch_partition_specs`: the batch axis split evenly)."""
+        if batch_size % self.data:
+            raise ValueError("batch {} does not split over {} data ranks".format(
+                batch_size, self.data))
+        n = batch_size // self.data
+        return self.data_rank * n, (self.data_rank + 1) * n
+
+    def local_batch(self, batch: dict) -> dict:
+        """This data rank's rows of every field of a global batch."""
+        lo, hi = self.batch_rows(len(batch["caption_tokens"]))
+        return {k: v[lo:hi] for k, v in batch.items()}
+
+
+def local_device(device=None) -> torch.device:
+    """A rank's device: `device` when given, else cuda:LOCAL_RANK (the
+    global rank when LOCAL_RANK is unset); raises without a card."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: a rank runs on the card unless the caller passes "
+                           "device='cpu'")
+    import torch.distributed as dist
+
+    return torch.device("cuda", int(os.environ.get("LOCAL_RANK", dist.get_rank())))
+
+
+def make_mesh(data: Optional[int] = None, model: int = 1, device=None, backend=None) -> Mesh:
+    """The mesh of an initialised process group of data x model ranks
+    (data None: world // model); any other product raises, as gitax's
+    assert does.  Every rank calls it (it creates the groups).  device:
+    this rank's (default `local_device()`); backend: the groups' (default
+    the process group's)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs an initialised process group "
+                           "(runtime.distributed.init_training_group)")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if data is None:
+        data = world // model
+    if data * model != world:
+        raise ValueError("mesh {} x {} != world size {}".format(data, model, world))
+    mesh = Mesh(data=data, model=model, rank=rank, device=local_device(device))
+    # every rank creates every group, in the same order
+    if model > 1:
+        for d in range(data):
+            group = dist.new_group([d * model + m for m in range(model)], backend=backend)
+            if d == mesh.data_rank:
+                mesh.model_group = group
+    if data > 1:
+        for m in range(model):
+            group = dist.new_group([d * model + m for d in range(data)], backend=backend)
+            if m == mesh.model_rank:
+                mesh.data_group = group
+    return mesh
+
+
+def make_mesh_from_shape(mesh_shape, device=None, backend=None) -> Mesh:
+    """The CLI's mesh: an int N is (N, 1), else [data, model]."""
+    if isinstance(mesh_shape, int):
+        mesh_shape = (mesh_shape, 1)
+    return make_mesh(data=mesh_shape[0], model=mesh_shape[1], device=device, backend=backend)
+
+
+def _owner(model, name):
+    *path, leaf = name.split(".")
+    return model.get_submodule(".".join(path)), leaf
+
+
+def check_divides(cfg, model: int):
+    """Raise unless `model` divides both towers' head counts (and so every
+    split width)."""
+    for label, heads in (("encoder", cfg.encoder.heads), ("decoder", cfg.num_heads)):
+        if heads % model:
+            raise ValueError("the {}'s {} heads do not split over {} model ranks".format(
+                label, heads, model))
+
+
+def broadcast_params(model, src=0):
+    """Every rank's weights and buffers from global rank `src` (identical
+    starting weights)."""
+    with torch.no_grad():
+        for t in model.state_dict().values():
+            comm.broadcast(t, src)
+
+
+def shard_params(model, mesh: Mesh):
+    """Replace a full `GitModel`'s split parameters by this rank's shards
+    (new Parameters, same requires_grad), in place, and hand the towers
+    the model group; returns the model.  Build the optimizer after it."""
+    if model.mesh is not None:
+        raise ValueError("the model is already on a mesh")
+    check_divides(model.cfg, mesh.model)
+    quantized = [n for n, m in model.named_modules() if getattr(m, "quantized", False)]
+    if quantized:
+        raise ValueError("int8 Linears cannot be sharded for training: {}".format(
+            ", ".join(quantized)))
+    if mesh.model > 1:
+        for name, p in list(model.named_parameters()):
+            kind = split_rule(name)
+            if kind is not None:
+                module, leaf = _owner(model, name)
+                shard = shard_tensor(kind, p.detach(), mesh.model, mesh.model_rank).clone()
+                setattr(module, leaf, nn.Parameter(shard, requires_grad=p.requires_grad))
+        model.image_encoder.tp_group = mesh.model_group
+        model.textual.tp_group = mesh.model_group
+    model.mesh = mesh
+    return model
+
+
+@torch.no_grad()
+def gather_params(model) -> dict:
+    """The one-card state dict of a model on a mesh (of the model itself
+    off a mesh), on every rank of its model group: split tensors are
+    summed from zero-padded shards.  Every rank of the group calls it."""
+    mesh = model.mesh
+    sd = model.state_dict()
+    if mesh is None:
+        return sd
+    return {n: unshard_tensor(split_rule(n), t, mesh) for n, t in sd.items()}
+
+
+@torch.no_grad()
+def load_sharded(model, full_sd: dict):
+    """Load a one-card state dict into a model on a mesh: each rank takes
+    its shards (strict names and shapes)."""
+    mesh = model.mesh
+    model.load_state_dict({n: shard_tensor(split_rule(n), t, mesh.model, mesh.model_rank)
+                           for n, t in full_sd.items()}, strict=True)
+    return model
+
+
+def _moments_by_owner(local, named, mesh: Mesh) -> dict:
+    """ZeRO-1's AdamW state of every parameter (index -> state, on the
+    mesh's device) on every rank of the data group: each parameter's state
+    lives on one data rank, found by an all-reduce of a claim per
+    parameter, which broadcasts it (tensors only: no pickling)."""
+    claims = torch.zeros(len(named), device=mesh.device)
+    for i, (_, p) in enumerate(named):
+        if p in local.state and local.state[p]:
+            claims[i] = mesh.data_rank + 1
+    comm.all_reduce(claims, mesh.data_group)
+    state = {}
+    for i, (_, p) in enumerate(named):
+        owner = int(claims[i].item()) - 1
+        if owner < 0:  # no update yet
+            continue
+        mine = local.state[p] if owner == mesh.data_rank else None
+        st = {}
+        for k, like in (("step", torch.zeros((), device=mesh.device)), ("exp_avg", p),
+                        ("exp_avg_sq", p)):
+            t = (mine[k].to(device=mesh.device, dtype=like.dtype).clone() if mine is not None
+                 else torch.empty_like(like, device=mesh.device))
+            st[k] = comm.broadcast(t, owner * mesh.model + mesh.model_rank, mesh.data_group)
+        st["step"] = st["step"].cpu()
+        state[i] = st
+    return state
+
+
+def gather_optimizer_state(optimizer, model) -> Optional[dict]:
+    """AdamW's one-card state dict (state by parameter index in
+    `model.parameters()` order, one param group with AdamW's settings)
+    from a model on a mesh: ZeRO-1's moments brought to every data rank
+    (`_moments_by_owner`), then the split ones summed over the model
+    group.  Every rank calls it; returns the dict on data rank 0, None
+    elsewhere."""
+    mesh = model.mesh
+    local = getattr(optimizer, "optim", optimizer)  # the AdamW inside ZeRO-1, or itself
+    named = list(model.named_parameters())
+    if local is not optimizer and mesh.data > 1:
+        state = _moments_by_owner(local, named, mesh)
+    else:
+        state = {i: dict(local.state[p]) for i, (_, p) in enumerate(named) if local.state[p]}
+    if mesh.data_rank != 0:
+        return None
+    for i, st in state.items():
+        kind = split_rule(named[i][0])
+        state[i] = {k: unshard_tensor(kind, v.to(mesh.device), mesh) if v.dim() else v
+                    for k, v in st.items()}
+    group = {k: v for k, v in local.param_groups[0].items() if k != "params"}
+    return {"state": state, "param_groups": [dict(group, params=list(range(len(named))))]}
+
+
+def shard_optimizer_state(full: dict, model) -> dict:
+    """A one-card AdamW state dict cut to this rank's shards of a model on
+    a mesh (what `load_state_dict` of its AdamW or ZeRO-1 takes)."""
+    mesh = model.mesh
+    names = [n for n, _ in model.named_parameters()]
+    state = {}
+    for i, st in full["state"].items():
+        kind = split_rule(names[i])
+        state[i] = {k: shard_tensor(kind, v, mesh.model, mesh.model_rank) if v.dim() else v
+                    for k, v in st.items()}
+    return {"state": state, "param_groups": [dict(g) for g in full["param_groups"]]}

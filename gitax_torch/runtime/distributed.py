@@ -8,12 +8,22 @@ rank/world contract for row sharding (runtime/engine.py) and, when a
 launch names a coordinator, joins one process group so that the shard
 barrier is a collective.  The group only synchronises hosts (no tensor
 crosses it), so it is gloo's and never touches the card.
+
+Training on several cards (`parallel/mesh.py`) starts its own group with
+`init_training_group`: NCCL for ranks on cards, one card each; gloo for
+CPU ranks (device='cpu', the tests); gloo for ranks that share one card
+only when the caller asks (share_card=True, a rehearsal of a mesh on one
+card).  `spawn_ranks` starts the ranks of one command (train.py's
+`data_parallel`); a `torchrun` launch starts them instead.
 """
 
 from __future__ import annotations
 
+import datetime
+import importlib
 import logging
 import os
+import tempfile
 
 
 def _int_env(name):
@@ -71,3 +81,109 @@ def barrier(name="gitax_barrier"):
     logging.info("barrier %s", name)
     dist.barrier()
 
+
+def check_data_parallel(n: int, device=None):
+    """Raise unless `n` ranks fit this machine: on the card (device None
+    or CUDA) one card each, so n <= torch.cuda.device_count(); CPU ranks
+    (device='cpu') are not counted."""
+    import torch
+
+    if n < 1:
+        raise ValueError("data_parallel={}: at least 1 rank".format(n))
+    if device is not None and torch.device(device).type == "cpu":
+        return
+    cards = torch.cuda.device_count()
+    if n > cards:
+        raise ValueError("data_parallel={} needs {} cards, one per rank; this machine has "
+                         "{}".format(n, n, cards))
+
+
+def init_training_group(rank=None, world_size=None, init_method=None, device=None,
+                        share_card=False, timeout_s=1800):
+    """Join the process group of multi-card training; returns (this rank's
+    device, the backend for the mesh's groups: `parallel.mesh.make_mesh`'s
+    `backend`).  rank, world_size and init_method default to the env://
+    launch of torchrun (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT;
+    LOCAL_RANK picks the card).  device='cpu': gloo on the CPU.  Otherwise
+    NCCL with one card per rank (cuda:LOCAL_RANK), raising without enough
+    cards; share_card=True puts every rank on `device` (default cuda:0)
+    over gloo, which NCCL refuses.  A group the launcher already made (the
+    CLI's gloo group under torchrun, `common.dispatch_main`) is kept; the
+    mesh's groups then take the backend returned."""
+    import torch
+    import torch.distributed as dist
+
+    if rank is None:
+        rank = int(os.environ["RANK"])
+    if world_size is None:
+        world_size = int(os.environ["WORLD_SIZE"])
+    if device is not None and torch.device(device).type == "cpu":
+        backend, dev = "gloo", torch.device("cpu")
+    elif share_card:
+        if not torch.cuda.is_available():
+            raise RuntimeError("share_card: no CUDA device")
+        backend, dev = "gloo", torch.device(device or "cuda:0")
+    else:
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        check_data_parallel(local + 1)
+        backend, dev = "nccl", torch.device("cuda", local)
+        torch.cuda.set_device(dev)
+    if dist.is_initialized():
+        if (dist.get_rank(), dist.get_world_size()) != (rank, world_size):
+            raise ValueError("the process group is rank {} of {}, not {} of {}".format(
+                dist.get_rank(), dist.get_world_size(), rank, world_size))
+        return dev, backend
+    kwargs = dict(backend=backend, init_method=init_method or "env://", world_size=world_size,
+                  rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+    if backend == "nccl":
+        kwargs["device_id"] = dev
+    dist.init_process_group(**kwargs)
+    logging.info("training group: rank %d/%d, %s on %s", rank, world_size, backend, dev)
+    return dev, backend
+
+
+def _spawned_rank(target, rank, world_size, init_method, args):
+    module, name = target.split(":")
+    getattr(importlib.import_module(module), name)(rank, world_size, init_method, *args)
+
+
+JOIN_TIMEOUT_S = 600
+
+
+def spawn_ranks(target: str, world_size: int, args=()):
+    """Run `target` ("module:function", called as fn(rank, world_size,
+    init_method, *args)) on `world_size` ranks: rank 0 in this process,
+    whose result it returns, ranks 1.. in spawned processes (a fresh
+    interpreter each: they import `module`, nothing of the caller's).
+    The ranks meet through a file:// rendezvous in a temporary
+    directory.  Raises if a spawned rank fails or is still running
+    JOIN_TIMEOUT_S after rank 0 returned; if rank 0 fails the others are
+    stopped."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="gitax_ranks_") as tmp:
+        init_method = "file://" + os.path.join(tmp, "rendezvous")
+        procs = [ctx.Process(target=_spawned_rank, args=(target, r, world_size, init_method,
+                                                         tuple(args)), daemon=True)
+                 for r in range(1, world_size)]
+        for p in procs:
+            p.start()
+        ok = False
+        try:
+            module, name = target.split(":")
+            result = getattr(importlib.import_module(module), name)(0, world_size, init_method,
+                                                                    *args)
+            ok = True
+        finally:
+            for p in procs:
+                if not ok:
+                    p.terminate()
+                p.join(JOIN_TIMEOUT_S)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        failed = [(r + 1, p.exitcode) for r, p in enumerate(procs) if p.exitcode != 0]
+        if failed:
+            raise RuntimeError("spawned ranks failed (rank, exit code): {}".format(failed))
+        return result

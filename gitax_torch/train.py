@@ -10,13 +10,16 @@ The functions run on the CUDA card and raise without one unless the
 caller passes device='cpu' (Python callers; the tests do).  Models start
 from a seeded random init; `finetune` and `scst_finetune` then load
 `checkpoint`: a reference `model.pt`, or a directory the port wrote
-(`ckpt.serialization`).  Not ported, and raising: `data_parallel`
-(gitax's DP mesh).
+(`ckpt.serialization`).  `finetune` with `data_parallel=N` trains on N
+cards, one rank each, with ZeRO-1 moments: it spawns the ranks itself,
+or, under `torchrun --nproc_per_node N -m gitax_torch.train -p ...`, each
+process is one rank.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import os.path as op
 import time
 
@@ -60,7 +63,11 @@ def _build_batch(images, captions, prefixs, tokenizer, iteration=0, seed=0, tran
 def _random_model(param, device, seed=0):
     """The config of `param` on `device`, random weights from a CPU
     generator seeded with `seed`."""
-    model = GitModel(config_from_param(param), device=resolve_device(device))
+    return _random_model_of(config_from_param(param), device, seed)
+
+
+def _random_model_of(cfg, device, seed=0):
+    model = GitModel(cfg, device=resolve_device(device))
     return model.init_params(torch.Generator().manual_seed(seed))
 
 
@@ -230,31 +237,69 @@ def finetune(
             'output/GIT_BASE_COCO/snapshot/model.pt', 'num_steps': 10000,
             'save_dir': 'output/ft'}"
 
-    checkpoint: see `_load_checkpoint_params`.  Returns the TrainState."""
-    from .training.finetune import run_finetune
+    checkpoint: see `_load_checkpoint_params`.
 
-    if data_parallel:
-        raise NotImplementedError("data_parallel: the data-parallel mesh over several chips is "
-                                  "not ported; train on one card")
-    param = get_model_param(model_name) if model_name else {}
-    model = _random_model(param, device, kwargs.get("seed", 0))
-    _load_checkpoint_params(checkpoint, model)
-    state = run_finetune(
-        image_tsv,
-        caption_tsv,
-        model,
-        num_steps=num_steps,
-        batch_size=batch_size,
-        learning_rate=learning_rate,
-        save_dir=save_dir,
-        save_every=save_every,
-        resume=resume,
-        dtype=torch.bfloat16 if dtype == "bfloat16" else torch.float32,
-        remat=remat,
-        **kwargs,
-    )
+    data_parallel=N shards the batch over N ranks, one card each (gitax:
+    "over the first N local devices (ZeRO-1 moments included)"), each
+    rank taking its rows of the one-card batch: N above the card count
+    raises.  Without a launcher this process is rank 0 and spawns ranks
+    1..N-1 (device='cpu': N gloo CPU processes); under torchrun (WORLD_SIZE
+    set) each process is one rank and WORLD_SIZE must be N.  Every rank
+    starts from rank 0's weights.  Returns the TrainState (rank 0's on a
+    mesh: with ZeRO-1 its optimizer holds rank 0's share of the
+    moments)."""
+    from .runtime import distributed
+
+    cfg = config_from_param(get_model_param(model_name) if model_name else {})
+    run_kwargs = dict(num_steps=num_steps, batch_size=batch_size, learning_rate=learning_rate,
+                      save_dir=save_dir, save_every=save_every, resume=resume,
+                      dtype=torch.bfloat16 if dtype == "bfloat16" else torch.float32,
+                      remat=remat, **kwargs)
+    args = (image_tsv, caption_tsv, cfg, checkpoint, run_kwargs, device)
+    if not data_parallel:
+        state = _finetune_on(None, *args)
+    else:
+        n = int(data_parallel)
+        distributed.check_data_parallel(n, device)
+        if os.environ.get("WORLD_SIZE"):
+            state = _finetune_rank(None, None, None, n, *args)
+        else:
+            state = distributed.spawn_ranks("gitax_torch.train:_finetune_rank", n, (n,) + args)
     logging.info("finetune done at step %d", state.step)
     return state
+
+
+def _finetune_on(mesh, image_tsv, caption_tsv, cfg, checkpoint, run_kwargs, device):
+    """The fine-tune of one process: the seeded model (on the mesh's
+    device), the checkpoint, `run_finetune`."""
+    from .training.finetune import run_finetune
+
+    model = _random_model_of(cfg, mesh.device if mesh else device, run_kwargs.get("seed", 0))
+    _load_checkpoint_params(checkpoint, model)
+    return run_finetune(image_tsv, caption_tsv, model, mesh=mesh, **run_kwargs)
+
+
+def _finetune_rank(rank, world_size, init_method, n, *args):
+    """One rank of `finetune(data_parallel=n)`: joins the training group
+    (NCCL on the cards, gloo for device='cpu'; rank, world and rendezvous
+    from torchrun's env when None), runs the fine-tune on an (n, 1) mesh,
+    and leaves the group it made."""
+    import torch.distributed as dist
+
+    from .parallel.mesh import make_mesh
+    from .runtime import distributed
+
+    own_group = not dist.is_initialized()
+    dev, backend = distributed.init_training_group(rank, world_size, init_method,
+                                                   device=args[-1])
+    try:
+        if dist.get_world_size() != n:
+            raise ValueError("data_parallel={} in a launch of {} processes".format(
+                n, dist.get_world_size()))
+        return _finetune_on(make_mesh(data=n, model=1, device=dev, backend=backend), *args)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
 
 
 def scst_finetune(

@@ -12,9 +12,10 @@ padded to one fixed length, checkpoints with resume
 and SCST (`run_scst`).
 
 The model passed in holds the weights (gitax passes a params tree
-beside it); the loops make it trainable and update it in place.  Not
-ported, and raising: `mesh` (gitax's DP x TP mesh with ZeRO-1
-optimizer-state sharding).
+beside it); the loops make it trainable and update it in place.
+`run_finetune(mesh=...)` trains on gitax's (data, model) mesh
+(`parallel.mesh`), one process per rank, with ZeRO-1 Adam moments; SCST
+runs on one card, as gitax's `run_scst` does.
 """
 
 from __future__ import annotations
@@ -105,13 +106,19 @@ def batch_iterator(
     max_text_len: int = 40,
     seed: int = 0,
     prefetch: int = 2,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> Iterator[dict]:
     """Host-side batch producer: epoch-shuffled, multi-scale by step,
     fixed token padding, prefetched on a background thread.  The
     permutation stream is read continuously across epochs, and each
     step's crop draws come from random.Random((seed << 40) + step), so a
     resumed run reproduces the continuous run's batches.  A producer
-    failure raises."""
+    failure raises.
+
+    rows=(lo, hi): only rows [lo, hi) of each global batch (a data rank's,
+    `parallel.mesh.Mesh.batch_rows`), equal to those rows of the one-card
+    batch: the rows before lo are still drawn, since the crops of a step
+    come from one sequential stream."""
     # private copy: the producer thread re-seeds transform.rng per step,
     # which must not clobber the caller's object (or race a second
     # iterator sharing the same transform)
@@ -138,8 +145,9 @@ def batch_iterator(
                         order = dataset.epoch_order(epoch, seed)
                         cached_epoch = epoch
                     idxs.append(int(order[gpos % n]))
+                lo, hi = rows or (0, batch_size)
                 samples = []
-                for j in idxs:
+                for j in idxs[:hi]:
                     img, cap = dataset.sample(j)
                     samples.append(
                         make_caption_sample(
@@ -147,6 +155,7 @@ def batch_iterator(
                             iteration=step, max_text_len=max_text_len,
                         )
                     )
+                samples = samples[lo:]
                 q.put(_pad_tokens(collate_samples(samples), max_text_len))
                 step += 1
                 pos += batch_size
@@ -269,6 +278,23 @@ def _model_device(model):
     return model.textual.output.bias.device
 
 
+def _one_card_copy(model, held):
+    """On global rank 0, `held` (a one-card GitModel on the device of
+    `model`, made when None) loaded with the gathered weights of `model`,
+    which is on a mesh; None on the other ranks.  Every rank calls it (a
+    collective over each model group)."""
+    from ..models.git import GitModel
+    from ..parallel.mesh import gather_params
+
+    full = gather_params(model)
+    if model.mesh.rank != 0:
+        return None
+    if held is None:
+        held = GitModel(model.cfg, device=_model_device(model))
+    held.load_state_dict(full, strict=True)
+    return held
+
+
 def run_finetune(
     image_tsv: str,
     caption_tsv: str,
@@ -288,6 +314,7 @@ def run_finetune(
     save_every: int = 500,
     resume: bool = True,
     mesh=None,
+    zero1: bool = True,
     tokenizer=None,
     log_every: int = 10,
     seed: int = 0,
@@ -302,13 +329,21 @@ def run_finetune(
     save_dir enables checkpoints every `save_every` steps and at the end
     and, with resume=True, picks up from the latest step found there.
     dtype: the activation dtype (default bf16); the weights and AdamW
-    stay f32.  mesh raises (not ported)."""
+    stay f32.
+
+    mesh (a `parallel.mesh.Mesh`; every rank calls run_finetune with its
+    own): rank 0's weights are broadcast, then sharded
+    (`shard_params`); each data rank trains on its rows of the one-card
+    batches; zero1 splits the AdamW moments over the data ranks.  The
+    checkpoints are one-card checkpoints (`ckpt.serialization`), so a
+    run resumes from any mesh's.  Rank 0 logs and validates (on a
+    one-card copy of the weights under tensor parallelism) while the
+    others wait.  The returned state holds this rank's shards."""
     from ..ckpt.serialization import save_train_state
+    from ..parallel import comm
+    from ..parallel.mesh import broadcast_params, shard_params
     from .trainer import default_optimizer, init_train_state, make_train_step, to_device
 
-    if mesh is not None:
-        raise NotImplementedError("mesh: SPMD over several chips (DP x TP with ZeRO-1) is not "
-                                  "ported; train on one card")
     if tokenizer is None:
         from ..inference import _load_tokenizer
 
@@ -323,28 +358,41 @@ def run_finetune(
         patch_size=model.cfg.encoder.patch_size,
         seed=seed,
     )
+    lead = mesh is None or mesh.rank == 0  # logs and validates
+    rows = None
+    if mesh is not None:
+        rows = mesh.batch_rows(batch_size)
+        broadcast_params(model)
+        shard_params(model, mesh)
     state = init_train_state(model, *default_optimizer(
         model, learning_rate=learning_rate, weight_decay=weight_decay,
-        warmup_steps=warmup_steps, total_steps=num_steps))
+        warmup_steps=warmup_steps, total_steps=num_steps, zero1=zero1))
     start_step = _resume(state, save_dir, resume)
     step_fn = make_train_step(model, dtype=dtype, remat=remat)
 
-    val_engine_box = [None]
+    val = {"engine": None, "copy": None}
 
     def validate(step_now):
-        vk = dict(val_kwargs or {})
-        if val_engine_box[0] is None:
-            val_engine_box[0] = _caption_engine(
-                model, tokenizer, vk.get("crop_size", 224), vk.get("batch_size", 8),
-                vk.get("num_beams", 4), vk.get("max_steps", 40), dtype)
-        metrics = evaluate_model_on_tsv(
-            model, tokenizer, val_image_tsv, val_caption_tsv,
-            dtype=dtype, engine=val_engine_box[0], **vk,
-        )
-        logging.info(
-            "validation @ step %d: %s", step_now,
-            " ".join("{}={:.4f}".format(k, v) for k, v in metrics.items()),
-        )
+        val_model = model
+        if model.textual.tp_group is not None:  # a collective over the model group
+            val_model = val["copy"] = _one_card_copy(model, val["copy"])
+        metrics = None
+        if lead:
+            vk = dict(val_kwargs or {})
+            if val["engine"] is None:
+                val["engine"] = _caption_engine(
+                    val_model, tokenizer, vk.get("crop_size", 224), vk.get("batch_size", 8),
+                    vk.get("num_beams", 4), vk.get("max_steps", 40), dtype)
+            metrics = evaluate_model_on_tsv(
+                val_model, tokenizer, val_image_tsv, val_caption_tsv,
+                dtype=dtype, engine=val["engine"], **vk,
+            )
+            logging.info(
+                "validation @ step %d: %s", step_now,
+                " ".join("{}={:.4f}".format(k, v) for k, v in metrics.items()),
+            )
+        if mesh is not None:
+            comm.barrier(device)
         return metrics
 
     t0 = time.time()
@@ -352,14 +400,14 @@ def run_finetune(
     try:
         for batch in batch_iterator(
             dataset, tokenizer, transform, batch_size, num_steps,
-            start_step=start_step, max_text_len=max_text_len, seed=seed,
+            start_step=start_step, max_text_len=max_text_len, seed=seed, rows=rows,
         ):
             batch = to_device(batch, device)
             batch["image"] = batch["image"].to(dtype)
             state, metrics = step_fn(state, batch)
             window += 1
             step_now = start_step + window
-            if step_now % log_every == 0:
+            if lead and step_now % log_every == 0:
                 loss = float(metrics["loss"])  # waits for the step
                 dt = time.time() - t0
                 logging.info(
@@ -376,8 +424,8 @@ def run_finetune(
         if val_image_tsv:
             validate(num_steps)
     finally:
-        if val_engine_box[0] is not None:
-            val_engine_box[0].close()
+        if val["engine"] is not None:
+            val["engine"].close()
     return state
 
 

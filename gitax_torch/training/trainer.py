@@ -11,6 +11,15 @@ update, as optax's `scale_by_schedule` does (the first update's rate is
 `optax.adamw`'s unmasked decay does, and a trainable parameter the loss
 does not reach gets a zero gradient, so the decay and the moments still
 move it, as optax's zero leaves do.
+
+On a mesh (a model sharded by `parallel.mesh.shard_params`) the step is
+gitax's SPMD step spelled out: each rank runs its data rank's rows on its
+model shard, the loss is divided by the global count of predicted tokens,
+the gradients are summed over the data group, the grad norm counts each
+split gradient once per model rank and each replicated one once, and
+with ZeRO-1 (`zero1`) `torch.distributed.optim.ZeroRedundancyOptimizer`
+keeps each parameter's AdamW moments on one data rank, which updates it
+and broadcasts it.
 """
 
 from __future__ import annotations
@@ -23,6 +32,8 @@ from typing import Callable
 import torch
 
 from ..models.git import GitModel
+from ..parallel import comm
+from ..parallel.mesh import split_rule
 from .loss import caption_loss
 
 
@@ -74,25 +85,37 @@ class ConstantSchedule(_Schedule):
         return self.value
 
 
-def adamw(model: GitModel, schedule, weight_decay=1e-4):
+def adamw(model: GitModel, schedule, weight_decay=1e-4, zero1=False):
     """torch.optim.AdamW over the model's parameters with optax.adamw's
     settings: betas (0.9, 0.999), eps 1e-8, and `weight_decay` (optax's
     default 1e-4, not torch's 1e-2) on every parameter; the tied head is
     one Parameter, counted once.  The rate is set from `schedule` before
-    each update.  Returns (optimizer, schedule)."""
-    opt = torch.optim.AdamW(model.parameters(), lr=0.0, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=weight_decay)
+    each update.  zero1=True on a model on a mesh of more than one data
+    rank: the same AdamW inside a ZeroRedundancyOptimizer over the data
+    group (ZeRO-1).  Returns (optimizer, schedule)."""
+    settings = dict(lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+    mesh = model.mesh
+    if zero1 and mesh is not None and mesh.data > 1:
+        from torch.distributed.optim import ZeroRedundancyOptimizer
+
+        # ZeRO partitions the trainable parameters: thaw them first, as
+        # init_train_state does
+        model.trainable_(True)
+        opt = ZeroRedundancyOptimizer(model.parameters(), torch.optim.AdamW,
+                                      process_group=mesh.data_group, **settings)
+    else:
+        opt = torch.optim.AdamW(model.parameters(), **settings)
     return opt, schedule
 
 
 def default_optimizer(model: GitModel, learning_rate=1e-5, weight_decay=0.2, warmup_steps=500,
-                      total_steps=100_000):
+                      total_steps=100_000, zero1=False):
     """gitax's default: AdamW under a linear warmup from 0 and a cosine
-    decay to 0 at max(total_steps, warmup_steps + 1).  Returns
-    (optimizer, schedule)."""
+    decay to 0 at max(total_steps, warmup_steps + 1); zero1: see `adamw`.
+    Returns (optimizer, schedule)."""
     schedule = WarmupCosineSchedule(learning_rate, warmup_steps,
                                     max(total_steps, warmup_steps + 1))
-    return adamw(model, schedule, weight_decay)
+    return adamw(model, schedule, weight_decay, zero1)
 
 
 @dataclasses.dataclass
@@ -115,17 +138,34 @@ def init_train_state(model: GitModel, optimizer=None, schedule=None) -> TrainSta
     return TrainState(step=0, model=model, optimizer=optimizer, schedule=schedule)
 
 
+def global_grad_norm(model: GitModel, named) -> torch.Tensor:
+    """optax.global_norm of the gradients of `named` ((name, parameter)
+    pairs): on a tensor-parallel mesh the squares of the split gradients
+    are summed over the model group, the replicated ones counted once."""
+    mesh = model.mesh
+    if mesh is None or mesh.model == 1:
+        return torch.nn.utils.get_total_norm([p.grad for _, p in named])
+    sq = [torch.zeros((), device=mesh.device) for _ in range(2)]  # replicated, split
+    for n, p in named:
+        sq[split_rule(n) is not None] += p.grad.float().square().sum()
+    return (sq[0] + comm.all_reduce(sq[1], mesh.model_group)).sqrt()
+
+
 def apply_gradients(state: TrainState) -> torch.Tensor:
     """One AdamW update from the gradients the backward left in the
     parameters, at the schedule's rate for the current count; a trainable
-    parameter with no gradient gets zeros.  Returns the global L2 norm of
-    the gradients before the update (optax.global_norm), and advances the
+    parameter with no gradient gets zeros.  On a mesh the gradients are
+    first summed over the data group.  Returns the global L2 norm of the
+    gradients before the update (optax.global_norm), and advances the
     count."""
-    params = [p for p in state.model.parameters() if p.requires_grad]
-    for p in params:
+    named = [(n, p) for n, p in state.model.named_parameters() if p.requires_grad]
+    for _, p in named:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    gnorm = torch.nn.utils.get_total_norm([p.grad for p in params])
+    mesh = state.model.mesh
+    if mesh is not None:
+        comm.all_reduce_coalesced([p.grad for _, p in named], mesh.data_group)
+    gnorm = global_grad_norm(state.model, named)
     lr = state.schedule(state.step)
     for group in state.optimizer.param_groups:
         group["lr"] = lr
@@ -139,7 +179,10 @@ def make_train_step(model: GitModel, dtype=torch.float32, label_smoothing=0.1, r
                     fast_softmax=False):
     """Returns step(state, batch) -> (state, {'loss', 'grad_norm'}), both
     0-dim tensors on the model's device (read them when the host needs
-    them).  The optimizer and its schedule travel in the state.
+    them).  The optimizer and its schedule travel in the state.  On a
+    model on a mesh (`model.mesh`) every rank calls the step with its
+    data rank's rows (`Mesh.local_batch`); the loss and grad_norm are
+    those of the global batch, on every rank.
 
     batch: {'image': [B, H, W, 3] or [B, F, H, W, 3], 'caption_tokens'
     [B, T], 'need_predict' [B, T]} tensors on the model's device
@@ -161,11 +204,14 @@ def make_train_step(model: GitModel, dtype=torch.float32, label_smoothing=0.1, r
             context_lengths=batch.get("context_lengths"),
             dtype=dtype, fast=True if fast_softmax else None, remat=remat,
         )
+        group = model.mesh.data_group if model.mesh is not None else None
         loss = caption_loss(logits, batch["caption_tokens"], batch["need_predict"],
-                            eps=label_smoothing, padding_idx=model.cfg.padding_idx)
+                            eps=label_smoothing, padding_idx=model.cfg.padding_idx, group=group)
         loss.backward()
         gnorm = apply_gradients(state)
-        return state, {"loss": loss.detach(), "grad_norm": gnorm}
+        # this rank's share of the global mean, summed over the data ranks
+        return state, {"loss": comm.all_reduce(loss.detach().clone(), group),
+                       "grad_norm": gnorm}
 
     return step
 

@@ -8,7 +8,8 @@ the same weights):
 * `ckpt.serialization`: a train state round-trips, latest_step skips an
   unfinished write;
 * `run_finetune`: a run saved at step 2 and resumed ends with the
-  continuous run's weights and moments, exactly; `mesh` raises;
+  continuous run's weights and moments, exactly; a mesh whose data
+  ranks do not split the batch raises (meshes: test_torch_port_parallel);
 * SCST: `sequence_logprob_loss` and its gradients against gitax's; one
   `ScstTrainer.step` with gitax's Gumbel draws replayed through
   `decode.beam.gumbel_noise` gives gitax's sequences, rewards,
@@ -260,8 +261,15 @@ def test_run_finetune_resume_takes_the_new_schedule(tmp_path):
 
 
 def test_run_finetune_refuses_a_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ft.run_finetune("img.tsv", "cap.tsv", port_model(), mesh=object())
+    """A mesh whose data ranks do not split the batch raises before any
+    collective (training on meshes: tests/test_torch_port_parallel.py)."""
+    from gitax_torch.parallel.mesh import Mesh
+
+    img_tsv, cap_tsv = fixture_tsvs(tmp_path)
+    mesh = Mesh(data=2, model=1, rank=0, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="does not split over 2 data ranks"):
+        ft.run_finetune(img_tsv, cap_tsv, port_model(), mesh=mesh, batch_size=3,
+                        tokenizer=tokenizers()[0])
 
 
 def test_evaluate_model_on_tsv_scores_and_refuses_conflicts(tmp_path):
@@ -402,10 +410,14 @@ def test_train_cli_runs_on_the_card_by_default(tiny_cli, monkeypatch):
         train.speed_test_forward_backward(duplicate=1, iterations=1)
 
 
-def test_finetune_cli_loads_checkpoints_and_refuses_data_parallel(tiny_cli, tmp_path):
+def test_finetune_cli_loads_checkpoints_and_refuses_data_parallel(tiny_cli, tmp_path,
+                                                                   monkeypatch):
     img_tsv, cap_tsv = fixture_tsvs(tmp_path)
-    with pytest.raises(NotImplementedError, match="data_parallel"):
-        train.finetune(img_tsv, cap_tsv, data_parallel=2, device="cpu")
+    # data_parallel above the card count (data_parallel on CPU ranks:
+    # tests/test_torch_port_parallel.py)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="data_parallel=2 needs 2 cards"):
+        train.finetune(img_tsv, cap_tsv, data_parallel=2)
     src = port_model(seed=4)
     torch.save({"model": src.state_dict()}, str(tmp_path / "model.pt"))
     for ckpt_path in (str(tmp_path / "model.pt"), None):
