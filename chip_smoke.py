@@ -154,7 +154,32 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      4 steps saving 2 and 4, and a run resumed from step 2 whose weights,
      moments and step count equal the continuous run's.  No rank launches
      a kernel.
-Phases 14-19, 21 and 22 write in build/gitax_torch/smoke_work, removed after.
+ 23. inference on a mesh: this process is rank 0 and ranks 1.. are
+     spawned processes that import gitax_torch only, NCCL one card a rank
+     where the machine has a card for each, else sharing card 0 over gloo
+     (a rehearsal, which its lines say).  First kernels 1-3 at a rank's
+     shapes, each against its plain version at phases 3, 4 and 9's bars
+     and timed beside its bound, plain version and (kernel 2) SDPA:
+     kernel 1 at H=6 (12 heads over 2 model ranks), B=32, M 257 and 1201;
+     kernel 2's encoder at H=8, S=1201 and its prefill at H=6,
+     M=1201+12; kernel 3 at R=64 (a data rank of 2 at batch 32).  (a)
+     f32, GIT_LARGE_COCO's widths at 2 encoder blocks and 1 decoder
+     layer, attention x10: 16 COCO images and 8 VQA pairs at S=1201
+     (kernel 2 forced on) on [2, 1], [1, 2] and [2, 2] give one card's
+     tokens in device batches of a data rank's rows, and every model
+     group's ranks hold equal sequences; (b) bf16 + int8 at full size: the
+     COCO engine on DP = cards (2 on one card) at 32 rows a data rank,
+     images/s beside one card in this call, one batch with
+     vocab_kernel=True (kernel 3 at R = 4 x 32 / DP); VQA (30x40, the
+     long question) on [1, 2], pairs/s; each rank's peak memory and the
+     share of sequences equal to one card's; (c) `python -m
+     gitax_torch.inference -p` with mesh_shape 2 on phase 14's TSV and
+     checkpoint (every row checked), a 16-row f32 TSV byte-identical to
+     the one-card CLI's, and `build_serving_stack(mesh_shape=2)`: f32
+     replies equal one card's, /stats counting the mesh's padding, then
+     16 closed-loop clients for 10 s beside phase 18.  The launches of
+     every rank join the kernels JSON line's.
+Phases 14-19, 21, 22 and 23 write in build/gitax_torch/smoke_work, removed after.
 Each slice prints its peak device memory.
 Prints the card's name and power limit, one JSON line describing the
 kernels (launches on the main path; error, time, plain time, bound and
@@ -261,20 +286,23 @@ def in_turns(plain, kernel, plain_iters, kernel_iters, warmup=10):
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
 
 
-def device_ms(fn, iters, name, warmup=3):
+def device_ms(fn, iters, name, warmup=3, attempts=3):
     """Mean device time of the kernels whose name holds `name` that
     `iters` calls of `fn` launch, from torch.profiler: the kernel's own
     time, which a host clock around calls that launch faster than the host
     can issue them does not give.  The timed calls sit in a marked range
     with one more call before and after it, each side behind a
-    synchronize, and only kernels that ran inside the range count.  The
-    tracer does not keep every kernel record (runs on the H100 held 19 of
-    20 and 15 of 20), and each record it keeps has the kernel's whole
-    duration, so the mean is over the kernels it kept, and the count is
-    printed when it is short.  The device's and the host's clocks are
-    aligned only roughly, so one of the two untimed calls may show inside
-    the range (a run held 61 for 60 calls): it is the same kernel on the
-    same inputs and stays in the mean."""
+    synchronize.  A kernel counts if it ran inside the range, or if the
+    runtime call that launched it (same correlation id) lies inside the
+    range on the host's clock: the device's and the host's clocks are
+    aligned only roughly, so a time window alone can miss kernels that
+    ran in the range (a run held 61 for 60 calls, others fewer).  The
+    tracer does not always keep every kernel record (full runs of this
+    script on the H100 held 8 of 20 and 48 of 60, and once none of 20),
+    and each record it keeps has the kernel's whole duration, so the mean
+    is over the kernels it kept and the count is printed when it is short;
+    a profile that keeps fewer than half is taken again, up to `attempts`
+    times, and the one that kept most is used."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -282,28 +310,41 @@ def device_ms(fn, iters, name, warmup=3):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-        with record_function("gitax_timed_calls"):
-            for _ in range(iters):
-                fn()
+    best, seen = [], []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
             torch.cuda.synchronize()
-        fn()
-        torch.cuda.synchronize()
-    events = prof.events()
-    ranges = [e.time_range for e in events
-              if e.name == "gitax_timed_calls" and e.device_type == DeviceType.CPU]
-    check(len(ranges) == 1, "the profile shows {} timed ranges".format(len(ranges)))
-    lo, hi = ranges[0].start, ranges[0].end
-    hit = [e.time_range for e in events if e.device_type == DeviceType.CUDA and name in e.name
-           and lo <= e.time_range.start and e.time_range.end <= hi]
-    check(1 <= len(hit) <= iters + 2, "the profile shows {} {} kernels inside the range of {} "
-          "calls".format(len(hit), name, iters))
-    if len(hit) < iters:
-        log("device_ms: the trace kept {} of the {} {} kernels; the mean is over those".format(
-            len(hit), iters, name))
-    return sum(r.elapsed_us() for r in hit) / len(hit) / 1e3
+            with record_function("gitax_timed_calls"):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        ranges = [e.time_range for e in events
+                  if e.name == "gitax_timed_calls" and e.device_type == DeviceType.CPU]
+        check(len(ranges) == 1, "the profile shows {} timed ranges".format(len(ranges)))
+        lo, hi = ranges[0].start, ranges[0].end
+        launched = {e.id for e in events if e.device_type == DeviceType.CPU
+                    and e.name.startswith("cu") and "Launch" in e.name
+                    and lo <= e.time_range.start and e.time_range.end <= hi}
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA and name in e.name]
+        hit = [e.time_range for e in kernels if e.id in launched
+               or lo <= e.time_range.start and e.time_range.end <= hi]
+        check(len(hit) <= iters + 2, "the profile shows {} {} kernels inside the range of {} "
+              "calls".format(len(hit), name, iters))
+        seen.append("{} of {} in the trace".format(len(hit), len(kernels)))
+        if len(hit) > len(best):
+            best = hit
+        if 2 * len(best) >= iters:
+            break
+    check(best, "the profiles show no {} kernel inside the range of {} calls ({})".format(
+        name, iters, "; ".join(seen)))
+    if len(best) < iters:
+        log("device_ms: the trace kept {} of the {} {} kernels; the mean is over those "
+            "(profiles: {})".format(len(best), iters, name, "; ".join(seen)))
+    return sum(r.elapsed_us() for r in best) / len(best) / 1e3
 
 
 def peak_memory(label, card):
@@ -449,15 +490,18 @@ def ptxas_report(text):
     return rows
 
 
-def decode_inputs(g, dtype, mem_int8, pos, m=M, bias=False):
-    """One decode-attention call's inputs on the card, N(0, 0.25) values.
-    bias: False (no memory bias), True (N(0, 0.25)), or "pad": the text
-    context's bias, 0 over the image and each row's valid context tokens
-    and -1e18 over the rest, as `prefill` builds it from memory_valid."""
+def decode_inputs(g, dtype, mem_int8, pos, m=M, bias=False, b=B, h=H):
+    """One decode-attention call's inputs on the card, N(0, 0.25) values,
+    for a batch of b and h heads (default the COCO path's; a rank of a
+    model group holds fewer heads).  bias: False (no memory bias), True
+    (N(0, 0.25)), or "pad": the text context's bias, 0 over the image and
+    each row's valid context tokens and -1e18 over the rest, as `prefill`
+    builds it from memory_valid."""
     import torch
 
     from gitax_torch.ops.decode_attention import quantize_memory
 
+    B, H = b, h  # noqa: N806 -- this call's shapes
     dev = torch.device("cuda")
     r = lambda *s: (torch.randn(*s, generator=g) * 0.5).to(dev)  # noqa: E731
     anc = torch.randint(0, K, (B * K, T), generator=g, dtype=torch.int32).to(dev)
@@ -476,20 +520,14 @@ def decode_inputs(g, dtype, mem_int8, pos, m=M, bias=False):
                 mem_kv=mem, mem_bias=mem_bias, mem_scale=scale)
 
 
-def check_decode_kernel():
-    """Decode attention against the plain version on the same inputs at
-    the COCO, VQA and video paths' memory lengths; the worst bf16 error
-    against the plain version run in f32 at the COCO shape."""
+def check_decode_case(label, a, dtype, mem_int8, kw):
+    """One decode-attention call on the inputs `a` against the plain
+    version: the cache bit-equal; f32 within 1e-5; bf16 within 2^-7 of
+    the plain version in f32 and within max|ctx|/64 of it in bf16.
+    Returns max|ctx - plain| (bf16: against the plain version in f32)."""
     import torch
 
-    from gitax_torch.ops.decode_attention import (
-        cluster_plan,
-        decode_attention_cuda,
-        decode_attention_reference,
-    )
-
-    g = torch.Generator().manual_seed(0)
-    kw = dict(beams=K, num_heads=H, head_dim=DH)
+    from gitax_torch.ops.decode_attention import decode_attention_cuda, decode_attention_reference
 
     def upcast(a):
         a = dict(a)
@@ -499,6 +537,56 @@ def check_decode_kernel():
             a["mem_kv"] = a["mem_kv"].float()
         return a
 
+    ker_cache, ref_cache = a["txt_kv"].clone(), a["txt_kv"].clone()
+    ctx = decode_attention_cuda(**dict(a, txt_kv=ker_cache), **kw)
+    ref = decode_attention_reference(**dict(a, txt_kv=ref_cache), **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(ker_cache, ref_cache), "{}: cache differs".format(label))
+    if dtype == torch.float32:
+        # same f32 math, other summation order
+        err = (ctx - ref).abs().max().item()
+        check(torch.allclose(ctx, ref, atol=1e-5, rtol=1e-5),
+              "{}: ctx err {}".format(label, err))
+        log("decode kernel {}: cache bit-equal, max|ctx-plain| {:.3e} "
+            "(tol 1e-5 abs + 1e-5 rel)".format(label, err))
+        return err
+    # bf16: against the plain version run in f32 on the same bf16
+    # inputs.  The kernel rounds each probability to bf16 (rel 2^-8),
+    # int8 memory is dequantized in bf16 (rel 2^-8), and the context
+    # is cast to bf16 once (rel 2^-8): tol 2^-7 of max|v| abs + 2^-7
+    # rel covers them.  Against the plain version in bf16, which
+    # rounds at the same points, the kernel may differ by an ulp of
+    # the context or of a probability: within 2^-6 of max|ctx|
+    ref32 = decode_attention_reference(**dict(upcast(a), txt_kv=a["txt_kv"].float().clone()), **kw)
+    same = (ctx.float() - ref.float()).abs().max().item()
+    same_tol = ref32.abs().max().item() / 64
+    err = (ctx.float() - ref32).abs().max().item()
+    vmax = ref_cache.float().abs().max().item()
+    if mem_int8:
+        vmax = max(vmax, 127 * a["mem_scale"].max().item())
+    else:
+        vmax = max(vmax, a["mem_kv"].float().abs().max().item())
+    atol = vmax / 128
+    check(torch.allclose(ctx.float(), ref32, atol=atol, rtol=1 / 128),
+          "{}: ctx err {} vs f32 plain".format(label, err))
+    check(same <= same_tol, "{}: max|ctx-plain_bf16| {} > max|plain_f32|/64 {}".format(
+        label, same, same_tol))
+    log("decode kernel {}: cache bit-equal, max|ctx-plain_f32| {:.3e} (tol {:.3e} abs + "
+        "2^-7 rel), max|ctx-plain_bf16| {:.3e} (tol {:.3e}, max|ctx|/64)".format(
+            label, err, atol, same, same_tol))
+    return err
+
+
+def check_decode_kernel():
+    """Decode attention against the plain version on the same inputs at
+    the COCO, VQA and video paths' memory lengths; the worst bf16 error
+    against the plain version run in f32 at the COCO shape."""
+    import torch
+
+    from gitax_torch.ops.decode_attention import cluster_plan
+
+    g = torch.Generator().manual_seed(0)
+    kw = dict(beams=K, num_heads=H, head_dim=DH)
     worst_main = 0.0
     kinds = (("f32", torch.float32, False), ("bf16", torch.bfloat16, False),
              ("bf16+int8mem", torch.bfloat16, True))
@@ -520,104 +608,130 @@ def check_decode_kernel():
         a = decode_inputs(g, dtype, mem_int8, pos, m, bias)
         label = "{:18s} M={:4d} pos={:2d} (cluster {})".format(
             name, m, pos, cluster_plan(m, K, DH, T, a["mem_kv"].element_size())[0])
-        ker_cache, ref_cache = a["txt_kv"].clone(), a["txt_kv"].clone()
-        ctx = decode_attention_cuda(**dict(a, txt_kv=ker_cache), **kw)
-        ref = decode_attention_reference(**dict(a, txt_kv=ref_cache), **kw)
-        torch.cuda.synchronize()
-        check(torch.equal(ker_cache, ref_cache), "{}: cache differs".format(label))
-        if dtype == torch.float32:
-            # same f32 math, other summation order
-            err = (ctx - ref).abs().max().item()
-            check(torch.allclose(ctx, ref, atol=1e-5, rtol=1e-5),
-                  "{}: ctx err {}".format(label, err))
-            log("decode kernel {}: cache bit-equal, max|ctx-plain| {:.3e} "
-                "(tol 1e-5 abs + 1e-5 rel)".format(label, err))
-            continue
-        # bf16: against the plain version run in f32 on the same bf16
-        # inputs.  The kernel rounds each probability to bf16 (rel 2^-8),
-        # int8 memory is dequantized in bf16 (rel 2^-8), and the context
-        # is cast to bf16 once (rel 2^-8): tol 2^-7 of max|v| abs + 2^-7
-        # rel covers them.  Against the plain version in bf16, which
-        # rounds at the same points, the kernel may differ by an ulp of
-        # the context or of a probability: within 2^-6 of max|ctx|
-        ref32 = decode_attention_reference(**dict(upcast(a), txt_kv=a["txt_kv"].float().clone()), **kw)
-        same = (ctx.float() - ref.float()).abs().max().item()
-        same_tol = ref32.abs().max().item() / 64
-        err = (ctx.float() - ref32).abs().max().item()
-        vmax = ref_cache.float().abs().max().item()
-        if mem_int8:
-            vmax = max(vmax, 127 * a["mem_scale"].max().item())
-        else:
-            vmax = max(vmax, a["mem_kv"].float().abs().max().item())
-        atol = vmax / 128
-        check(torch.allclose(ctx.float(), ref32, atol=atol, rtol=1 / 128),
-              "{}: ctx err {} vs f32 plain".format(label, err))
-        check(same <= same_tol, "{}: max|ctx-plain_bf16| {} > max|plain_f32|/64 {}".format(
-            label, same, same_tol))
+        err = check_decode_case(label, a, dtype, mem_int8, kw)
         if name == "bf16" and m == M:
             worst_main = max(worst_main, err)
-        log("decode kernel {}: cache bit-equal, max|ctx-plain_f32| {:.3e} (tol {:.3e} abs + "
-            "2^-7 rel), max|ctx-plain_bf16| {:.3e} (tol {:.3e}, max|ctx|/64)".format(
-                label, err, atol, same, same_tol))
-        del a, ker_cache, ref_cache, ctx, ref, ref32
+        del a
     torch.cuda.empty_cache()
     return worst_main
 
 
-def phase_decode_kernel(card):
-    """Decode attention against the plain version on the same inputs, and
-    its time beside the plain version's and its bound."""
+def time_decode(card, g, m, bias=False, b=B, h=H):
+    """Kernel 1's time per call in bf16 at pos=12 (a caption of ~12
+    tokens) for a batch of b and h heads at memory length m: 6 memory
+    buffers in turn, as the 6 decoder layers read them, so the memory K/V
+    does not sit in the 50 MB L2 from the call before; the device time,
+    the plain version's in turns, the bound."""
     import torch
 
     from gitax_torch.ops.decode_attention import decode_attention_cuda, decode_attention_reference
 
+    B, H = b, h  # noqa: N806 -- this call's shapes
+    kw = dict(beams=K, num_heads=H, head_dim=DH)
+    layers = [decode_inputs(g, torch.bfloat16, False, 12, m, bias, b=B, h=H) for _ in range(6)]
+    it = {"i": 0}
+
+    def run(fn):
+        def call():
+            a = layers[it["i"] % 6]
+            it["i"] += 1
+            fn(**a, **kw)
+        return call
+
+    plain_ms, call_ms, t = in_turns(run(decode_attention_reference), run(decode_attention_cuda),
+                                    20 if m > M else 60, 300)
+    ker_ms = device_ms(run(decode_attention_cuda), 60, "decode_attention")
+    # bytes: the memory K/V, the live text rows the ancestry selects
+    # (k|v), q, the new rows read and written into the cache, ctx, the
+    # bias; operations: q.k and p.v over [memory ; live text], f32.
+    # Under the padded bias only the valid memory rows count (a masked
+    # row weighs exp(-1e18) = 0): what this run's data needs
+    npos = 12 + 1
+    m_live = sum((a["mem_bias"] == 0).sum().item() for a in layers) / (6 * B) if bias else m
+    mem_bytes = B * H * m_live * 2 * DH * 2
+    nbytes = mem_bytes + B * K * H * npos * 2 * DH * 2 + B * K * H * DH * 2 * 2 \
+        + B * K * H * 2 * DH * 2 * 2 + (B * m * 4 if bias else 0)
+    bound_ms, bound_by = bound(nbytes, 2 * 2 * B * K * H * (m_live + npos) * DH, F32_FLOPS)
+    log("decode kernel time, bf16 B={} K={} H={} Dh={} M={}{} T={} pos=12: kernel {:.4f} ms "
+        "on the device (profiler), {:.4f} ms per call back to back (events, host launch "
+        "included); plain {:.4f} ms per call (plain,kernel,kernel,plain = {}); bound {:.4f} ms "
+        "({}: {:.1f} MB), {:.1%} of it; memory K/V {:.0f} GB/s [{}]".format(
+            B, K, H, DH, m, " with mem_bias (text context; {:.1f} valid rows a row on "
+            "average)".format(m_live) if bias else "", T, ker_ms,
+            call_ms, plain_ms, ["%.4f" % x for x in t], bound_ms,
+            bound_by, nbytes / 1e6, bound_ms / ker_ms, mem_bytes / (ker_ms * 1e-3) / 1e9, card))
+    del layers
+    torch.cuda.empty_cache()
+    return dict(ms=ker_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_decode_kernel(card):
+    """Decode attention against the plain version on the same inputs, and
+    its time beside the plain version's and its bound at the COCO path's
+    M=257, the text context's 245, the VQA path's 1201 and the video's
+    1542."""
+    import torch
+
     worst_main = check_decode_kernel()
     g = torch.Generator().manual_seed(0)
-    kw = dict(beams=K, num_heads=H, head_dim=DH)
-    # time per call in bf16 at pos=12 (a caption of ~12 tokens) at the
-    # COCO path's M=257, the VQA path's 1201 and the video's 1542; 6
-    # memory buffers in turn, as the 6 decoder layers read them, so the
-    # memory K/V does not sit in the 50 MB L2 from the call before
-    out = {}
-    for m, bias in ((M, False), (CTX_M, "pad"), (1201, False), (1542, False)):
-        layers = [decode_inputs(g, torch.bfloat16, False, 12, m, bias) for _ in range(6)]
-        it = {"i": 0}
-
-        def run(fn):
-            def call():
-                a = layers[it["i"] % 6]
-                it["i"] += 1
-                fn(**a, **kw)
-            return call
-
-        plain_ms, call_ms, t = in_turns(run(decode_attention_reference), run(decode_attention_cuda),
-                                        20 if m > M else 60, 300)
-        ker_ms = device_ms(run(decode_attention_cuda), 60, "decode_attention")
-        # bytes: the memory K/V, the live text rows the ancestry selects
-        # (k|v), q, the new rows read and written into the cache, ctx, the
-        # bias; operations: q.k and p.v over [memory ; live text], f32.
-        # Under the padded bias only the valid memory rows count (a masked
-        # row weighs exp(-1e18) = 0): what this run's data needs
-        npos = 12 + 1
-        m_live = sum((a["mem_bias"] == 0).sum().item() for a in layers) / (6 * B) if bias else m
-        mem_bytes = B * H * m_live * 2 * DH * 2
-        nbytes = mem_bytes + B * K * H * npos * 2 * DH * 2 + B * K * H * DH * 2 * 2 \
-            + B * K * H * 2 * DH * 2 * 2 + (B * m * 4 if bias else 0)
-        bound_ms, bound_by = bound(nbytes, 2 * 2 * B * K * H * (m_live + npos) * DH, F32_FLOPS)
-        log("decode kernel time, bf16 B={} K={} H={} Dh={} M={}{} T={} pos=12: kernel {:.4f} ms "
-            "on the device (profiler), {:.4f} ms per call back to back (events, host launch "
-            "included); plain {:.4f} ms per call (plain,kernel,kernel,plain = {}); bound {:.4f} ms "
-            "({}: {:.1f} MB), {:.1%} of it; memory K/V {:.0f} GB/s [{}]".format(
-                B, K, H, DH, m, " with mem_bias (text context; {:.1f} valid rows a row on "
-                "average)".format(m_live) if bias else "", T, ker_ms,
-                call_ms, plain_ms, ["%.4f" % x for x in t], bound_ms,
-                bound_by, nbytes / 1e6, bound_ms / ker_ms, mem_bytes / (ker_ms * 1e-3) / 1e9, card))
-        out[m] = dict(ms=ker_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-        del layers
-    torch.cuda.empty_cache()
+    out = {m: time_decode(card, g, m, bias)
+           for m, bias in ((M, False), (CTX_M, "pad"), (1201, False), (1542, False))}
     # no single PyTorch call does the ancestry gather, the in-place cache
     # write and one softmax over [memory ; text]
     return dict(max_abs_err=worst_main, **out[M], library_ms=None)
+
+
+def check_flash_case(g, name, entry, b, h, s, m, dtype, regime, qk_std):
+    """One fused-attention call (entry 'qkv': the encoder's, off the fused
+    projection; 'masked': the prefill's, GIT's block mask over m memory
+    rows) on inputs of q and k std `qk_std` from `g`, against the plain
+    version: f32 within 1e-5; bf16 within 2^-7 of the plain version in
+    f32 and within max|out|/64 of it in bf16.  Returns max|out - plain|
+    (against the plain version in f32)."""
+    import torch
+
+    from gitax_torch.ops import flash_attention as fa
+
+    if entry == "qkv":
+        scale = torch.tensor([qk_std] * (2 * h * DH) + [0.5] * (h * DH))
+        qkv = (torch.randn(b, s, 3 * h * DH, generator=g) * scale).cuda().to(dtype)
+        out = fa.flash_qkv_attention(qkv, h).unflatten(2, (h, DH)).transpose(1, 2)
+        q, k, v = [x.transpose(1, 2) for x in qkv.unflatten(2, (3, h, DH)).unbind(2)]
+    else:
+        q, k, v = [(torch.randn(b, s, h * DH, generator=g) * std).cuda().to(dtype)
+                   .unflatten(2, (h, DH)).transpose(1, 2) for std in (qk_std, qk_std, 0.5)]
+        out = fa.fused_attention(q, k, v, m, True)
+    torch.cuda.synchronize()
+    ref32 = fa.attention_reference(q.float(), k.float(), v.float(), m, entry == "masked")
+    err = (out.float() - ref32).abs().max().item()
+    if dtype == torch.float32:
+        # same f32 math, other summation order
+        check(torch.allclose(out, ref32, atol=1e-5, rtol=1e-5),
+              "flash {} f32: err {}".format(name, err))
+        log("flash kernel f32  {:20s}: max|out-plain| {:.3e} (tol 1e-5 abs + 1e-5 rel)".format(
+            name, err))
+        return err
+    # against the plain version run in f32 on the same bf16 inputs: the
+    # kernel rounds each probability and the context to bf16 once each
+    # (rel 2^-8), so 2^-7 of max|v| abs + 2^-7 rel covers them.  That
+    # bound is loose where the outputs are small: against the plain
+    # version in bf16, which rounds at the same points, the kernel may
+    # differ by an ulp of the context or of a probability, within 2^-6 of
+    # max|output| (a skipped K tile or a text row that sees the future is
+    # off by more)
+    ref = fa.attention_reference(q, k, v, m, entry == "masked")
+    same = (out.float() - ref.float()).abs().max().item()
+    atol = v.float().abs().max().item() / 128
+    same_tol = ref32.abs().max().item() / 64
+    label = "flash {} {} bf16".format(name, regime)
+    check(torch.allclose(out.float(), ref32, atol=atol, rtol=1 / 128),
+          "{}: err {} vs f32 plain".format(label, err))
+    check(same <= same_tol, "{}: max|out-plain_bf16| {} > max|plain_f32|/64 {}".format(
+        label, same, same_tol))
+    log("flash kernel bf16 {:20s} {}: max|out-plain_f32| {:.3e} (tol {:.3e} abs + 2^-7 "
+        "rel), max|out-plain_bf16| {:.3e} (tol {:.3e}, max|out|/64)".format(
+            name, regime, err, atol, same, same_tol))
+    return err
 
 
 def check_flash_kernel():
@@ -626,18 +740,7 @@ def check_flash_kernel():
     against the plain version run in f32 on the VQA shapes."""
     import torch
 
-    from gitax_torch.ops import flash_attention as fa
-
     g = torch.Generator().manual_seed(1)
-
-    def qkv_input(b, s, h, dtype, qk_std):
-        scale = torch.tensor([qk_std] * (2 * h * DH) + [0.5] * (h * DH))
-        return (torch.randn(b, s, 3 * h * DH, generator=g) * scale).cuda().to(dtype)
-
-    def masked_input(b, h, t, dtype, qk_std):
-        return [(torch.randn(b, t, h * DH, generator=g) * std).cuda().to(dtype)
-                .unflatten(2, (h, DH)).transpose(1, 2) for std in (qk_std, qk_std, 0.5)]
-
     worst_main = 0.0
     cases = [("encoder S={}".format(s), "qkv", B, ENC_H, s, 0) for s in (901, ENC_S)]
     cases += [("prefill M={} Tp={}".format(PRE_M, tp), "masked", B, H, PRE_M + tp, PRE_M)
@@ -657,54 +760,81 @@ def check_flash_kernel():
              for regime, std in (("spread", 0.5), ("peaked", 4.0))]
     for dtype, regime, qk_std, run_cases in runs:
         for name, entry, b, h, s, m in run_cases:
-            if entry == "qkv":
-                qkv = qkv_input(b, s, h, dtype, qk_std)
-                out = fa.flash_qkv_attention(qkv, h).unflatten(2, (h, DH)).transpose(1, 2)
-                q, k, v = [x.transpose(1, 2) for x in qkv.unflatten(2, (3, h, DH)).unbind(2)]
-            else:
-                q, k, v = masked_input(b, h, s, dtype, qk_std)
-                out = fa.fused_attention(q, k, v, m, True)
-            torch.cuda.synchronize()
-            ref32 = fa.attention_reference(q.float(), k.float(), v.float(), m, entry == "masked")
-            err = (out.float() - ref32).abs().max().item()
-            if dtype == torch.float32:
-                # same f32 math, other summation order
-                check(torch.allclose(out, ref32, atol=1e-5, rtol=1e-5),
-                      "flash {} f32: err {}".format(name, err))
-                log("flash kernel f32  {:20s}: max|out-plain| {:.3e} (tol 1e-5 abs + 1e-5 rel)".format(
-                    name, err))
-            else:
-                # against the plain version run in f32 on the same bf16
-                # inputs: the kernel rounds each probability and the
-                # context to bf16 once each (rel 2^-8), so 2^-7 of max|v|
-                # abs + 2^-7 rel covers them.  That bound is loose where
-                # the outputs are small: against the plain version in
-                # bf16, which rounds at the same points, the kernel may
-                # differ by an ulp of the context or of a probability,
-                # within 2^-6 of max|output| (a skipped K tile or a text
-                # row that sees the future is off by more)
-                ref = fa.attention_reference(q, k, v, m, entry == "masked")
-                same = (out.float() - ref.float()).abs().max().item()
-                atol = v.float().abs().max().item() / 128
-                same_tol = ref32.abs().max().item() / 64
-                label = "flash {} {} bf16".format(name, regime)
-                check(torch.allclose(out.float(), ref32, atol=atol, rtol=1 / 128),
-                      "{}: err {} vs f32 plain".format(label, err))
-                check(same <= same_tol, "{}: max|out-plain_bf16| {} > max|plain_f32|/64 {}".format(
-                    label, same, same_tol))
-                if "video" not in name and regime == "spread":
-                    worst_main = max(worst_main, err)
-                log("flash kernel bf16 {:20s} {}: max|out-plain_f32| {:.3e} (tol {:.3e} abs + 2^-7 "
-                    "rel), max|out-plain_bf16| {:.3e} (tol {:.3e}, max|out|/64)".format(
-                        name, regime, err, atol, same, same_tol))
-            del q, k, v, out, ref32
+            err = check_flash_case(g, name, entry, b, h, s, m, dtype, regime, qk_std)
+            if dtype == torch.bfloat16 and "video" not in name and regime == "spread":
+                worst_main = max(worst_main, err)
     torch.cuda.empty_cache()
     return worst_main
 
 
+def time_flash(card, g, b, h, s, m=0, masked=False):
+    """Kernel 2's time per call in bf16 (the encoder's entry off the fused
+    projection, or the prefill's with GIT's block mask over m memory rows)
+    at B=b, H=h, S=s: the device time, the plain version's in turns, and
+    one PyTorch call of the same function, F.scaled_dot_product_attention
+    (a yardstick only: no path calls it; its probabilities are not rounded
+    before P.V, and the masked entry hands it GIT's block mask as a
+    boolean tensor); the bound: the q.k and p.v products over the columns
+    each row sees, against q, k, v read once and o written."""
+    import torch
+    import torch.nn.functional as F
+
+    from gitax_torch.ops import flash_attention as fa
+
+    if masked:
+        q, k, v = [(torch.randn(b, s, h * DH, generator=g) * 0.5).cuda().to(torch.bfloat16)
+                   .unflatten(2, (h, DH)).transpose(1, 2) for _ in range(3)]
+        idx = torch.arange(s, device="cuda")
+        row, col = idx[:, None], idx[None, :]
+        allowed = ~((col >= m) & ((row < m) | (col > row)))  # True: attend
+
+        def kernel():
+            return fa.fused_attention(q, k, v, m, True)
+
+        def plain():
+            return fa.attention_reference(q, k, v, m, True)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=allowed)
+
+        label, name = "prefill M={} Tp={}".format(m, s - m), "SDPA with the boolean block mask"
+        seen = m * m + sum(r + 1 for r in range(m, s))
+    else:
+        qkv = (torch.randn(b, s, 3 * h * DH, generator=g) * 0.5).cuda().to(torch.bfloat16)
+        q, k, v = [x.transpose(1, 2) for x in qkv.unflatten(2, (3, h, DH)).unbind(2)]
+
+        def kernel():
+            return fa.flash_qkv_attention(qkv, h)
+
+        def plain():
+            return fa.attention_reference(q, k, v)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v)
+
+        label, name, seen = "encoder", "SDPA", s * s
+    plain_ms, _, t = in_turns(plain, kernel, 5, 20, warmup=3)
+    ker_ms = device_ms(kernel, 20, "flash_attention")
+    # in_turns puts its first argument at the ends: kernel,SDPA,SDPA,kernel
+    _, library_ms, t2 = in_turns(kernel, library, 20, 20, warmup=3)
+    flops = 4 * b * h * seen * DH
+    bound_ms, bound_by = bound(4 * b * h * s * DH * 2, flops, BF16_FLOPS)
+    log("flash kernel time, bf16 {} B={} H={} S={} Dh={}: kernel {:.4f} ms on the device "
+        "(profiler); plain {:.4f} ms (plain,kernel,kernel,plain = {}); {} {:.4f} ms "
+        "(kernel,SDPA,SDPA,kernel = {}); bound {:.4f} ms ({}: {:.1f} GFLOP), {:.1%} of it, "
+        "{:.1f} TFLOP/s [{}]".format(
+            label, b, h, s, DH, ker_ms, plain_ms, ["%.4f" % x for x in t], name, library_ms,
+            ["%.4f" % x for x in t2], bound_ms, bound_by, flops / 1e9, bound_ms / ker_ms,
+            flops / 1e9 / ker_ms, card))
+    torch.cuda.empty_cache()
+    return dict(ms=ker_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
+
+
 def phase_flash_kernel(card):
     """Fused attention against the plain version on the same inputs, and
-    its time beside the plain version's and the fast bf16 path's."""
+    its time beside the plain version's, SDPA's and the fast bf16
+    path's."""
     import torch
 
     from gitax_torch.models.nn import attention_weights, merge_heads, split_heads
@@ -712,84 +842,16 @@ def phase_flash_kernel(card):
 
     worst_main = check_flash_kernel()
     g = torch.Generator().manual_seed(1)
-
-    def qkv_input(b, s, h, dtype):
-        return (torch.randn(b, s, 3 * h * DH, generator=g) * 0.5).cuda().to(dtype)
-
-    def heads(qkv, h):
-        return [x.transpose(1, 2) for x in qkv.unflatten(2, (3, h, DH)).unbind(2)]
-
-    def masked_input(b, h, t, dtype):
-        return [(torch.randn(b, t, h * DH, generator=g) * 0.5).cuda().to(dtype)
-                .unflatten(2, (h, DH)).transpose(1, 2) for _ in range(3)]
-
-    # times per call in bf16 at the VQA path's shapes, against the plain
-    # version and against one PyTorch call of the same function,
-    # F.scaled_dot_product_attention (a yardstick only: no path calls it;
-    # its probabilities are not rounded before P.V, and the masked entry
-    # hands it GIT's block mask as a boolean tensor)
-    import torch.nn.functional as F
-
-    def attn_bound(b, h, s, m, masked):
-        """(bound ms, bound_by, GFLOP): the q.k and p.v products over the
-        columns each row sees, against q, k, v read once and o written."""
-        if masked:
-            seen = m * m + sum(r + 1 for r in range(m, s))
-        else:
-            seen = s * s
-        flops = 4 * b * h * seen * DH
-        return bound(4 * b * h * s * DH * 2, flops, BF16_FLOPS) + (flops / 1e9,)
-
-    def report(label, b, h, s, m, masked, ker_ms, others):
-        bound_ms, bound_by, gflop = attn_bound(b, h, s, m, masked)
-        log("flash kernel time, bf16 {} B={} H={} S={} Dh={}: kernel {:.4f} ms on the device "
-            "(profiler); {}; "
-            "bound {:.4f} ms ({}: {:.1f} GFLOP), {:.1%} of it, {:.1f} TFLOP/s [{}]".format(
-                label, b, h, s, DH, ker_ms, "; ".join(others), bound_ms, bound_by, gflop,
-                bound_ms / ker_ms, gflop / ker_ms, card))
-        return bound_ms, bound_by
-
-    def block_mask(s, m):
-        idx = torch.arange(s, device="cuda")
-        row, col = idx[:, None], idx[None, :]
-        return ~((col >= m) & ((row < m) | (col > row)))  # True: attend
-
-    qkv = qkv_input(B, ENC_S, ENC_H, torch.bfloat16)
-    q, k, v = heads(qkv, ENC_H)
-    plain_ms, _, t = in_turns(lambda: fa.attention_reference(q, k, v),
-                              lambda: fa.flash_qkv_attention(qkv, ENC_H), 5, 20, warmup=3)
-    ker_ms = device_ms(lambda: fa.flash_qkv_attention(qkv, ENC_H), 20, "flash_attention")
-    # in_turns puts its first argument at the ends: kernel,SDPA,SDPA,kernel
-    _, library_ms, t2 = in_turns(lambda: fa.flash_qkv_attention(qkv, ENC_H),
-                                 lambda: F.scaled_dot_product_attention(q, k, v), 20, 20, warmup=3)
-    bound_ms, bound_by = report("encoder", B, ENC_H, ENC_S, 0, False, ker_ms, [
-        "plain {:.4f} ms (plain,kernel,kernel,plain = {})".format(plain_ms, ["%.4f" % x for x in t]),
-        "SDPA {:.4f} ms (kernel,SDPA,SDPA,kernel = {})".format(library_ms,
-                                                               ["%.4f" % x for x in t2])])
-    del qkv, q, k, v
+    # times per call in bf16 at the VQA path's shapes
+    enc = time_flash(card, g, B, ENC_H, ENC_S)
     for m, tp in ((PRE_M, PRE_TP), (1542, 1)):
-        s = m + tp
-        qm, km, vm = masked_input(B, H, s, torch.bfloat16)
-        allowed = block_mask(s, m)
-        pplain, _, t = in_turns(lambda: fa.attention_reference(qm, km, vm, m, True),
-                                lambda: fa.fused_attention(qm, km, vm, m, True), 5, 20, warmup=3)
-        pker = device_ms(lambda: fa.fused_attention(qm, km, vm, m, True), 20, "flash_attention")
-        _, psdpa, t2 = in_turns(
-            lambda: fa.fused_attention(qm, km, vm, m, True),
-            lambda: F.scaled_dot_product_attention(qm, km, vm, attn_mask=allowed), 20, 20, warmup=3)
-        report("prefill M={} Tp={}".format(m, tp), B, H, s, m, True, pker, [
-            "plain {:.4f} ms (plain,kernel,kernel,plain = {})".format(
-                pplain, ["%.4f" % x for x in t]),
-            "SDPA with the boolean block mask {:.4f} ms (kernel,SDPA,SDPA,kernel = {})".format(
-                psdpa, ["%.4f" % x for x in t2])])
-        del qm, km, vm, allowed
-    torch.cuda.empty_cache()
+        time_flash(card, g, B, H, m + tp, m, masked=True)
 
     # the A/B of the S >= 640 gate: the kernel against the encoder's other
     # path, the fast bf16 scores and softmax (nn.self_attention, fast=True),
     # both from the fused projection to the merged context
     for s in (257, 901, ENC_S):
-        qkv = qkv_input(B, s, ENC_H, torch.bfloat16)
+        qkv = (torch.randn(B, s, 3 * ENC_H * DH, generator=g) * 0.5).cuda().to(torch.bfloat16)
 
         def fast_path():
             q, k, v = (split_heads(x, ENC_H) for x in qkv.chunk(3, dim=-1))
@@ -800,8 +862,7 @@ def phase_flash_kernel(card):
         log("gate A/B, bf16 encoder B={} H={} S={}: kernel {:.4f} ms, fast bf16 path {:.4f} ms "
             "(fast,kernel,kernel,fast = {}) [{}]".format(B, ENC_H, s, gker, fast_ms,
                                                          ["%.4f" % x for x in t], card))
-    return dict(max_abs_err=worst_main, ms=ker_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+    return dict(max_abs_err=worst_main, **enc)
 
 
 def build_model(device, dtype, cpu_model):
@@ -1232,6 +1293,55 @@ def check_vocab_kernel():
     return worst_main
 
 
+def vocab_moved(r, act_bytes):
+    """Bytes one vocab-head call must move at R=r: the int8 head, the f32
+    logits and block statistics, the hidden states, the scales and bias."""
+    from gitax_torch.ops import vocab_topk as vt
+
+    nb = (HEAD_V + vt.TILE - 1) // vt.TILE
+    return HEAD_W * HEAD_V + r * nb * vt.TILE * 4 + 2 * r * nb * 4 + r * HEAD_W * act_bytes \
+        + 2 * HEAD_V * 4
+
+
+def cycled(fn, copies):
+    """A call of fn on the next of `copies` (argument tuples) in turn."""
+    it = {"i": 0}
+
+    def call():
+        fn(*copies[it["i"] % len(copies)])
+        it["i"] += 1
+    return call
+
+
+def time_vocab(card, g, r):
+    """Kernel 3's time per call in bf16 at R=r, W=768, V=30522; 4 weight
+    copies in turn (94 MB of int8), so that the 23.4 MB matrix is not left
+    in the 50 MB L2 from the call before, as in the decode step, where the
+    6 layers' weights and memory pass through L2 between two head calls.
+    Returns the times and the copies."""
+    import torch
+
+    from gitax_torch.ops import vocab_topk as vt
+
+    flops = 2 * r * HEAD_W * HEAD_V
+    copies = [vocab_inputs(g, r, HEAD_V, HEAD_W, torch.bfloat16) for _ in range(4)]
+    kernel = cycled(vt.vocab_logits_topk_cuda, copies)
+    plain_ms, call_ms, t = in_turns(cycled(vt.vocab_logits_topk_reference, copies), kernel, 40,
+                                    200)
+    ker_ms = device_ms(kernel, 60, "vocab_topk")
+    # the products run in bf16 on the tensor cores (int8 widened)
+    moved = vocab_moved(r, 2)
+    bound_ms, bound_by = bound(moved, flops, BF16_FLOPS)
+    log("vocab kernel time, bf16 R={} W={} V={}: kernel {:.4f} ms on the device (profiler), "
+        "{:.4f} ms per call back to back (events, host launch included); plain {:.4f} ms per call "
+        "(plain,kernel,kernel,plain = {}); {:.1f} MB moved (int8 weights + f32 logits + stats) -> "
+        "{:.0f} GB/s; bound {:.4f} ms ({}), {:.1%} of it [{}]".format(
+            r, HEAD_W, HEAD_V, ker_ms, call_ms, plain_ms, ["%.4f" % x for x in t],
+            moved / 1e6, moved / (ker_ms * 1e-3) / 1e9, bound_ms, bound_by, bound_ms / ker_ms,
+            card))
+    return dict(ms=ker_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by), copies
+
+
 def phase_vocab_kernel(card):
     """The fused vocab head against its plain version on the same inputs,
     and the time per call of both."""
@@ -1241,38 +1351,10 @@ def phase_vocab_kernel(card):
 
     worst_main = check_vocab_kernel()
     g = torch.Generator(device="cuda").manual_seed(3)
-
-    # time per call at the beam step's shape; 4 weight copies in turn (94
-    # MB of int8), so that the 23.4 MB matrix is not left in the 50 MB L2
-    # from the call before, as in the decode step, where the 6 layers'
-    # weights and memory pass through L2 between two head calls
-    nb = (HEAD_V + vt.TILE - 1) // vt.TILE
-    it = {"i": 0}
-
-    def run(fn, copies):
-        def call():
-            fn(*copies[it["i"] % 4])
-            it["i"] += 1
-        return call
-
-    def moved(act_bytes):
-        return HEAD_W * HEAD_V + HEAD_R * nb * vt.TILE * 4 + 2 * HEAD_R * nb * 4 \
-            + HEAD_R * HEAD_W * act_bytes + 2 * HEAD_V * 4
-
+    main, copies = time_vocab(card, g, HEAD_R)
+    ker_ms = main["ms"]
+    kernel = cycled(vt.vocab_logits_topk_cuda, copies)
     flops = 2 * HEAD_R * HEAD_W * HEAD_V
-    copies = [vocab_inputs(g, HEAD_R, HEAD_V, HEAD_W, torch.bfloat16) for _ in range(4)]
-    kernel = run(vt.vocab_logits_topk_cuda, copies)
-    plain_ms, call_ms, t = in_turns(run(vt.vocab_logits_topk_reference, copies), kernel, 40, 200)
-    ker_ms = device_ms(kernel, 60, "vocab_topk")
-    # the products run in bf16 on the tensor cores (int8 widened)
-    bound_ms, bound_by = bound(moved(2), flops, BF16_FLOPS)
-    log("vocab kernel time, bf16 R={} W={} V={}: kernel {:.4f} ms on the device (profiler), "
-        "{:.4f} ms per call back to back (events, host launch included); plain {:.4f} ms per call "
-        "(plain,kernel,kernel,plain = {}); {:.1f} MB moved (int8 weights + f32 logits + stats) -> "
-        "{:.0f} GB/s; bound {:.4f} ms ({}), {:.1%} of it [{}]".format(
-            HEAD_R, HEAD_W, HEAD_V, ker_ms, call_ms, plain_ms, ["%.4f" % x for x in t],
-            moved(2) / 1e6, moved(2) / (ker_ms * 1e-3) / 1e9, bound_ms, bound_by, bound_ms / ker_ms,
-            card))
     # what a call costs the host, which bounds the beam step: 300 calls
     # back to back, the host clock before and after the synchronize
     torch.cuda.synchronize()
@@ -1288,12 +1370,7 @@ def phase_vocab_kernel(card):
     # a yardstick no path calls and no one PyTorch call of the function:
     # cuBLAS on the head widened to bf16 beforehand (twice the weight
     # bytes; no scale, bias, -inf columns or statistics; bf16 logits)
-    wide = [c[1].to(torch.bfloat16) for c in copies]
-
-    def matmul():
-        torch.matmul(copies[it["i"] % 4][0], wide[it["i"] % 4])
-        it["i"] += 1
-
+    matmul = cycled(torch.matmul, [(c[0], c[1].to(torch.bfloat16)) for c in copies])
     mm_ms = [cuda_time_ms(matmul, 200), cuda_time_ms(matmul, 200)]
     mm_bytes = 2 * HEAD_W * HEAD_V + 2 * HEAD_R * HEAD_V + 2 * HEAD_R * HEAD_W
     log("vocab kernel yardstick, not the function and on no path: torch.matmul of the bf16 hidden "
@@ -1301,12 +1378,12 @@ def phase_vocab_kernel(card):
         "moved, {:.0f} GB/s; no scale, bias, padding or statistics) beside the kernel's {:.4f} ms "
         "[{}]".format(mm_ms[0], mm_ms[1], mm_bytes / 1e6, mm_bytes / (min(mm_ms) * 1e-3) / 1e9,
                       ker_ms, card))
-    del wide
+    del matmul
     # the f32 parity path: plain FMAs outside the tensor cores
     f32_copies = [(c[0].float(),) + c[1:] for c in copies]
     del copies
-    f32_ms = device_ms(run(vt.vocab_logits_topk_cuda, f32_copies), 20, "vocab_topk")
-    f32_bound, f32_by = bound(moved(4), flops, F32_FLOPS)
+    f32_ms = device_ms(cycled(vt.vocab_logits_topk_cuda, f32_copies), 20, "vocab_topk")
+    f32_bound, f32_by = bound(vocab_moved(HEAD_R, 4), flops, F32_FLOPS)
     log("vocab kernel time, f32 (the parity path) R={} W={} V={}: kernel {:.4f} ms on the device "
         "(profiler); bound {:.4f} ms ({}: {:.1f} GFLOP of f32 FMA at 67 TFLOP/s), {:.1%} of it "
         "[{}]".format(HEAD_R, HEAD_W, HEAD_V, f32_ms, f32_bound, f32_by, flops / 1e9,
@@ -1315,8 +1392,7 @@ def phase_vocab_kernel(card):
     torch.cuda.empty_cache()
     # no single PyTorch call gives the scale, bias, -inf padding and the
     # per-tile max and sum of exponentials
-    return dict(max_abs_err=worst_main, ms=ker_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+    return dict(max_abs_err=worst_main, **main, library_ms=None)
 
 
 class VocabCalls(object):
@@ -2282,6 +2358,42 @@ def concurrent_requests(base, bodies):
     return replies
 
 
+def closed_loop(base, bodies, seconds):
+    """LOAD_CLIENTS closed-loop clients, each sending its next body when
+    its reply comes, for `seconds`: (latencies s, non-200 codes, requests
+    sent, wall seconds)."""
+    import threading
+
+    lat, bad, sent = [], [], [0]
+    lock = threading.Lock()
+    stop_at = time.perf_counter() + seconds
+
+    def client(ci):
+        i = ci
+        while time.perf_counter() < stop_at:
+            t = time.perf_counter()
+            try:
+                code, _ = http_post(base, bodies[i % len(bodies)])
+            except OSError as e:
+                code = repr(e)
+            with lock:
+                sent[0] += 1
+                lat.append(time.perf_counter() - t)
+                if code != 200:
+                    bad.append(code)
+            i += LOAD_CLIENTS
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(LOAD_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    load_s = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "a load client did not finish")
+    return lat, bad, sent[0], load_s
+
+
 def served_against_direct(label, engine, batcher, base, payloads, questions):
     """Send every (payload, question) at once through the endpoint; hold
     each reply to `engine.generate_batch` of the same rows at the device
@@ -2339,7 +2451,6 @@ def phase_serving(card, cpu_model, images, work, coco_step_ms):
     of the served runs."""
     import base64
     import http.client
-    import threading
 
     import numpy as np
     import torch
@@ -2440,33 +2551,7 @@ def phase_serving(card, cpu_model, images, work, coco_step_ms):
             engine.dispatch_device_batch = timed
             steps0 = model.decode_step_calls
             bodies = [json.dumps({"image": p}).encode() for p in payloads]
-            lat, bad, sent = [], [], [0]
-            lock = threading.Lock()
-            stop_at = time.perf_counter() + LOAD_SECONDS
-
-            def client(ci):
-                i = ci
-                while time.perf_counter() < stop_at:
-                    t = time.perf_counter()
-                    try:
-                        code, _ = http_post(srv.base, bodies[i % len(bodies)])
-                    except OSError as e:
-                        code = repr(e)
-                    with lock:
-                        sent[0] += 1
-                        lat.append(time.perf_counter() - t)
-                        if code != 200:
-                            bad.append(code)
-                    i += LOAD_CLIENTS
-
-            t0 = time.perf_counter()
-            threads = [threading.Thread(target=client, args=(c,)) for c in range(LOAD_CLIENTS)]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=600)
-            load_s = time.perf_counter() - t0
-            check(not any(t.is_alive() for t in threads), "a load client did not finish")
+            lat, bad, sent, load_s = closed_loop(srv.base, bodies, LOAD_SECONDS)
             torch.cuda.synchronize()
             del engine.dispatch_device_batch
             load_steps = model.decode_step_calls - steps0
@@ -2495,8 +2580,8 @@ def phase_serving(card, cpu_model, images, work, coco_step_ms):
     check(undecodable == 400, "an undecodable payload got {}".format(undecodable))
     check(not bad and stats["errors"] == 0, "serving errors: clients {} stats {}".format(
         sorted(set(bad)), stats["errors"]))
-    check(stats["requests"] == n + sent[0], "stats count {} requests, {} sent".format(
-        stats["requests"], n + sent[0]))
+    check(stats["requests"] == n + sent, "stats count {} requests, {} sent".format(
+        stats["requests"], n + sent))
     check(steps > 0 and launches == model.cfg.num_layers * steps,
           "decode_attention launches {} != {} layers x {} steps".format(
               launches, model.cfg.num_layers, steps))
@@ -2509,7 +2594,7 @@ def phase_serving(card, cpu_model, images, work, coco_step_ms):
     log("serving load: {} closed-loop clients for {:.1f} s: {} requests, {:.2f} requests/s, latency "
         "p50 {:.1f} ms p99 {:.1f} ms; /stats: batches {} batch-size histogram {} padded slots {} "
         "errors {} rejected {}; 413 on a body over MAX_BODY_BYTES, 400 on an undecodable payload "
-        "[{}]".format(LOAD_CLIENTS, load_s, sent[0], sent[0] / load_s, np.percentile(lat, 50),
+        "[{}]".format(LOAD_CLIENTS, load_s, sent, sent / load_s, np.percentile(lat, 50),
                       np.percentile(lat, 99), stats["batches"],
                       dict(sorted((int(k), v) for k, v in stats["batch_size_hist"].items())),
                       stats["padded_slots"], stats["errors"], stats["rejected"], card))
@@ -2524,7 +2609,7 @@ def phase_serving(card, cpu_model, images, work, coco_step_ms):
     del engine, batcher, model
     gc.collect()  # the stacks' reference cycles (threads, closures) hold their weights
     torch.cuda.empty_cache()
-    return launches
+    return launches, (sent / load_s, np.percentile(lat, 99))
 
 
 class StepLog(object):
@@ -3567,6 +3652,672 @@ def phase_mesh(card, work, seed, train_rate):
         "in every rank)".format(time.perf_counter() - t_phase))
 
 
+# ---------------------------------------------------------------------------
+# 23. inference on a mesh
+# ---------------------------------------------------------------------------
+
+MESH_INFER_TIMEOUT_S = 300  # the group's timeout: a rank that fails ends the others' waits
+# a rank of a 2-wide model group: the decoder's 12 heads and the encoder's
+# 16 split in two
+RANK_H, RANK_ENC_H = H // 2, ENC_H // 2
+P23_PARITY_ROWS, P23_PARITY_PAIRS = 8, 4  # (a): rows a data rank, COCO and VQA
+P23_ROWS = 32  # (b): rows a data rank
+P23_TSV_ROWS = 16  # (c): the f32 TSV
+P23_LOAD_SECONDS = 10.0
+P23_REQUESTS = 4  # (c): f32 replies held to one card's
+
+
+def rank_stats(control, dev, world, reset):
+    """[world, 4] on every rank of phase 23's group: each rank's peak
+    device memory since its last reset and its three kernels' launch
+    counts (an all-reduce of zero-padded rows over the host); reset: start
+    each rank's peak anew."""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.zeros(world, 4, dtype=torch.float64)
+    t[dist.get_rank()] = torch.tensor([torch.cuda.max_memory_allocated(dev)]
+                                      + list(kernel_launches()), dtype=torch.float64)
+    dist.all_reduce(t, group=control)
+    if reset:
+        torch.cuda.reset_peak_memory_stats(dev)
+    return t
+
+
+def infer_follower(rank, world, init_method, share):
+    """A rank 1.. of phase 23's group (a spawned process: it imports
+    gitax_torch and nothing of JAX), as a rank of a launch of data x
+    model processes: it runs rank 0's commands until None comes.
+    ('engine', shape): the follower of rank 0's engine on a `shape` mesh;
+    ('call', module, name, cwd, kwargs): an entry point, which takes the
+    launch's ranks and follows rank 0's engine; ('stats', reset):
+    `rank_stats`."""
+    import importlib
+
+    import torch
+    import torch.distributed as dist
+
+    from gitax_torch.parallel import comm
+    from gitax_torch.parallel.mesh import make_mesh
+    from gitax_torch.runtime.distributed import init_training_group
+    from gitax_torch.runtime.engine import follow_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, backend = init_training_group(rank, world, init_method, share_card=share,
+                                       timeout_s=MESH_INFER_TIMEOUT_S)
+    torch.cuda.set_device(dev)
+    torch.cuda.init()  # the memory statistics need the card's context
+    control = dist.new_group(backend="gloo")
+    try:
+        while True:
+            cmd = comm.broadcast_object(None, 0, control)
+            if cmd is None:
+                return
+            if cmd[0] == "engine":
+                follow_mesh(make_mesh(*cmd[1], device=dev, backend=backend))
+            elif cmd[0] == "call":
+                _, module, name, cwd, kwargs = cmd
+                old = os.getcwd()
+                os.chdir(cwd)
+                try:
+                    getattr(importlib.import_module(module), name)(**kwargs)
+                finally:
+                    os.chdir(old)
+            else:
+                rank_stats(control, dev, world, cmd[1])
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+class InferGroup(object):
+    """Phase 23's group of `world` ranks: this process is rank 0, ranks 1..
+    are spawned `infer_follower`s; NCCL a card a rank, or every rank on
+    card 0 over gloo (`share`)."""
+
+    def __init__(self, world, share):
+        import torch.distributed as dist
+
+        from gitax_torch.runtime.distributed import SpawnedRanks, init_training_group
+
+        self.world = world
+        self.ranks = SpawnedRanks("chip_smoke:infer_follower", world, (share,))
+        try:
+            self.dev, self.backend = init_training_group(0, world, self.ranks.init_method,
+                                                         share_card=share,
+                                                         timeout_s=MESH_INFER_TIMEOUT_S)
+            self.control = dist.new_group(backend="gloo")
+        except BaseException:
+            self.ranks.join(ok=False)
+            raise
+
+    def send(self, cmd):
+        from gitax_torch.parallel import comm
+
+        comm.broadcast_object(cmd, 0, self.control)
+
+    def engine(self, shape, model, tok, **kw):
+        """Rank 0's engine on a `shape` mesh of the group (the others
+        follow it), counting the elements that differ within a model
+        group."""
+        from gitax_torch.parallel.mesh import make_mesh
+        from gitax_torch.runtime.engine import CaptionEngine
+
+        self.send(("engine", shape))
+        mesh = make_mesh(*shape, device=self.dev, backend=self.backend)
+        return CaptionEngine(model, tok, mesh=mesh, check_groups=True, **kw)
+
+    def call(self, module, name, cwd, kwargs, own=None):
+        """The entry point module.name(**kwargs) on every rank, in `cwd`;
+        rank 0 runs `own` instead where given (the same call by another
+        door, the -p command line)."""
+        import importlib
+
+        self.send(("call", module, name, cwd, kwargs))
+        old = os.getcwd()
+        os.chdir(cwd)
+        try:
+            if own is not None:
+                return own()
+            return getattr(importlib.import_module(module), name)(**kwargs)
+        finally:
+            os.chdir(old)
+
+    def stats(self, reset=True):
+        """`rank_stats` of every rank: (peak MiB a rank, launches summed
+        over the ranks)."""
+        self.send(("stats", reset))
+        t = rank_stats(self.control, self.dev, self.world, reset)
+        return [p / 2**20 for p in t[:, 0].tolist()], [int(x) for x in t[:, 1:].sum(0).tolist()]
+
+    def close(self, ok=True):
+        import torch.distributed as dist
+
+        try:
+            if ok:
+                self.send(None)
+        finally:
+            dist.destroy_process_group()
+            self.ranks.join(ok)
+
+
+def mesh_run(group, run):
+    """run() between two `stats` reads: (its result, the peak MiB of each
+    rank, the three kernels' launches over every rank).  An engine on the
+    group is made and closed inside run(): its followers read no command
+    of the group until it closes."""
+    before = group.stats(reset=True)[1]
+    out = run()
+    peaks, after = group.stats(reset=True)
+    return out, peaks, [a - b for a, b in zip(after, before)]
+
+
+def engine_tokens(engine, items, prefixes, rows, generate=None):
+    """The search's sequences for `items` in device batches of `rows`
+    (the last one padded by the engine), on the host [N, L]."""
+    import numpy as np
+
+    out = []
+    for i in range(0, len(items), rows):
+        seqs = engine.dispatch_device_batch(np.stack(items[i:i + rows]),
+                                            np.asarray(prefixes[i:i + rows]), **(generate or {}))
+        out.append(engine.to_host(seqs)[:len(items[i:i + rows])])
+    return np.concatenate(out)
+
+
+def check_rank_kernels(card):
+    """23's kernels at the shapes a rank gives them: a model rank of a
+    2-wide group holds 6 of the decoder's 12 heads and 8 of the encoder's
+    16 (kernel 1 at H=6, B=32, M 257 and 1201; kernel 2's encoder entry at
+    H=8, S=1201 and its prefill entry at H=6, M=1201 + 12); a data rank of
+    2 at a global batch of 32 feeds kernel 3 R = 4 x 16 = 64 rows.  Each
+    held to its plain version at phases 3, 4 and 9's bars, and timed
+    beside its bound, its plain version and (kernel 2) SDPA."""
+    import torch
+
+    from gitax_torch.ops import vocab_topk as vt
+    from gitax_torch.ops.decode_attention import cluster_plan
+
+    g = torch.Generator().manual_seed(23)
+    kw = dict(beams=K, num_heads=RANK_H, head_dim=DH)
+    kinds = (("f32", torch.float32, False), ("bf16", torch.bfloat16, False),
+             ("bf16+int8mem", torch.bfloat16, True))
+    worst = {}
+    for m in (M, 1201):
+        for name, dtype, mem_int8 in kinds:
+            for pos in (0, 12, T - 1):
+                a = decode_inputs(g, dtype, mem_int8, pos, m, b=B, h=RANK_H)
+                label = "{:18s} H={} M={:4d} pos={:2d} (cluster {})".format(
+                    name, RANK_H, m, pos, cluster_plan(m, K, DH, T, a["mem_kv"].element_size())[0])
+                err = check_decode_case(label, a, dtype, mem_int8, kw)
+                if name == "bf16":
+                    worst["decode_attention"] = max(worst.get("decode_attention", 0.0), err)
+    for dtype, regime, std in ((torch.float32, "spread", 0.5), (torch.bfloat16, "spread", 0.5),
+                               (torch.bfloat16, "peaked", 4.0)):
+        for name, entry, h, s, m in (("encoder S=1201 H=8", "qkv", RANK_ENC_H, ENC_S, 0),
+                                     ("prefill M=1201 Tp=12 H=6", "masked", RANK_H, PRE_M + PRE_TP,
+                                      PRE_M)):
+            err = check_flash_case(g, name, entry, B, h, s, m, dtype, regime, std)
+            if dtype == torch.bfloat16 and regime == "spread":
+                worst["flash_attention"] = max(worst.get("flash_attention", 0.0), err)
+    gv = torch.Generator(device="cuda").manual_seed(23)
+    r = 4 * P23_ROWS // 2
+    for dtype in (torch.float32, torch.bfloat16):
+        for peaked in (False, True):
+            args = vocab_inputs(gv, r, HEAD_V, HEAD_W, dtype, peaked)
+            out = vt.vocab_logits_topk_cuda(*args)
+            torch.cuda.synchronize()
+            err, _ = check_vocab_call("vocab kernel {:4s} R={:3d} V={:5d} W={:4d} {}".format(
+                "f32" if dtype == torch.float32 else "bf16", r, HEAD_V, HEAD_W,
+                "peaked" if peaked else "N(0,1)"), *args, *out)
+            if dtype == torch.bfloat16 and not peaked:
+                worst["vocab_topk"] = err
+            del args, out
+    rows = {"decode_attention": [time_decode(card, g, m, b=B, h=RANK_H) for m in (M, 1201)],
+            "flash_attention": [time_flash(card, g, B, RANK_ENC_H, ENC_S),
+                                time_flash(card, g, B, RANK_H, PRE_M + PRE_TP, PRE_M,
+                                           masked=True)],
+            "vocab_topk": [time_vocab(card, gv, r)[0]]}
+    torch.cuda.empty_cache()
+    log("mesh kernels at a rank's shapes: kernel 1 at H={} (M 257, 1201; f32, bf16, bf16 with "
+        "int8 memory; pos 0, 12, {}), kernel 2 at encoder H={} S=1201 and prefill H={} M=1201+12 "
+        "(f32, bf16 spread and peaked), kernel 3 at R={} (f32, bf16; N(0,1), peaked) hold against "
+        "their plain versions; worst bf16 error {}".format(
+            RANK_H, T - 1, RANK_ENC_H, RANK_H, r, {k: "%.3e" % v for k, v in worst.items()}))
+    return rows, worst
+
+
+def p23_parity_model(seed):
+    """(a)'s model: GIT_LARGE_COCO's widths at 2 encoder blocks and 1
+    decoder layer, f32 from the seeded CPU generator, the EOS gate at 12,
+    sharpened as phase 16 sharpens (captions that depend on the image)."""
+    import torch
+
+    from gitax_torch.models.git import GitModel, eos_gate_
+
+    model = GitModel(reduced_large(), device="cpu").init_params(torch.Generator().manual_seed(seed))
+    return sharpen_(eos_gate_(model, gate=12))
+
+
+def p23_parity(card, group, shape, cpu_model, tok, inputs, want):
+    """(a) on a `shape` mesh: the COCO rows and the VQA pairs at S=1201
+    (the fused attention forced on in f32), the tokens against one card's
+    (`want`), every model group's ranks equal; the launches over every
+    rank."""
+    import numpy as np
+    import torch
+
+    d = shape[0]
+
+    def run():
+        engine = group.engine(shape, build_model("cuda", torch.float32, cpu_model), tok,
+                              batch_size=P23_PARITY_ROWS * d, dtype=torch.float32,
+                              decode_kernel=True)
+        with engine:
+            coco = engine_tokens(engine, *inputs["coco"], P23_PARITY_ROWS * d)
+            vqa = engine_tokens(engine, *inputs["vqa"], P23_PARITY_PAIRS * d,
+                                inputs["vqa_generate"](engine))
+        return coco, vqa, engine
+
+    t0 = time.perf_counter()
+    (coco, vqa, engine), peaks, launches = mesh_run(group, run)
+    for label, got, ref in (("COCO", coco, want[0]), ("VQA S=1201", vqa, want[1])):
+        differ = [i for i in range(len(ref)) if not np.array_equal(got[i], ref[i])]
+        check(not differ, "mesh {} f32 {}: rows {} differ from one card's: {} vs {}".format(
+            list(shape), label, differ, [got[i].tolist() for i in differ[:2]],
+            [ref[i].tolist() for i in differ[:2]]))
+    check(engine.group_mismatches == 0, "mesh {}: {} sequence elements differ within a model "
+          "group".format(list(shape), engine.group_mismatches))
+    check(launches[0] > 0 and launches[1] > 0, "mesh {} f32: launches {}".format(list(shape),
+                                                                                 launches))
+    log("mesh {} f32 (GIT_LARGE_COCO widths, 2 encoder blocks, 1 decoder layer, attention x10; "
+        "kernel 1 on, kernel 2 forced on at S=1201): {} COCO rows and {} VQA pairs (30x40 grid, "
+        "[CLS]+13 tokens) give one card's tokens ({} and {} distinct), every model group's ranks "
+        "equal; launches over every rank decode_attention {} flash_attention {}; {:.2f} s [{}]".format(
+            list(shape), len(coco), len(vqa), len({tuple(r) for r in coco.tolist()}),
+            len({tuple(r) for r in vqa.tolist()}), launches[0], launches[1],
+            time.perf_counter() - t0, card))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def p23_parity_inputs(seed, tok):
+    """(a)'s inputs: 16 COCO images and 8 VQA pairs at 420x560 (a 30x40
+    grid, S=1201) with the long question; the VQA search settings as
+    generate kwargs (the fused attention forced on in f32)."""
+    import numpy as np
+
+    from gitax_torch.tokenization import encode_prefix
+
+    rng = np.random.RandomState(seed + 23)
+    coco = [rng.randint(0, 256, (224, 224, 3)).astype(np.uint8) for _ in range(2 * P23_PARITY_ROWS)]
+    vqa = [rng.randint(0, 256, (420, 560, 3)).astype(np.uint8) for _ in range(2 * P23_PARITY_PAIRS)]
+    prefix = encode_prefix(tok, VQA_QUESTIONS[1], 40)
+    return {"coco": (coco, [[tok.cls_token_id]] * len(coco)),
+            "vqa": (vqa, [prefix] * len(vqa)),
+            "vqa_generate": lambda engine: dict(beam=engine.beam_for(len(prefix)),
+                                                decode_kernel=True, flash=True)}
+
+
+def p23_one_card(cpu_model, tok, inputs):
+    """One card's tokens for (a)'s inputs, in device batches of one data
+    rank's rows."""
+    import torch
+
+    from gitax_torch.runtime.engine import CaptionEngine
+
+    engine = CaptionEngine(build_model("cuda", torch.float32, cpu_model), tok,
+                           batch_size=P23_PARITY_ROWS, dtype=torch.float32, decode_kernel=True)
+    with engine:
+        out = (engine_tokens(engine, *inputs["coco"], P23_PARITY_ROWS),
+               engine_tokens(engine, *inputs["vqa"], P23_PARITY_PAIRS,
+                             inputs["vqa_generate"](engine)))
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def p23_rate(card, group, shape, cpu_model, tok, items, prefixes, label, one_card):
+    """(b): bf16 + int8 at P23_ROWS rows a data rank on a `shape` mesh:
+    a warm-up batch, then the timed batches (host clock to the last
+    sequence on the host); the share of sequences equal to one card's
+    (`one_card`: (tokens, items a second)); each rank's peak memory; the
+    launches over every rank.  Returns (launches, the engine's rate)."""
+    import numpy as np
+    import torch
+
+    from gitax_torch.decode.beam import BeamSearchConfig
+
+    d = shape[0]
+    rows = P23_ROWS * d
+
+    def run():
+        engine = group.engine(shape, build_model("cuda", torch.bfloat16, cpu_model), tok,
+                              batch_size=rows, beam=BeamSearchConfig(num_beams=4, max_steps=40),
+                              dtype=torch.bfloat16, int8=True, fast_prefill=True,
+                              decode_kernel=True)
+        with engine:
+            engine_tokens(engine, items[:rows], prefixes[:rows], rows)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            seqs = engine_tokens(engine, items, prefixes, rows)
+            seconds = time.perf_counter() - t0
+            vocab = None
+            if label == "COCO":
+                # kernel 3 on the path: one global batch of 32 through
+                # generate(vocab_kernel=True), R = 4 x 32 / d rows a rank
+                vocab = engine_tokens(engine, items[:32], prefixes[:32], 32, dict(
+                    beam=engine.beam_for(1), fast_prefill=True, decode_kernel=True,
+                    vocab_kernel=True))
+        return seqs, seconds, vocab, engine
+
+    (seqs, seconds, vocab, engine), peaks, launches = mesh_run(group, run)
+    want, one_rate = one_card
+    same = np.mean([np.array_equal(a, b) for a, b in zip(seqs, want)])
+    check(engine.group_mismatches == 0, "mesh {} {}: {} sequence elements differ within a model "
+          "group".format(list(shape), label, engine.group_mismatches))
+    rate = len(items) / seconds
+    log("mesh {} {} bf16+int8 (beam 4, {} rows a data rank): {:.2f} {}/s over {} after a warm-up "
+        "batch, one card {:.2f} in this call; {:.1%} of the sequences equal one card's (drift: "
+        "{}); peak memory a rank {} MiB; launches over every rank, warm-up included: "
+        "decode_attention {} flash_attention {} vocab_topk {} [{}; {}]".format(
+            list(shape), label, P23_ROWS, rate, "images" if label == "COCO" else "pairs",
+            len(items), one_rate, same, "tensor parallelism orders the bf16 sums otherwise"
+            if shape[1] > 1 else "a data rank runs one card's batch", ["%.1f" % p for p in peaks],
+            *launches, card, mesh_layout(group.world, torch.cuda.device_count())[1]))
+    if vocab is not None:
+        check(launches[2] > 0, "vocab_topk not launched on the mesh")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rate
+
+
+def p23_one_card_rate(cpu_model, tok, items, prefixes):
+    """One card's sequences and rate for (b)'s items: the same settings,
+    batches of P23_ROWS, a warm-up batch first."""
+    import torch
+
+    from gitax_torch.decode.beam import BeamSearchConfig
+    from gitax_torch.runtime.engine import CaptionEngine
+
+    engine = CaptionEngine(build_model("cuda", torch.bfloat16, cpu_model), tok,
+                           batch_size=P23_ROWS, beam=BeamSearchConfig(num_beams=4, max_steps=40),
+                           dtype=torch.bfloat16, int8=True, fast_prefill=True, decode_kernel=True)
+    with engine:
+        engine_tokens(engine, items[:P23_ROWS], prefixes[:P23_ROWS], P23_ROWS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seqs = engine_tokens(engine, items, prefixes, P23_ROWS)
+        rate = len(items) / (time.perf_counter() - t0)
+    del engine
+    torch.cuda.empty_cache()
+    return seqs, rate
+
+
+def p23_cli(card, group, work, sharp, share, tsv_rate):
+    """(c) the CLI: `python -m gitax_torch.inference -p "{..., 'mesh_shape':
+    2}"` on phase 14's TSV and checkpoint (bf16, int8, batch 64: 32 rows
+    a data rank), every row checked by name; then, in `sharp`, a 16-row
+    f32 TSV whose bytes equal the one-card CLI's at batch 8 (a data
+    rank's batch of 4 is one card's; the one-card run precedes the
+    group).  Returns both runs' launches."""
+    from gitax_torch import common, inference
+    from gitax_torch.runtime.engine import CaptionEngine
+    from gitax_torch.tokenization import BertTokenizer
+
+    kwargs = dict(image_tsv="coco.img.tsv", model_name="GIT_LARGE_COCO", question_tsv=None,
+                  out_tsv="coco.mesh.tsv", batch_size=2 * P23_ROWS, dtype="bfloat16", int8=True,
+                  mesh_shape=2, share_card=share)
+    argv = ["-p", "{{'type': 'test_git_inference_single_tsv', 'image_tsv': 'coco.img.tsv', "
+                  "'model_name': 'GIT_LARGE_COCO', 'question_tsv': null, 'out_tsv': "
+                  "'coco.mesh.tsv', 'batch_size': {}, 'dtype': 'bfloat16', 'int8': true, "
+                  "'mesh_shape': 2, 'share_card': {}}}".format(2 * P23_ROWS, share)]
+    own = ((lambda: common.dispatch_main(vars(inference), argv)) if have_yaml()
+           else (lambda: inference.test_git_inference_single_tsv(**kwargs)))
+    loop = Captured(CaptionEngine, "run_caption_tsv")
+    decodes = Captured(BertTokenizer, "decode")
+    try:
+        _, peaks, launches = mesh_run(group, lambda: group.call(
+            "gitax_torch.inference", "test_git_inference_single_tsv", work, kwargs, own))
+    finally:
+        loop.remove()
+        decodes.remove()
+    from gitax_torch.io.tsv import TSVFile
+
+    keys = [TSVFile(os.path.join(work, "coco.img.tsv")).get_key(i) for i in range(COCO_TSV_ROWS)]
+    empty = check_caption_rows("mesh coco tsv", os.path.join(work, "coco.mesh.tsv"), keys, decodes)
+    check(launches[0] > 0, "mesh coco tsv: decode_attention not launched")
+    log("mesh coco tsv: {} rows through `python -m gitax_torch.inference -p` with mesh_shape 2 "
+        "by {} (bf16, int8, batch {}): every row checked, keys in order, {} empty; the loop "
+        "{:.2f} images/s beside one card's {:.2f} (phase 14); launches over every rank "
+        "decode_attention {} flash_attention {}; peak memory a rank {} MiB [{}]".format(
+            COCO_TSV_ROWS, "-p" if have_yaml() else "a direct call", 2 * P23_ROWS, len(empty),
+            COCO_TSV_ROWS / loop.seconds[0], tsv_rate, launches[0], launches[1],
+            ["%.1f" % p for p in peaks], card))
+    small = dict(image_tsv="small.img.tsv", model_name="GIT_LARGE_COCO", question_tsv=None,
+                 out_tsv="small.mesh.tsv", batch_size=8, dtype="float32", mesh_shape=[2, 1],
+                 share_card=share)
+    _, _, small_launches = mesh_run(group, lambda: group.call(
+        "gitax_torch.inference", "test_git_inference_single_tsv", sharp, small))
+    with open(os.path.join(sharp, "small.one.tsv"), "rb") as a, \
+            open(os.path.join(sharp, "small.mesh.tsv"), "rb") as b:
+        one, mesh = a.read(), b.read()
+    check(one == mesh, "mesh f32 TSV differs from the one-card CLI's")
+    log("mesh f32 tsv (attention and visual projection x10): {} rows through "
+        "test_git_inference_single_tsv(mesh_shape=[2, 1], batch 8) = the one-card CLI's at batch "
+        "4, byte for byte ({} bytes, {} distinct captions)".format(
+            P23_TSV_ROWS, len(mesh), len({r.split(b"\t")[1] for r in mesh.splitlines()})))
+    return [a + b for a, b in zip(launches, small_launches)]
+
+
+def p23_sharp(work, coco):
+    """(c)'s f32 working directory: phase 5's weights with the decoder's
+    attention and the visual projection x10 (phase 16's, so that outputs
+    depend on the image) as output/GIT_LARGE_COCO/snapshot/model.pt, and
+    the first P23_TSV_ROWS rows of phase 14's TSV."""
+    import copy
+
+    import torch
+
+    from gitax_torch.io.tsv import TSVFile, tsv_writer
+
+    sharp = os.path.join(work, "sharp")
+    snap = os.path.join(sharp, "output", "GIT_LARGE_COCO", "snapshot")
+    os.makedirs(snap)
+    torch.save({"model": sharpen_(copy.deepcopy(coco)).state_dict()},
+               os.path.join(snap, "model.pt"))
+    src = TSVFile(os.path.join(work, "coco.img.tsv"))
+    tsv_writer((src[i] for i in range(P23_TSV_ROWS)), os.path.join(sharp, "small.img.tsv"))
+    return sharp
+
+
+def p23_small_one_card(sharp):
+    """The one-card CLI on (c)'s 16-row f32 TSV at batch 4 (before the
+    group exists: under a group the CLI would shard the rows)."""
+    from gitax_torch import inference
+
+    cwd = os.getcwd()
+    os.chdir(sharp)
+    try:
+        inference.test_git_inference_single_tsv("small.img.tsv", "GIT_LARGE_COCO", None,
+                                                "small.one.tsv", batch_size=4, dtype="float32")
+    finally:
+        os.chdir(cwd)
+
+
+def p23_serving(card, group, work, sharp, share, images, serve_rate):
+    """(c) serving: `build_serving_stack(mesh_shape=2)`.  f32 on `sharp`'s
+    checkpoint: P23_REQUESTS requests one at a time (a device batch of 1,
+    padded to 2 by the mesh), each reply equal to one card's
+    generate_batch at batch 1 on rank 0's (whole) model; /stats counts
+    the padding.  bf16 + int8 on phase 14's checkpoint after warm():
+    LOAD_CLIENTS closed-loop clients for P23_LOAD_SECONDS.  Returns the
+    launches over every rank."""
+    import base64
+
+    import numpy as np
+    import torch
+
+    from gitax_torch.io.image import image_from_base64
+    from gitax_torch.runtime.engine import CaptionEngine
+    from gitax_torch.runtime.serving import DynamicBatcher
+
+    payloads = [base64.b64encode(png_bytes(a)).decode() for a in images[:LOAD_CLIENTS]]
+    total = [0, 0, 0]
+
+    def stack(dtype, int8):
+        return group.call("gitax_torch.serve", "build_serving_stack",
+                          work if int8 else sharp, dict(
+            model_name="GIT_LARGE_COCO", batch_size=32, dtype=dtype, int8=int8, mesh_shape=2,
+            share_card=share))
+
+    def f32_replies():
+        engine, batcher = stack("float32", False)
+        batcher.close()
+        batcher = DynamicBatcher(engine, max_wait_ms=4.0, buckets=(1, 2))
+        try:
+            got = [batcher.caption(p, timeout=600) for p in payloads[:P23_REQUESTS]]
+            snap = batcher.snapshot()
+            one = CaptionEngine(engine.model, engine.tokenizer, batch_size=1,
+                                dtype=torch.float32, transform=engine.transform)
+            want = [one.generate_batch([np.asarray(engine.transform(image_from_base64(p)),
+                                                   np.float32)], [[101]])[0]
+                    for p in payloads[:P23_REQUESTS]]
+            one.close()
+        finally:
+            batcher.close()
+            engine.close()
+        return got, want, snap
+
+    (got, want, snap), _, launches = mesh_run(group, f32_replies)
+    total = [a + b for a, b in zip(total, launches)]
+    check(got == want, "mesh serving f32: replies {} vs one card's {}".format(got, want))
+    check(snap["batch_size_hist"] == {2: P23_REQUESTS} and snap["padded_slots"] == P23_REQUESTS,
+          "mesh serving /stats: {}".format(snap))
+    log("mesh serving f32 (attention and visual projection x10): {} requests one at a time "
+        "through build_serving_stack(mesh_shape=2): "
+        "each reply equals one card's generate_batch at batch 1 ({} distinct); /stats batch-size "
+        "histogram {} and {} padded slots (the mesh's padding)".format(
+            P23_REQUESTS, len(set(got)), snap["batch_size_hist"], snap["padded_slots"]))
+    gc.collect()
+
+    def load():
+        engine, batcher = stack("bfloat16", True)
+        try:
+            t0 = time.perf_counter()
+            batcher.warm()
+            warm_s = time.perf_counter() - t0
+            with Served(batcher) as srv:
+                bodies = [json.dumps({"image": p}).encode() for p in payloads]
+                lat, bad, sent, load_s = closed_loop(srv.base, bodies, P23_LOAD_SECONDS)
+                _, stats = http_get(srv.base, "/stats")
+        finally:
+            batcher.close()
+            engine.close()
+        return warm_s, lat, bad, sent, load_s, stats
+
+    (warm_s, lat, bad, sent, load_s, stats), peaks, launches = mesh_run(group, load)
+    total = [a + b for a, b in zip(total, launches)]
+    check(not bad and stats["errors"] == 0, "mesh serving errors: clients {} stats {}".format(
+        sorted(set(bad)), stats["errors"]))
+    check(stats["requests"] == sent, "mesh /stats count {} requests, {} sent".format(
+        stats["requests"], sent))
+    lat = np.sort(np.asarray(lat)) * 1e3
+    log("mesh serving bf16+int8 (build_serving_stack(mesh_shape=2), batch 32): warm() {:.1f} s; "
+        "{} closed-loop clients for {:.1f} s: {} requests, {:.2f} requests/s, latency p50 {:.1f} "
+        "ms p99 {:.1f} ms (one card, phase 18: {:.2f} requests/s, p99 {:.1f} ms); /stats batches "
+        "{} histogram {} padded slots {}; peak memory a rank {} MiB; launches over every rank "
+        "decode_attention {} [{}; {}]".format(
+            warm_s, LOAD_CLIENTS, load_s, sent, sent / load_s, np.percentile(lat, 50),
+            np.percentile(lat, 99), serve_rate[0], serve_rate[1], stats["batches"],
+            dict(sorted((int(k), v) for k, v in stats["batch_size_hist"].items())),
+            stats["padded_slots"], ["%.1f" % p for p in peaks], launches[0], card,
+            mesh_layout(group.world, torch.cuda.device_count())[1]))
+    return total
+
+
+def phase_mesh_infer(card, coco, vqa, images, work, seed, rates):
+    """23. Inference on a mesh, the port's entry points on data x model
+    ranks: this process is rank 0 and ranks 1.. are spawned processes that
+    import gitax_torch only, NCCL a card a rank where the machine has a
+    card for each, else sharing card 0 over gloo (a rehearsal: no scaling
+    figure).  The kernels at a rank's shapes first; (a) f32 parity at
+    GIT_LARGE_COCO's widths, cut depth, on [2, 1], [1, 2] and [2, 2]
+    against one card, with a VQA grid of S=1201 (kernel 2 at H 8 and 6);
+    (b) bf16 + int8 at full size: the COCO engine on DP = cards (2 on one
+    card) beside one card, with kernel 3 on one batch, and VQA on [1, 2],
+    with each rank's peak memory and the drift from one card; (c) the
+    CLI's TSV loop and the server with mesh_shape.  Returns the three
+    kernels' launches over every rank of the mesh runs, and the per-rank
+    kernel rows."""
+    import numpy as np
+    import torch
+
+    from gitax_torch.tokenization import BertTokenizer, build_tiny_vocab, encode_prefix
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    dp = 4 if cards >= 4 else 2
+    kernel_rows, _ = check_rank_kernels(card)
+    launches = [0, 0, 0]
+
+    def add(x):
+        for i in range(3):
+            launches[i] += x[i]
+
+    tok = BertTokenizer(build_tiny_vocab(VQA_WORDS))
+    parity_model = p23_parity_model(seed)
+    inputs = p23_parity_inputs(seed, tok)
+    want = p23_one_card(parity_model, tok, inputs)
+    coco_tok = BertTokenizer(build_tiny_vocab())
+    rng = np.random.RandomState(seed + 230)
+    coco_items = [rng.randint(0, 256, (224, 224, 3)).astype(np.uint8)
+                  for _ in range(2 * P23_ROWS * dp)]
+    coco_pref = [[coco_tok.cls_token_id]] * len(coco_items)
+    coco_one = p23_one_card_rate(coco, coco_tok, coco_items, coco_pref)
+    vqa_items = [rng.randint(0, 256, (420, 560, 3)).astype(np.uint8) for _ in range(P23_ROWS)]
+    vqa_pref = [encode_prefix(tok, VQA_QUESTIONS[1], 40)] * len(vqa_items)
+    vqa_one = p23_one_card_rate(vqa, tok, vqa_items, vqa_pref)
+    sharp = p23_sharp(work, coco)
+    p23_small_one_card(sharp)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for world in (2, 4):
+        share, label = mesh_layout(world, cards)
+        t0 = time.perf_counter()
+        group = InferGroup(world, share)
+        log("mesh: the {}-rank group ({}) up in {:.1f} s".format(world, label,
+                                                                 time.perf_counter() - t0))
+        ok = False
+        try:
+            for shape in ([(2, 1), (1, 2)] if world == 2 else [(2, 2)]):
+                add(p23_parity(card, group, shape, parity_model, tok, inputs, want))
+            if world == dp:
+                got, _ = p23_rate(card, group, (dp, 1), coco, coco_tok, coco_items,
+                                          coco_pref, "COCO", coco_one)
+                add(got)
+            if world == 2:
+                got, _ = p23_rate(card, group, (1, 2), vqa, tok, vqa_items, vqa_pref, "VQA",
+                                  vqa_one)
+                add(got)
+                add(p23_cli(card, group, work, sharp, share, rates["coco_tsv"]))
+                add(p23_serving(card, group, work, sharp, share, images, rates["serving"]))
+            ok = True
+        finally:
+            group.close(ok)
+        log("mesh: the {}-rank group's runs {:.1f} s".format(world, time.perf_counter() - t0))
+    check(all(n > 0 for n in launches), "phase 23: a kernel was not launched: {}".format(launches))
+    log("phase 23 (inference on a mesh) {:.1f} s; launches over every rank of the mesh runs: "
+        "decode_attention {} flash_attention {} vocab_topk {}".format(
+            time.perf_counter() - t_phase, *launches))
+    return launches, kernel_rows
+
 def main(argv):
     import torch
 
@@ -3609,16 +4360,15 @@ def main(argv):
     coco_launches, images, coco_rate, coco_step_ms = phase_coco_slice(
         card, coco, BertTokenizer(build_tiny_vocab()))
     phase_coco_f32_parity(coco, images)
-    tsv_d, _ = phase_coco_tsv(card, coco, images, work, coco_rate)
+    tsv_d, tsv_rate = phase_coco_tsv(card, coco, images, work, coco_rate)
     phase_tsv_f32_parity(coco, work)
     phase_greedy_trie(card, coco, work)
     t0 = time.perf_counter()
-    serve_d = phase_serving(card, coco, images, work, coco_step_ms)  # 18
+    serve_d, serve_rate = phase_serving(card, coco, images, work, coco_step_ms)  # 18
     t1 = time.perf_counter()
     sample_d = phase_sampling(card, coco, images, seed)  # 19
     log("phase 18 (serving) {:.1f} s, phase 19 (sampling) {:.1f} s".format(
         t1 - t0, time.perf_counter() - t1))
-    del coco
 
     # 7, 8, 15: the VQA path
     # past the 14-token question prefix: answers of ~2 and ~9 tokens
@@ -3627,6 +4377,11 @@ def main(argv):
     vqa_d, vqa_f, pairs, vqa_rate = phase_vqa_slice(card, vqa, vqa_tok)
     phase_vqa_f32_parity(vqa, pairs)
     vqa_tsv_d, vqa_tsv_f, _ = phase_vqa_tsv(card, vqa, vqa_tok, work, vqa_rate)
+
+    # 23: inference on a mesh, on phase 14's checkpoint and TSV
+    mesh_d, mesh_rows = phase_mesh_infer(card, coco, vqa, images, work, seed,
+                                         {"coco_tsv": tsv_rate, "serving": serve_rate})
+    del coco
     del vqa, pairs
     shutil.rmtree(work)
     torch.cuda.empty_cache()
@@ -3656,16 +4411,21 @@ def main(argv):
     shutil.rmtree(work)
 
     launches = {"decode_attention": coco_launches + vqa_d + video_d + tsv_d + vqa_tsv_d
-                + serve_d + sample_d + context_d,
-                "flash_attention": vqa_f + video_f + vqa_tsv_f, "vocab_topk": vocab_launches}
+                + serve_d + sample_d + context_d + mesh_d[0],
+                "flash_attention": vqa_f + video_f + vqa_tsv_f + mesh_d[1],
+                "vocab_topk": vocab_launches + mesh_d[2]}
     stats["decode_attention"]["launches_with_mem_bias"] = context_d
     log("main-path launches: decode_attention {} (COCO {} + VQA {} + video {} + COCO TSV {} + VQA "
-        "TSV {} + serving {} + sampling {} + text context {}, the last with mem_bias), "
-        "flash_attention {} (VQA {} + video {} + VQA TSV {}), vocab_topk {} (video, vocab_kernel "
-        "on; 0 under sampling); all phases {:.1f} s".format(
+        "TSV {} + serving {} + sampling {} + text context {}, the last with mem_bias, + mesh {}), "
+        "flash_attention {} (VQA {} + video {} + VQA TSV {} + mesh {}), vocab_topk {} (video, "
+        "vocab_kernel on, {} + mesh {}; 0 under sampling); the mesh's counted over every rank; "
+        "all phases {:.1f} s".format(
             launches["decode_attention"], coco_launches, vqa_d, video_d, tsv_d, vqa_tsv_d, serve_d,
-            sample_d, context_d, launches["flash_attention"], vqa_f, video_f, vqa_tsv_f,
-            vocab_launches, time.perf_counter() - t_start))
+            sample_d, context_d, mesh_d[0], launches["flash_attention"], vqa_f, video_f, vqa_tsv_f,
+            mesh_d[1], launches["vocab_topk"], vocab_launches, mesh_d[2],
+            time.perf_counter() - t_start))
+    for name, rows in mesh_rows.items():
+        log("{} at a mesh rank's shapes: {}".format(name, json.dumps(rows)))
     log(card)
     log(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],

@@ -12,8 +12,18 @@ caller passes device='cpu' (Python callers; the tests do).  The model
 comes from `output/{model}/snapshot/model.pt` when it exists (the port's
 parameters carry the reference's names), else from a random init with a
 warning.  `evaluate_on_coco_caption` scores a result TSV with the port's
-copy of gitax's `evalcap/`.  Not ported, and raising: `mesh_shape` (SPMD
-over several chips) and `use_native=True` (gitax's libjpeg loader).
+copy of gitax's `evalcap/`.
+
+mesh_shape (an int N is [N, 1], else [data, model]) runs the search on a
+mesh of data x model ranks, one process a rank
+(`runtime.engine.open_mesh_engine`): this process is rank 0 and spawns
+the others, or, under a launch of exactly data x model processes
+(torchrun), each process is its launcher's rank and ranks 1.. return
+None.  One card a rank over NCCL; share_card=True puts every rank on
+card 0 over gloo (a rehearsal); device='cpu': gloo CPU ranks.  Rank 0
+loads or draws the weights and broadcasts them.  RANK/WORLD_SIZE row
+shards together with a mesh raise.  Not ported, and raising:
+`use_native=True` (gitax's libjpeg loader).
 """
 
 from __future__ import annotations
@@ -42,12 +52,6 @@ from .models.config import MODEL_ZOO, config_from_param, get_model_param
 from .models.git import GitModel, resolve_device
 from .preprocess.transforms import get_image_transform
 from .tokenization import BertTokenizer, build_tiny_vocab, encode_prefix
-
-
-def _no_mesh(mesh_shape):
-    if mesh_shape is not None:
-        raise NotImplementedError("mesh_shape: SPMD over several chips is not ported; run one "
-                                  "process per card with RANK/WORLD_SIZE row sharding")
 
 
 def _process_device(device=None):
@@ -116,17 +120,18 @@ def _build_model(model_name, param, dtype=torch.float32, device=None):
 
 
 def test_git_inference_single_image(image_path, model_name, prefix="", vocab_file=None,
-                                    mesh_shape=None, device=None):
+                                    mesh_shape=None, device=None, share_card=False):
     """Single image or video caption or QA (reference inference.py:67-109):
     image_path is a path or a list of frame paths (a clip); beam 4 with a
     1024-token buffer, or with vocab_file (a class-name list, one per
     line) trie-constrained classification decoding (the reference's
     commented-in option, model.py:42-48).  f32, on the card unless
-    device='cpu'."""
+    device='cpu'.  mesh_shape: the search on a mesh (module docstring),
+    the one row repeated into each data rank's slot as gitax does
+    (inference.py:171-178); the caption is row 0's."""
     from .decode.beam import BeamSearchConfig
     from .decode.trie import build_vocab_trie
 
-    _no_mesh(mesh_shape)
     param = _load_param(model_name)
     tokenizer = _load_tokenizer()
     if isinstance(image_path, str):
@@ -134,24 +139,39 @@ def test_git_inference_single_image(image_path, model_name, prefix="", vocab_fil
     transform = get_image_transform(param)
     imgs = np.stack([transform(load_image(p)) for p in image_path])
 
-    model = _build_model(model_name, param, device=device)
-    dev = model.textual.output.bias.device
-    # MinMax sizes need not be whole patches; the reference's strided
-    # patchify drops the remainder pixels (CLIP/model.py:221)
-    p = model.cfg.encoder.patch_size
-    h, w = (imgs.shape[1] // p) * p, (imgs.shape[2] // p) * p
-    images = torch.from_numpy(np.ascontiguousarray(imgs[:, :h, :w])).to(dev)
-    if len(image_path) > 1:
-        images = images[None]  # [1, F, H, W, 3] video frames
-
-    input_ids = encode_prefix(tokenizer, prefix, max_text_len=40)
-    prefix_ids = torch.tensor([input_ids], dtype=torch.long, device=dev)
     if vocab_file:
-        trie = build_vocab_trie(tokenizer, load_list_file(vocab_file))
-        seqs, _ = model.generate(images, prefix_ids, mode="trie", trie=trie)
+        search = dict(mode="trie", trie=build_vocab_trie(tokenizer, load_list_file(vocab_file)))
     else:
-        seqs, _ = model.generate(images, prefix_ids,
-                                 beam=BeamSearchConfig(num_beams=4, max_steps=1024))
+        search = dict(beam=BeamSearchConfig(num_beams=4, max_steps=1024))
+    input_ids = encode_prefix(tokenizer, prefix, max_text_len=40)
+
+    def cut(model):
+        # MinMax sizes need not be whole patches; the reference's strided
+        # patchify drops the remainder pixels (CLIP/model.py:221)
+        p = model.cfg.encoder.patch_size
+        h, w = (imgs.shape[1] // p) * p, (imgs.shape[2] // p) * p
+        x = np.ascontiguousarray(imgs[:, :h, :w])
+        return x[None] if len(image_path) > 1 else x  # [1, F, H, W, 3] video frames
+
+    if mesh_shape is None:
+        model = _build_model(model_name, param, device=device)
+        dev = model.textual.output.bias.device
+        images = torch.from_numpy(cut(model)).to(dev)
+        prefix_ids = torch.tensor([input_ids], dtype=torch.long, device=dev)
+        seqs, _ = model.generate(images, prefix_ids, **search)
+    else:
+        from .parallel.mesh import mesh_dims
+        from .runtime.engine import open_mesh_engine
+
+        data = mesh_dims(mesh_shape)[0]
+        engine = open_mesh_engine(lambda dev: _build_model(model_name, param, device=dev),
+                                  tokenizer, mesh_shape, device=device, share_card=share_card,
+                                  batch_size=data, dtype=torch.float32)
+        if engine is None:  # a rank 1.. under a launcher
+            return None
+        with engine:
+            images = np.repeat(cut(engine.model), data, axis=0)
+            seqs = engine.dispatch_device_batch(images, np.asarray([input_ids] * data), **search)
     cap = tokenizer.decode(seqs[0].cpu().tolist(), skip_special_tokens=True)
     logging.info("output: %s", cap)
     return cap
@@ -159,19 +179,21 @@ def test_git_inference_single_image(image_path, model_name, prefix="", vocab_fil
 
 def test_git_inference_single_tsv(image_tsv, model_name, question_tsv, out_tsv, batch_size=32,
                                   dtype="bfloat16", use_native=None, int8=False,
-                                  mesh_shape=None, device=None):
+                                  mesh_shape=None, device=None, share_card=False):
     """Sharded batch inference over a base64-image TSV (reference
     inference.py:134-225), batched on the card: captions, or answers when
     question_tsv is given.  dtype: 'bfloat16' (production) or 'float32'
     (parity with gitax); int8: weight-only int8 decoder and head,
-    quantised in place after the load.  Rows shard by RANK/WORLD_SIZE (or
-    an initialised torch.distributed group); each rank writes
-    out.{rank}.{world}.tsv and rank 0 concatenates.  use_native: None or
-    False (images decode with PIL); True raises."""
+    quantised in place after the load.  Without a mesh, rows shard by
+    RANK/WORLD_SIZE (or an initialised torch.distributed group); each
+    rank writes out.{rank}.{world}.tsv and rank 0 concatenates.
+    mesh_shape: every row through one engine on a mesh (module
+    docstring), rank 0 writing out_tsv; batch_size must divide over its
+    data axis.  use_native: None or False (images decode with PIL); True
+    raises."""
     from .decode.beam import BeamSearchConfig
-    from .runtime.engine import CaptionEngine
+    from .runtime.engine import CaptionEngine, open_mesh_engine
 
-    _no_mesh(mesh_shape)
     if use_native:
         raise NotImplementedError("use_native: gitax's libjpeg loader "
                                   "(gitax/native/dataloader.cpp) is not ported")
@@ -179,11 +201,19 @@ def test_git_inference_single_tsv(image_tsv, model_name, question_tsv, out_tsv, 
     param = load_from_yaml_file(yaml_path) if op.isfile(yaml_path) else _load_param(model_name)
     tdtype = getattr(torch, dtype)
     tokenizer = _load_tokenizer()
-    model = _build_model(model_name, param, dtype=tdtype, device=device)
-    engine = CaptionEngine(model, tokenizer, batch_size=batch_size,
-                           beam=BeamSearchConfig(num_beams=4, max_steps=40), dtype=tdtype,
-                           int8=int8, transform=get_image_transform(param))
-    rank, world = get_mpi_rank(), get_mpi_size()
+    kwargs = dict(batch_size=batch_size, beam=BeamSearchConfig(num_beams=4, max_steps=40),
+                  dtype=tdtype, int8=int8, transform=get_image_transform(param))
+    if mesh_shape is None:
+        engine = CaptionEngine(_build_model(model_name, param, dtype=tdtype, device=device),
+                               tokenizer, **kwargs)
+        rank, world = get_mpi_rank(), get_mpi_size()
+    else:
+        engine = open_mesh_engine(
+            lambda dev: _build_model(model_name, param, dtype=tdtype, device=dev), tokenizer,
+            mesh_shape, device=device, share_card=share_card, **kwargs)
+        if engine is None:  # a rank 1.. under a launcher
+            return
+        rank, world = 0, 1
     with engine:
         if question_tsv:
             engine.run_vqa_tsv(image_tsv, question_tsv, out_tsv, rank, world)

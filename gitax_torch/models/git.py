@@ -15,8 +15,11 @@ fused-attention kernel by gitax's auto rule and the int8 head optionally
 taking the fused vocab-head kernel; greedy; and trie-constrained greedy.
 Training: `trainable_` and `forward_logits`, the teacher-forced logits
 under autograd on the plain attention (gitax git.py:145-183), on one card
-or, sharded by `parallel.mesh.shard_params`, on a (data, model) mesh;
-generation runs on one card and raises on a tensor-parallel model.
+or, sharded by `parallel.mesh.shard_params`, on a (data, model) mesh.
+Generation also runs on a model sharded for tensor parallelism
+(`parallel.mesh.shard_for_inference`): every rank of a model group runs
+the same search on the same full logits (the all-reduce gives each rank
+the same sums); sampling there raises.
 """
 
 from __future__ import annotations
@@ -74,7 +77,7 @@ class GitModel(nn.Module):
         # decode steps run through this model (beam iterations summed over
         # calls); read by chip_smoke.py to match kernel launches
         self.decode_step_calls = 0
-        # the parallel.mesh.Mesh of a model sharded for training, else None
+        # the parallel.mesh.Mesh of a sharded model, else None
         self.mesh = None
 
     def init_params(self, generator: torch.Generator):
@@ -255,10 +258,19 @@ class GitModel(nn.Module):
         the plain attention path over a cache not tiled for beams; the
         beam's `beam` settings do not apply.  decode_kernel, vocab_kernel
         and fast_prefill raise there: gitax ignores them in these modes,
-        and the port does not ignore a kernel switch silently."""
-        T.check_one_card(self.textual, "generate")
+        and the port does not ignore a kernel switch silently.
+
+        On a model sharded over a model group of m > 1 ranks, every rank
+        of the group calls this with the same inputs; sampling there
+        raises (each rank would need the same generator stream: not
+        ported)."""
         if mode not in ("beam", "greedy", "trie"):
             raise ValueError("generate mode {!r}: 'beam', 'greedy' or 'trie'".format(mode))
+        if mode == "beam" and beam is not None and beam.do_sample \
+                and self.textual.tp_group is not None:
+            raise NotImplementedError("sampling on a tensor-parallel model is not ported: every "
+                                      "rank of the model group would need the same generator "
+                                      "stream; sample on a mesh of model size 1")
         if mode != "beam":
             if decode_kernel or vocab_kernel or fast_prefill:
                 raise ValueError("mode {!r} runs the plain decode step and the exact prefill: "

@@ -122,11 +122,16 @@ def linear(x, lin: Linear):
 def row_linear(x, lin: Linear, tp_group=None):
     """A row-parallel `linear` under tensor parallelism: this rank's
     partial product x @ W_shard^T summed over the model group, then the
-    (replicated) bias, added once.  `linear` itself when tp_group is
-    None."""
+    (replicated) bias, added once.  An int8 layer sums x @ q8_shard and
+    then applies its (replicated) per-output scale: (sum_r x_r q_r) s.
+    `linear` itself when tp_group is None."""
     if tp_group is None:
         return linear(x, lin)
-    y = reduce_from_model(F.linear(x, lin.weight.to(x.dtype)), tp_group)
+    if lin.quantized:
+        y = reduce_from_model(torch.matmul(x, lin.weight_q8_t.to(x.dtype)), tp_group)
+        y = y * lin.weight_scale.to(x.dtype)
+    else:
+        y = reduce_from_model(F.linear(x, lin.weight.to(x.dtype)), tp_group)
     return y + lin.bias.to(x.dtype) if lin.bias is not None else y
 
 

@@ -23,8 +23,12 @@ query, key, value and `intermediate.dense` column-parallel behind
 Megatron's f, `attention.output.dense` and `output.dense` row-parallel
 with g; the visual projection, the embeddings, the LayerNorms and the
 tied head are replicated, so the logits are full-width on every rank.
-The prefill and the decode steps run on one card and raise on a sharded
-head.
+The prefill and the decode steps run the same way for generation on a
+mesh: each rank holds its heads' K/V (the text cache is
+[T_max, B*beams, h*2Dh] and the memory [B, h, M, 2Dh] for this rank's h
+heads) and both kernels run on those heads; after each layer's last
+all-reduce every rank holds the same activations and computes the full
+logits.
 """
 
 from __future__ import annotations
@@ -241,6 +245,12 @@ def _attn_tail(xcur, ctx_merged, layer: BertLayer, cfg: GitConfig, tp_group=None
                       cfg.bert_ln_eps)
 
 
+def local_heads(layer: BertLayer, cfg: GitConfig) -> int:
+    """The layer's head count: its rank's under tensor parallelism, read
+    from the query's width."""
+    return layer.attention.qkv.query.bias.shape[0] // cfg.head_dim
+
+
 def _bert_layer(x, layer: BertLayer, cfg: GitConfig, mask, fast=False, flash_memory=None,
                 tp_group=None):
     """One decoder layer; returns (output, (q, k, v)).  flash_memory=M
@@ -249,22 +259,13 @@ def _bert_layer(x, layer: BertLayer, cfg: GitConfig, mask, fast=False, flash_mem
     from indices; `mask` and `fast` are not read), else the plain path
     with the additive `mask`.  The head count is the layer's own (its
     rank's under tensor parallelism, tp_group)."""
-    heads = layer.attention.qkv.query.bias.shape[0] // cfg.head_dim
-    q, k, v = qkv_project(copy_to_model(x, tp_group), layer.attention.qkv, heads)
+    q, k, v = qkv_project(copy_to_model(x, tp_group), layer.attention.qkv,
+                          local_heads(layer, cfg))
     if flash_memory is not None:
         ctx = fused_attention(q, k, v, num_memory=flash_memory, masked=True)
     else:
         ctx = torch.matmul(attention_weights(q, k, mask, fast=fast).to(v.dtype), v)
     return _attn_tail(x, merge_heads(ctx), layer, cfg, tp_group), (q, k, v)
-
-
-def check_one_card(tx: TextualHead, what: str):
-    """Raise on a head sharded for tensor parallelism: `what` (the
-    prefill, a decode step) runs on one card."""
-    if tx.tp_group is not None:
-        raise ValueError("{} runs on one card; this model is sharded for tensor-parallel "
-                         "training (gather its weights into a one-card model: "
-                         "parallel.mesh.gather_params)".format(what))
 
 
 # ---------------------------------------------------------------------------
@@ -350,7 +351,6 @@ def prefill(tx: TextualHead, visual_features, prefix_tokens, cfg: GitConfig,
     applies gitax's auto rule to M + Tp; either way only for a fully valid
     memory (the kernel has no validity input).  The cache is built from
     the same k and v on both paths."""
-    check_one_card(tx, "the prefill")
     b, tp = prefix_tokens.shape
     mem = project_visual(tx, visual_features.to(dtype), cfg)
     m = mem.shape[1]
@@ -362,13 +362,14 @@ def prefill(tx: TextualHead, visual_features, prefix_tokens, cfg: GitConfig,
     # the additive mask is [B, 1, S, S] f32 (197 MB at B=32, S=1240): only
     # the plain path builds it
     mask = None if flash else build_unified_mask(m, tp, memory_valid, batch=b, device=x.device)
-    h, dh = cfg.num_heads, cfg.head_dim
+    dh = cfg.head_dim
     if max_text_len < tp:
         raise ValueError("prefix of {} tokens exceeds max_text_len {}".format(tp, max_text_len))
     mem_kv, mem_scale, txt_kv = [], [], []
     for layer in tx.layers():
+        h = local_heads(layer, cfg)
         x, (_, k, v) = _bert_layer(x, layer, cfg, mask, fast=fast,
-                                   flash_memory=m if flash else None)
+                                   flash_memory=m if flash else None, tp_group=tx.tp_group)
         tkv = torch.cat([k[:, :, m:], v[:, :, m:]], -1).permute(2, 0, 1, 3)
         buf = torch.zeros((max_text_len, b, h * 2 * dh), dtype=dtype, device=x.device)
         buf[:tp] = tkv.reshape(tp, b, h * 2 * dh)
@@ -413,7 +414,6 @@ def decode_step(tx: TextualHead, tokens, cache: KVCache, cfg: GitConfig,
     selects through the ancestry one-hot.  Score math is f32 in both; in
     f32 they agree to rounding, in bf16 the kernel sums both contexts in
     f32 before one cast."""
-    check_one_card(tx, "a decode step")
     bk = tokens.shape[0]
     b = cache.batch
     beams = bk // b
@@ -421,7 +421,7 @@ def decode_step(tx: TextualHead, tokens, cache: KVCache, cfg: GitConfig,
         raise ValueError("{} tokens for a batch of {}".format(bk, b))
     pos = cache.length
     x = embed_captions(tx, tokens[:, None], cfg, position_offset=pos).to(dtype)
-    h, dh = cfg.num_heads, cfg.head_dim
+    dh = cfg.head_dim
     t_max = cache.max_text_len
     # a 0-dim CPU tensor acts as a scalar in device ops: no upload per step
     scale = (1.0 / torch.sqrt(torch.tensor(float(dh)))).to(dtype)
@@ -437,6 +437,7 @@ def decode_step(tx: TextualHead, tokens, cache: KVCache, cfg: GitConfig,
             anc = anc.expand(bk, t_max).contiguous()
 
         def attend(xcur, layer, mem_kv, mem_scale, txt_kv):
+            h = local_heads(layer, cfg)
             q, k_new, v_new = qkv_project(xcur, layer.attention.qkv, h)
             qs = (q[:, :, 0] * scale).reshape(bk, h * dh)
             kvn = torch.cat([k_new[:, :, 0], v_new[:, :, 0]], -1).reshape(bk, h * 2 * dh)
@@ -457,6 +458,7 @@ def decode_step(tx: TextualHead, tokens, cache: KVCache, cfg: GitConfig,
             ).to(acc)
 
         def attend(xcur, layer, mem_kv, mem_scale, txt_kv):
+            h = local_heads(layer, cfg)
             q, k_new, v_new = qkv_project(xcur, layer.attention.qkv, h)
             new_row = torch.cat([k_new, v_new], -1).permute(2, 0, 1, 3)
             txt_kv[pos] = new_row.reshape(bk, h * 2 * dh)
@@ -487,7 +489,7 @@ def decode_step(tx: TextualHead, tokens, cache: KVCache, cfg: GitConfig,
     mem_scale = cache.mem_scale or [None] * cache.num_layers
     for li, layer in enumerate(tx.layers()):
         ctx = attend(x, layer, cache.mem_kv[li], mem_scale[li], cache.txt_kv[li])
-        x = _attn_tail(x, ctx, layer, cfg)
+        x = _attn_tail(x, ctx, layer, cfg, tx.tp_group)
     cache = dataclasses.replace(cache, length=pos + 1)
     if vocab_kernel:
         out = tx.output

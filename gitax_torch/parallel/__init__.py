@@ -1,6 +1,6 @@
-"""Multi-card training, the counterpart of `gitax.parallel`: the (data,
-model) mesh over torch.distributed process groups, the tensor-parallel
-split and its collectives."""
+"""Multi-card training and inference, the counterpart of `gitax.parallel`:
+the (data, model) mesh over torch.distributed process groups, the
+tensor-parallel split and its collectives."""
 
 from .mesh import (
     Mesh,
@@ -11,6 +11,7 @@ from .mesh import (
     make_mesh,
     make_mesh_from_shape,
     shard_optimizer_state,
+    shard_for_inference,
     shard_params,
     split_rule,
 )

@@ -1,7 +1,7 @@
-"""The collectives of multi-card training, the ones gitax leaves to XLA's
-SPMD partitioner (gitax `parallel/mesh.py:1-17`).
+"""The collectives of multi-card training and inference, the ones gitax
+leaves to XLA's SPMD partitioner (gitax `parallel/mesh.py:1-17`).
 
-Every collective of the port's training goes through this module, and
+Every collective of the port's mesh goes through this module, and
 each is an `all_reduce` (a sum) or a `broadcast`: NCCL takes both across
 cards, and gloo takes both for CUDA tensors too, so the same code runs
 over NCCL one card per rank, over gloo in CPU processes (the tests), and
@@ -79,6 +79,40 @@ def barrier(device, group=None):
     one element on `device`."""
     if _dist().is_initialized():
         _dist().all_reduce(torch.zeros(1, device=device), group=group)
+
+
+def broadcast_object(obj, src: int, group=None, device="cpu"):
+    """Rank `src`'s picklable `obj` on every rank of `group`: its length,
+    then its pickled bytes, as two broadcasts of tensors on `device` (the
+    other ranks pass obj=None)."""
+    import pickle
+
+    mine = _dist().get_rank() == src
+    data = pickle.dumps(obj) if mine else b""
+    n = broadcast(torch.tensor([len(data)], dtype=torch.int64, device=device), src, group)
+    buf = (torch.frombuffer(bytearray(data), dtype=torch.uint8).to(device) if mine
+           else torch.empty(int(n.item()), dtype=torch.uint8, device=device))
+    broadcast(buf, src, group)
+    return obj if mine else pickle.loads(buf.cpu().numpy().tobytes())
+
+
+def gather_rows(t: torch.Tensor, lo: int, total: int, group) -> torch.Tensor:
+    """A [total, ...] tensor holding every rank's `t` at its row offset
+    `lo` (the ranks' rows partition [0, total)): an all-reduce of
+    zero-padded copies over `group`."""
+    full = torch.zeros((total,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
+    full[lo:lo + t.shape[0]] = t
+    return all_reduce(full, group)
+
+
+def count_unequal(t: torch.Tensor, group, size: int) -> int:
+    """How many elements of the integer tensor `t` differ between the
+    `size` ranks of `group`: with s1 and s2 the sums of t and t^2 over the
+    ranks, an element is equal on all of them iff size * s2 == s1^2."""
+    t = t.to(torch.int64)
+    s1 = all_reduce(t.clone(), group)
+    s2 = all_reduce(t * t, group)
+    return int((size * s2 != s1 * s1).sum().item())
 
 
 class _CopyToModel(torch.autograd.Function):

@@ -1,5 +1,5 @@
-"""The (data, model) mesh of multi-card training and its tensor-parallel
-split, the counterpart of gitax `parallel/mesh.py`.
+"""The (data, model) mesh of multi-card training and inference and its
+tensor-parallel split, the counterpart of gitax `parallel/mesh.py`.
 
 gitax runs one SPMD program over a `jax.sharding.Mesh` and lets XLA place
 the collectives from its partition specs.  The port runs one process per
@@ -18,7 +18,8 @@ index r // model and model index r % model.
   of each third (`QKV`), where gitax's spec shards the fused kernel's
   last axis contiguously and GSPMD reshards.
 
-`shard_params` replaces a full model's parameters by this rank's shards;
+`shard_params` replaces a full model's parameters by this rank's shards
+(`shard_for_inference` also its int8 buffers, for generation);
 `gather_params` and `load_sharded` go back and forth between shards and
 the one-card state dict, and `gather_optimizer_state` /
 `shard_optimizer_state` do the same for AdamW's state, so a checkpoint
@@ -66,11 +67,27 @@ _BLOCK = re.compile(r"(?:image_encoder\.transformer\.resblocks|textual\.transfor
 
 
 def split_rule(name: str) -> Optional[str]:
-    """How the parameter `name` (a `GitModel` state-dict name) splits over
-    the model axis: COLUMN (its output rows), ROW (its input columns), QKV
-    (each third's rows by heads) or None (replicated)."""
+    """How the parameter or buffer `name` (a `GitModel` state-dict name)
+    splits over the model axis: COLUMN (its output rows), ROW (its input
+    columns), QKV (each third's rows by heads) or None (replicated).
+
+    An int8 layer's leaves (`models/nn.py::Linear.set_int8`) are matched
+    by their exact leaf name, as gitax's rule does (mesh.py:63-83: a
+    substring match would take `weight_scale` for a weight): `weight_q8_t`
+    splits as the layer's `weight`; `weight_scale`, one per output
+    channel, with the columns of a column-parallel layer and replicated
+    for a row-parallel one, whose outputs are full width."""
     m = _BLOCK.match(name)
-    return _RULES.get(m.group(1)) if m else None
+    if not m:
+        return None
+    local = m.group(1)
+    module, _, leaf = local.rpartition(".")
+    if leaf == "weight_q8_t":
+        return _RULES.get(module + ".weight")
+    if leaf == "weight_scale":
+        kind = _RULES.get(module + ".weight")
+        return kind if kind == COLUMN else None
+    return _RULES.get(local)
 
 
 def _block(t, kind, model):
@@ -120,6 +137,7 @@ class Mesh:
     device: torch.device
     data_group: object = None
     model_group: object = None
+    backend: Optional[str] = None  # the backend of its groups
 
     @property
     def data_rank(self):
@@ -173,7 +191,8 @@ def make_mesh(data: Optional[int] = None, model: int = 1, device=None, backend=N
         data = world // model
     if data * model != world:
         raise ValueError("mesh {} x {} != world size {}".format(data, model, world))
-    mesh = Mesh(data=data, model=model, rank=rank, device=local_device(device))
+    mesh = Mesh(data=data, model=model, rank=rank, device=local_device(device),
+                backend=backend or dist.get_backend())
     # every rank creates every group, in the same order
     if model > 1:
         for d in range(data):
@@ -188,11 +207,18 @@ def make_mesh(data: Optional[int] = None, model: int = 1, device=None, backend=N
     return mesh
 
 
+def mesh_dims(mesh_shape):
+    """gitax's `mesh_shape`: an int N is (N, 1), else [data, model]."""
+    dims = (mesh_shape, 1) if isinstance(mesh_shape, int) else tuple(mesh_shape)
+    if len(dims) != 2 or not all(isinstance(n, int) and n >= 1 for n in dims):
+        raise ValueError("mesh_shape {!r}: an int N or [data, model]".format(mesh_shape))
+    return dims
+
+
 def make_mesh_from_shape(mesh_shape, device=None, backend=None) -> Mesh:
-    """The CLI's mesh: an int N is (N, 1), else [data, model]."""
-    if isinstance(mesh_shape, int):
-        mesh_shape = (mesh_shape, 1)
-    return make_mesh(data=mesh_shape[0], model=mesh_shape[1], device=device, backend=backend)
+    """The CLI's mesh (`mesh_dims`)."""
+    data, model = mesh_dims(mesh_shape)
+    return make_mesh(data=data, model=model, device=device, backend=backend)
 
 
 def _owner(model, name):
@@ -209,25 +235,18 @@ def check_divides(cfg, model: int):
                 label, heads, model))
 
 
-def broadcast_params(model, src=0):
-    """Every rank's weights and buffers from global rank `src` (identical
-    starting weights)."""
+def broadcast_params(model, src=0, group=None):
+    """Every rank's weights and buffers from global rank `src` over `group`
+    (None: the default group): identical starting weights."""
     with torch.no_grad():
         for t in model.state_dict().values():
-            comm.broadcast(t, src)
+            comm.broadcast(t, src, group)
 
 
-def shard_params(model, mesh: Mesh):
-    """Replace a full `GitModel`'s split parameters by this rank's shards
-    (new Parameters, same requires_grad), in place, and hand the towers
-    the model group; returns the model.  Build the optimizer after it."""
-    if model.mesh is not None:
-        raise ValueError("the model is already on a mesh")
+def _shard_(model, mesh: Mesh):
+    """Replace every split parameter and int8 buffer of a full model by
+    this rank's shard, in place, and hand the towers the model group."""
     check_divides(model.cfg, mesh.model)
-    quantized = [n for n, m in model.named_modules() if getattr(m, "quantized", False)]
-    if quantized:
-        raise ValueError("int8 Linears cannot be sharded for training: {}".format(
-            ", ".join(quantized)))
     if mesh.model > 1:
         for name, p in list(model.named_parameters()):
             kind = split_rule(name)
@@ -235,10 +254,46 @@ def shard_params(model, mesh: Mesh):
                 module, leaf = _owner(model, name)
                 shard = shard_tensor(kind, p.detach(), mesh.model, mesh.model_rank).clone()
                 setattr(module, leaf, nn.Parameter(shard, requires_grad=p.requires_grad))
+        for name, b in list(model.named_buffers()):
+            kind = split_rule(name)
+            if kind is not None:
+                module, leaf = _owner(model, name)
+                if leaf == "weight_q8_t":  # [in, out] out-major: split its [out, in] storage
+                    shard = shard_tensor(kind, b.t(), mesh.model, mesh.model_rank).t()
+                else:
+                    shard = shard_tensor(kind, b, mesh.model, mesh.model_rank)
+                module.register_buffer(leaf, shard.clone(memory_format=torch.preserve_format))
         model.image_encoder.tp_group = mesh.model_group
         model.textual.tp_group = mesh.model_group
     model.mesh = mesh
     return model
+
+
+def shard_params(model, mesh: Mesh):
+    """Replace a full `GitModel`'s split parameters by this rank's shards
+    (new Parameters, same requires_grad), in place, and hand the towers
+    the model group; returns the model.  Build the optimizer after it.
+    Raises on int8 Linears, which cannot train (`shard_for_inference`
+    takes them)."""
+    if model.mesh is not None:
+        raise ValueError("the model is already on a mesh")
+    quantized = [n for n, m in model.named_modules() if getattr(m, "quantized", False)]
+    if quantized:
+        raise ValueError("int8 Linears cannot be sharded for training: {}".format(
+            ", ".join(quantized)))
+    return _shard_(model, mesh)
+
+
+@torch.no_grad()
+def shard_for_inference(model, mesh: Mesh):
+    """`shard_params` for generation: a full model, int8 or not, cut to
+    this rank's shards in place.  Quantize the full model first
+    (`ops.quant.quantize_git_model_`), as gitax quantizes before
+    `shard_params`, so that the int8 values and scales are the one-card
+    ones; the tied head stays whole on every rank."""
+    if model.mesh is not None:
+        raise ValueError("the model is already on a mesh")
+    return _shard_(model, mesh)
 
 
 @torch.no_grad()

@@ -15,6 +15,14 @@ CPU ranks (device='cpu', the tests); gloo for ranks that share one card
 only when the caller asks (share_card=True, a rehearsal of a mesh on one
 card).  `spawn_ranks` starts the ranks of one command (train.py's
 `data_parallel`); a `torchrun` launch starts them instead.
+
+Inference on several cards (`mesh_shape` in the CLI and the server,
+`runtime.engine.CaptionEngine(mesh=...)`) joins its group with
+`open_inference_group`: under a launch of exactly data x model ranks
+(torchrun) each process is a rank; otherwise this process is rank 0 and
+`SpawnedRanks` starts ranks 1.. , which serve rank 0's batches until it
+closes the engine.  The group's timeout is minutes (MESH_TIMEOUT_S), so a
+rank that fails ends the others' collectives with an error, not a hang.
 """
 
 from __future__ import annotations
@@ -82,20 +90,22 @@ def barrier(name="gitax_barrier"):
     dist.barrier()
 
 
-def check_data_parallel(n: int, device=None):
+def check_data_parallel(n: int, device=None, label=None):
     """Raise unless `n` ranks fit this machine: on the card (device None
     or CUDA) one card each, so n <= torch.cuda.device_count(); CPU ranks
-    (device='cpu') are not counted."""
+    (device='cpu') are not counted.  `label` names the setting in the
+    message (default "data_parallel=n")."""
     import torch
 
+    label = label or "data_parallel={}".format(n)
     if n < 1:
-        raise ValueError("data_parallel={}: at least 1 rank".format(n))
+        raise ValueError("{}: at least 1 rank".format(label))
     if device is not None and torch.device(device).type == "cpu":
         return
     cards = torch.cuda.device_count()
     if n > cards:
-        raise ValueError("data_parallel={} needs {} cards, one per rank; this machine has "
-                         "{}".format(n, n, cards))
+        raise ValueError("{} needs {} cards, one per rank; this machine has {} (share_card=True "
+                         "puts every rank on card 0 over gloo)".format(label, n, cards))
 
 
 def init_training_group(rank=None, world_size=None, init_method=None, device=None,
@@ -150,40 +160,167 @@ def _spawned_rank(target, rank, world_size, init_method, args):
 JOIN_TIMEOUT_S = 600
 
 
+class SpawnedRanks(object):
+    """Ranks 1..world_size-1 of a group whose rank 0 is this process:
+    `target` ("module:function", called as fn(rank, world_size,
+    init_method, *args)) in spawned interpreters (a fresh one each: they
+    import `module`, nothing of the caller's), meeting rank 0 through a
+    file:// rendezvous (`init_method`) in a temporary directory that
+    lives until `join`."""
+
+    def __init__(self, target: str, world_size: int, args=()):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self._tmp = tempfile.TemporaryDirectory(prefix="gitax_ranks_")
+        self.init_method = "file://" + os.path.join(self._tmp.name, "rendezvous")
+        self.procs = [ctx.Process(target=_spawned_rank, args=(target, r, world_size,
+                                                             self.init_method, tuple(args)),
+                                  daemon=True)
+                      for r in range(1, world_size)]
+        for p in self.procs:
+            p.start()
+
+    def exited(self):
+        """[(rank, exit code)] of the ranks that have ended."""
+        return [(r + 1, p.exitcode) for r, p in enumerate(self.procs) if p.exitcode is not None]
+
+    def join(self, ok=True, timeout_s=JOIN_TIMEOUT_S):
+        """Wait for the ranks (stopping them at once when not `ok`: rank 0
+        failed), kill those still running after timeout_s, and raise if a
+        rank failed."""
+        for p in self.procs:
+            if not ok:
+                p.terminate()
+            p.join(timeout_s)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        self._tmp.cleanup()
+        failed = [(r, code) for r, code in self.exited() if code != 0]
+        if failed and ok:
+            raise RuntimeError("spawned ranks failed (rank, exit code): {}".format(failed))
+
+
 def spawn_ranks(target: str, world_size: int, args=()):
     """Run `target` ("module:function", called as fn(rank, world_size,
     init_method, *args)) on `world_size` ranks: rank 0 in this process,
-    whose result it returns, ranks 1.. in spawned processes (a fresh
-    interpreter each: they import `module`, nothing of the caller's).
-    The ranks meet through a file:// rendezvous in a temporary
-    directory.  Raises if a spawned rank fails or is still running
+    whose result it returns, ranks 1.. in spawned processes
+    (`SpawnedRanks`).  Raises if a spawned rank fails or is still running
     JOIN_TIMEOUT_S after rank 0 returned; if rank 0 fails the others are
     stopped."""
-    import multiprocessing
+    ranks = SpawnedRanks(target, world_size, args)
+    ok = False
+    try:
+        module, name = target.split(":")
+        result = getattr(importlib.import_module(module), name)(0, world_size, ranks.init_method,
+                                                                *args)
+        ok = True
+    finally:
+        ranks.join(ok)
+    return result
 
-    ctx = multiprocessing.get_context("spawn")
-    with tempfile.TemporaryDirectory(prefix="gitax_ranks_") as tmp:
-        init_method = "file://" + os.path.join(tmp, "rendezvous")
-        procs = [ctx.Process(target=_spawned_rank, args=(target, r, world_size, init_method,
-                                                         tuple(args)), daemon=True)
-                 for r in range(1, world_size)]
-        for p in procs:
-            p.start()
-        ok = False
+
+# the group timeout of inference on a mesh: a rank left waiting on a rank
+# that failed raises after this, and so does every rank after it
+MESH_TIMEOUT_S = 300
+
+
+def launched_world():
+    """(rank, world size) of this process under a launcher: the
+    initialised process group's, else RANK/WORLD_SIZE (or OMPI_*); (0, 1)
+    for a single process."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    world = _int_env("WORLD_SIZE") or _int_env("OMPI_COMM_WORLD_SIZE") or 1
+    rank = _int_env("RANK")
+    if rank is None:
+        rank = _int_env("OMPI_COMM_WORLD_RANK") or 0
+    return rank, world
+
+
+class InferenceGroup(object):
+    """This rank's part of an inference mesh: `mesh` (a
+    `parallel.mesh.Mesh`), the spawned ranks when this process started
+    them (`ranks`), and whether it initialised the process group."""
+
+    def __init__(self, mesh, ranks=None, owns_group=False):
+        self.mesh, self.ranks, self.owns_group = mesh, ranks, owns_group
+
+    @property
+    def rank(self):
+        return self.mesh.rank
+
+    def close(self, ok=True):
+        """Leave the group: destroy the process group if this rank made it,
+        then wait for the spawned ranks (`SpawnedRanks.join`)."""
+        import torch.distributed as dist
+
         try:
-            module, name = target.split(":")
-            result = getattr(importlib.import_module(module), name)(0, world_size, init_method,
-                                                                    *args)
-            ok = True
+            if self.owns_group and dist.is_initialized():
+                dist.destroy_process_group()
         finally:
-            for p in procs:
-                if not ok:
-                    p.terminate()
-                p.join(JOIN_TIMEOUT_S)
-                if p.is_alive():
-                    p.kill()
-                    p.join()
-        failed = [(r + 1, p.exitcode) for r, p in enumerate(procs) if p.exitcode != 0]
-        if failed:
-            raise RuntimeError("spawned ranks failed (rank, exit code): {}".format(failed))
-        return result
+            if self.ranks is not None:
+                ranks, self.ranks = self.ranks, None
+                ranks.join(ok)
+
+
+def join_inference_group(rank, world_size, init_method, mesh_shape, device=None,
+                         share_card=False, timeout_s=MESH_TIMEOUT_S, ranks=None):
+    """Join the group of an inference mesh as `rank` (the placement rules
+    of `init_training_group`) and make its (data, model) mesh; returns an
+    `InferenceGroup`."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import make_mesh_from_shape
+
+    owns = not dist.is_initialized()
+    dev, backend = init_training_group(rank, world_size, init_method, device=device,
+                                       share_card=share_card, timeout_s=timeout_s)
+    return InferenceGroup(make_mesh_from_shape(mesh_shape, device=dev, backend=backend), ranks,
+                          owns)
+
+
+def open_inference_group(mesh_shape, follower: str, device=None, share_card=False,
+                         timeout_s=MESH_TIMEOUT_S) -> InferenceGroup:
+    """The group of an entry point's `mesh_shape` (data x model ranks).
+    Under a launch of exactly that many processes (torchrun, or an
+    initialised group) this process is its launcher's rank.  Otherwise it
+    is rank 0 and ranks 1.. are spawned running `follower`
+    ("module:function", called as fn(rank, world, init_method,
+    mesh_shape, device, share_card, timeout_s)).  device='cpu': gloo on
+    the CPU; else NCCL with one card a rank, raising before anything
+    starts when the machine has fewer cards than ranks, unless share_card
+    puts every rank on card 0 over gloo.  A launch of another number of
+    processes raises: row shards over hosts, each with its own mesh, are
+    not ported."""
+    import torch
+
+    from ..parallel.mesh import mesh_dims
+
+    data, model = mesh_dims(mesh_shape)
+    world = data * model
+    rank, launched = launched_world()
+    if launched > 1:
+        if launched != world:
+            raise NotImplementedError(
+                "mesh_shape {} needs {} ranks, and this launch has {} processes: RANK/WORLD_SIZE "
+                "row shards over hosts, each host with its own mesh, are not ported (launch "
+                "data x model ranks, or one process)".format(list((data, model)), world, launched))
+        return join_inference_group(rank, world, None, mesh_shape, device, share_card, timeout_s)
+    cpu = device is not None and torch.device(device).type == "cpu"
+    if not cpu:
+        if share_card:
+            if not torch.cuda.is_available():
+                raise RuntimeError("share_card: no CUDA device")
+        else:
+            check_data_parallel(world, device, label="mesh_shape {}".format([data, model]))
+    ranks = SpawnedRanks(follower, world, (mesh_shape, device, share_card, timeout_s))
+    try:
+        return join_inference_group(0, world, ranks.init_method, mesh_shape, device, share_card,
+                                    timeout_s, ranks)
+    except BaseException:
+        ranks.join(ok=False)
+        raise

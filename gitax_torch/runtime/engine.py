@@ -29,20 +29,38 @@ models (`dispatch_varshape`: images cut to whole patches and grouped into
 exact-grid buckets) and `resolve`.  Items are images [H, W, 3] or video
 clips [F, H, W, 3], one shape per dispatch.  As in gitax, the engine runs
 the plain vocab head (no `vocab_kernel`).  Not ported: the native libjpeg
-decode and the device mesh.  The beam loop reads the host once per step,
-so `dispatch` returns when the device is nearly done: the decode pool
-overlaps the search, detokenisation overlaps nothing.
+decode.  The beam loop reads the host once per step, so `dispatch`
+returns when the device is nearly done: the decode pool overlaps the
+search, detokenisation overlaps nothing.
+
+On a mesh (`mesh=`, gitax pipeline.py:166-182 and 334-378) the engine is
+one process per rank, not gitax's one SPMD program.  Rank 0 is the
+engine its caller drives; ranks 1.. run `follow`.  Every rank holds the
+same weights (rank 0's, broadcast), quantized whole when int8 and then
+cut to its shards (`parallel.mesh.shard_for_inference`).  Each device
+batch is padded on rank 0 to a multiple of the data axis by repeating
+its last row, as gitax pads; rank 0 broadcasts a header (op, shape,
+dtype, prefix length) over a gloo group on the host, which never times
+out while a server idles, then the batch over the mesh's backend.  Each
+data rank runs the search on its rows (`Mesh.batch_rows`), its model
+group on its heads, and the sequences come back to rank 0 as an
+all-reduce of zero-padded rows over the data axis.  Rank 0 issues every
+collective from the thread that calls `dispatch_device_batch`, under a
+lock, in one order.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import datetime
 import json
 import logging
 import os
 import os.path as op
+import threading
 import time
+import types
 import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Tuple
@@ -57,6 +75,8 @@ from ..io.image import image_from_base64
 from ..io.tsv import TSVFile, concat_tsv_files, tsv_writer
 from ..models.git import GitModel
 from ..ops.quant import quantize_git_model_
+from ..parallel import comm
+from ..parallel.mesh import broadcast_params, mesh_dims, shard_for_inference
 from ..preprocess.transforms import CLIP_MEAN, CLIP_STD
 from ..tokenization import encode_prefix
 from . import distributed
@@ -112,6 +132,36 @@ def finish_shards(out_tsv: str, rank: int, world_size: int):
         wait_and_concat_shards(out_tsv, world_size)
 
 
+# the ops of rank 0's header, and its int64 slots: op, ndim, shape (up to
+# 5 dims), float batch, prefix length, whether pickled generate kwargs
+# follow
+_STOP, _RUN = 0, 1
+_HEADER = 10
+# the header group's timeout: a follower waits for rank 0's next batch
+# for as long as a server idles
+_IDLE = datetime.timedelta(days=30)
+
+
+class _Channel(object):
+    """The groups an engine on a mesh adds, made by every rank in the same
+    order: `control` (gloo, every rank, host tensors: the headers) and
+    `world` (every rank, the mesh's backend: the weights and batches)."""
+
+    def __init__(self, mesh):
+        import torch.distributed as dist
+
+        ranks = list(range(dist.get_world_size()))
+        self.control = dist.new_group(ranks, backend="gloo", timeout=_IDLE)
+        self.world = dist.new_group(ranks, backend=mesh.backend)
+
+    def header(self, values=None):
+        """Rank 0's header (values, a list of ints) on every rank."""
+        t = torch.zeros(_HEADER, dtype=torch.int64)
+        if values is not None:
+            t[:len(values)] = torch.tensor(values, dtype=torch.int64)
+        return comm.broadcast(t, 0, self.control).tolist()
+
+
 class CaptionEngine(object):
     """Batched captioning around a port GitModel, whose parameters set the
     device.  `dispatch` runs the search batch by batch and returns a
@@ -120,17 +170,55 @@ class CaptionEngine(object):
     TSVs.  transform: the image transform of the TSV loops, whose mean
     and std normalise uint8 batches (None: CLIP's constants, and no TSV
     loop).  The decode pool's threads end with `close()` or when the
-    engine is collected."""
+    engine is collected.
+
+    mesh: a `parallel.mesh.Mesh` of data x model ranks (see the module
+    docstring); every rank constructs its engine at once, rank 0 with the
+    model and the others through `follower`.  batch_size must divide
+    over the data axis.  on_close: called by `close()` after the
+    followers are stopped (the entry points leave their group there).
+    check_groups: count, on every batch, the sequence elements that
+    differ between the ranks of a model group (`group_mismatches`)."""
 
     def __init__(self, model: GitModel, tokenizer, batch_size: int = 32,
                  beam: Optional[BeamSearchConfig] = None, dtype=torch.bfloat16,
                  max_text_len: int = 40, int8: bool = False,
                  fast_prefill: Optional[bool] = None, decode_kernel=None,
-                 transform=None, decode_workers: int = 8):
+                 transform=None, decode_workers: int = 8, mesh=None, on_close=None,
+                 check_groups: bool = False, _channel=None):
+        self.mesh = mesh
+        self.check_groups = check_groups
+        self.group_mismatches = 0
+        # rank 0 of a mesh stops its followers once; a failed batch leaves
+        # the group broken, and then no stop header is sent
+        self._stopped = mesh is None or mesh.rank != 0
+        self._broken = False
+        if mesh is not None:
+            if batch_size % mesh.data:
+                raise ValueError("batch_size {} must divide over the mesh data axis {}".format(
+                    batch_size, mesh.data))
+            self._channel = _channel or _Channel(mesh)
+            if mesh.rank == 0:
+                dtypes = {p.dtype for p in model.parameters()}
+                if len(dtypes) != 1:
+                    raise ValueError("a mesh engine takes a model of one dtype, got {}".format(
+                        dtypes))
+                comm.broadcast_object({"cfg": model.cfg, "dtype": dtypes.pop(), "kwargs": dict(
+                    batch_size=batch_size, beam=beam, dtype=dtype, max_text_len=max_text_len,
+                    int8=int8, fast_prefill=fast_prefill, decode_kernel=decode_kernel,
+                    check_groups=check_groups,
+                    transform=types.SimpleNamespace(
+                        mean=list(getattr(transform, "mean", CLIP_MEAN)),
+                        std=list(getattr(transform, "std", CLIP_STD))))},
+                    0, self._channel.control)
+            broadcast_params(model, 0, self._channel.world)
+            self._lock = threading.Lock()
         if int8:
             # weight-only int8 decoder and head matmuls (ops/quant.py); the
-            # model is quantized in place
+            # model is quantized in place, whole, before a mesh splits it
             quantize_git_model_(model)
+        if mesh is not None:
+            shard_for_inference(model, mesh)
         self.model = model
         # bf16 prefill score math rides with int8 (both trade exactness);
         # pass fast_prefill=True with a model quantized beforehand
@@ -154,10 +242,33 @@ class CaptionEngine(object):
         # the host decode stage; its threads start at the first submit
         self.pool = ThreadPoolExecutor(max_workers=decode_workers)
         self._close = weakref.finalize(self, self.pool.shutdown, wait=False)
+        self._on_close = on_close
+
+    @classmethod
+    def follower(cls, mesh):
+        """The engine of a rank 1.. of a mesh: rank 0's settings and model
+        config arrive by broadcast, its weights by `broadcast_params`."""
+        channel = _Channel(mesh)
+        spec = comm.broadcast_object(None, 0, channel.control)
+        model = GitModel(spec["cfg"], device=mesh.device, dtype=spec["dtype"])
+        return cls(model, None, mesh=mesh, _channel=channel, **spec["kwargs"])
 
     def close(self):
-        """End the decode pool's threads."""
-        self._close()
+        """End the decode pool's threads; on a mesh's rank 0 also stop the
+        followers (a stop header) and call `on_close`."""
+        try:
+            if not self._stopped:
+                self._stopped = True
+                if not self._broken:
+                    self._channel.header([_STOP])
+        except Exception:  # the group is already broken: on_close ends the ranks
+            logging.exception("could not stop the mesh's followers")
+            self._broken = True
+        finally:
+            self._close()
+            if self._on_close is not None:
+                on_close, self._on_close = self._on_close, None
+                on_close(ok=not self._broken)
 
     def __enter__(self):
         return self
@@ -175,40 +286,119 @@ class CaptionEngine(object):
             norm_max_length=self.beam.norm_max_length or max(self.beam.max_steps, 1024),
         )
 
-    def _caption_fn(self, prefix_len: int):
-        """The batch program for a prefix length (`beam_for`'s settings)."""
-        beam = self.beam_for(prefix_len)
+    def _caption_fn(self, prefix_len: int, generate=None):
+        """The batch program for a prefix length (`beam_for`'s settings),
+        or, given `generate` (keyword arguments of `GitModel.generate`),
+        the one they set."""
+        kwargs = generate or dict(beam=self.beam_for(prefix_len), fast_prefill=self._fast_prefill,
+                                  decode_kernel=self._decode_kernel)
         dtype = self.dtype
 
         def fn(images, prefix):
             if images.dtype == torch.uint8:
                 x = images.to(dtype) / 255.0
                 images = (x - self.mean.to(dtype)) / self.std.to(dtype)
-            return self.model.generate(
-                images, prefix, beam=beam, dtype=dtype,
-                fast_prefill=self._fast_prefill, decode_kernel=self._decode_kernel,
-            )
+            return self.model.generate(images, prefix, dtype=dtype, **kwargs)
 
         return fn
 
-    def dispatch_device_batch(self, imgs: np.ndarray, pref: np.ndarray):
+    def dispatch_device_batch(self, imgs: np.ndarray, pref: np.ndarray, **generate):
         """Upload ONE same-shape batch (images [B, H, W, 3] or clips
         [B, F, H, W, 3]) with prefixes [B, Tp] and run the search: uint8
         batches are normalised on the device with the transform's
         constants; float batches (already normalised) are cast to the
-        engine's dtype on the host and uploaded as they are.  Returns the
-        device sequences [B, L]."""
+        engine's dtype and uploaded as they are.  `generate`: keyword
+        arguments of `GitModel.generate` in place of the engine's search
+        settings (the single-image CLI's).  Returns the device sequences
+        with >= B rows (a mesh pads B to a multiple of its data axis), on
+        a mesh's rank 0.
+
+        This is the one host-to-device seam: the TSV loops and the
+        serving batcher both come through here, so a mesh engine serves
+        every product surface."""
         if imgs.ndim not in (4, 5) or imgs.shape[-1] != 3:
             raise ValueError("a batch must be [B, H, W, 3] images or [B, F, H, W, 3] clips, "
                              "got {}".format(imgs.shape))
-        if imgs.dtype == np.uint8:
-            dev_imgs = torch.from_numpy(imgs).to(self.device)
-        else:
-            dev_imgs = torch.from_numpy(np.asarray(imgs, np.float32)).to(self.dtype).to(self.device)
-        pref = torch.from_numpy(np.asarray(pref, np.int64)).to(self.device)
-        fn = self._caption_fn(pref.shape[1])
-        seqs, _ = fn(dev_imgs, pref)
+        if imgs.dtype != np.uint8:
+            imgs = np.asarray(imgs, np.float32)
+        pref = np.asarray(pref, np.int64)
+        if self.mesh is not None:
+            return self._mesh_dispatch(imgs, pref, generate)
+        dev_imgs = torch.from_numpy(imgs)
+        if dev_imgs.dtype != torch.uint8:  # cast on the host: the upload is activation-width
+            dev_imgs = dev_imgs.to(self.dtype)
+        dev_imgs = dev_imgs.to(self.device)
+        pref = torch.from_numpy(pref).to(self.device)
+        seqs, _ = self._caption_fn(pref.shape[1], generate)(dev_imgs, pref)
         return seqs
+
+    # -- the mesh ------------------------------------------------------------
+    def _mesh_dispatch(self, imgs, pref, generate):
+        """Rank 0's side of a device batch on the mesh."""
+        if self.mesh.rank != 0:
+            raise RuntimeError("rank {} of the mesh follows rank 0's batches".format(
+                self.mesh.rank))
+        pad_n = (-len(imgs)) % self.mesh.data
+        if pad_n:  # every data rank takes equal rows (gitax pipeline.py:364-367)
+            imgs = np.concatenate([imgs, np.repeat(imgs[-1:], pad_n, axis=0)])
+            pref = np.concatenate([pref, np.repeat(pref[-1:], pad_n, axis=0)])
+        with self._lock:
+            if self._stopped:
+                raise RuntimeError("the engine is closed")
+            try:
+                self._channel.header([_RUN, imgs.ndim] + list(imgs.shape)
+                                     + [0] * (5 - imgs.ndim)
+                                     + [int(imgs.dtype != np.uint8), pref.shape[1],
+                                        int(bool(generate))])
+                if generate:
+                    comm.broadcast_object(generate, 0, self._channel.control)
+                dev_imgs = comm.broadcast(torch.from_numpy(imgs).to(self.device), 0,
+                                          self._channel.world)
+                dev_pref = comm.broadcast(torch.from_numpy(pref).to(self.device), 0,
+                                          self._channel.world)
+                return self._run(dev_imgs, dev_pref, generate or None)
+            except BaseException:
+                self._broken = True
+                raise
+
+    def _run(self, images, pref, generate):
+        """Every rank's part of a device batch [B, ...]: its data rank's
+        rows through its model group's search; the [B, L] sequences on
+        rank 0 (None elsewhere)."""
+        mesh = self.mesh
+        total = images.shape[0]
+        lo, hi = mesh.batch_rows(total)
+        images, pref = images[lo:hi], pref[lo:hi]
+        if images.dtype != torch.uint8:
+            images = images.to(self.dtype)
+        seqs, _ = self._caption_fn(pref.shape[1], generate)(images, pref)
+        if self.check_groups and mesh.model > 1:
+            unequal = comm.count_unequal(seqs, mesh.model_group, mesh.model)
+        if mesh.model_rank != 0:
+            return None
+        full = comm.gather_rows(seqs, lo, total, mesh.data_group)
+        if self.check_groups and mesh.model > 1:
+            n = comm.all_reduce(torch.tensor([unequal], device=self.device), mesh.data_group)
+            self.group_mismatches += int(n.item())
+        return full if mesh.rank == 0 else None
+
+    def follow(self):
+        """Ranks 1.. of a mesh: run rank 0's device batches until it closes
+        its engine (a stop header)."""
+        while True:
+            head = self._channel.header()
+            if head[0] == _STOP:
+                return
+            ndim = head[1]
+            shape = head[2:2 + ndim]
+            is_float, tp, kw = head[7:10]
+            generate = comm.broadcast_object(None, 0, self._channel.control) if kw else None
+            imgs = torch.empty(shape, dtype=torch.float32 if is_float else torch.uint8,
+                               device=self.device)
+            comm.broadcast(imgs, 0, self._channel.world)
+            pref = torch.empty((shape[0], tp), dtype=torch.int64, device=self.device)
+            comm.broadcast(pref, 0, self._channel.world)
+            self._run(imgs, pref, generate)
 
     def _dispatch_batch(self, images: List[np.ndarray], prefixes: List[List[int]]):
         """Same-shape items (images [H, W, 3] or clips [F, H, W, 3]) ->
@@ -440,3 +630,51 @@ class CaptionEngine(object):
 
         tsv_writer(rows(), cur_out)
         finish_shards(out_tsv, rank, world_size)
+
+
+def follower_main(rank, world_size, init_method, mesh_shape, device=None, share_card=False,
+                  timeout_s=distributed.MESH_TIMEOUT_S):
+    """A spawned rank 1.. of an entry point's mesh
+    (`distributed.open_inference_group`): join the group, build the
+    follower engine, serve rank 0's batches, leave."""
+    group = distributed.join_inference_group(rank, world_size, init_method, mesh_shape,
+                                             device, share_card, timeout_s)
+    try:
+        follow_mesh(group.mesh)
+    finally:
+        group.close()
+
+
+def follow_mesh(mesh):
+    """Ranks 1.. of a mesh: the follower engine until rank 0 closes its
+    own."""
+    engine = CaptionEngine.follower(mesh)
+    try:
+        engine.follow()
+    finally:
+        engine.close()
+
+
+def open_mesh_engine(model_fn, tokenizer, mesh_shape, device=None, share_card=False,
+                     **engine_kwargs):
+    """The entry points' mesh: join or start the group of `mesh_shape`
+    (`distributed.open_inference_group`); on rank 0 build the model with
+    `model_fn(device)` and return its engine, which leaves the group when
+    closed; on ranks 1.. (a launch of data x model processes) follow rank
+    0's batches and return None once it closes its engine."""
+    data = mesh_dims(mesh_shape)[0]
+    if engine_kwargs.get("batch_size", 32) % data:  # before any rank starts
+        raise ValueError("batch_size {} must divide over the mesh data axis {}".format(
+            engine_kwargs.get("batch_size", 32), data))
+    group = distributed.open_inference_group(mesh_shape, "gitax_torch.runtime.engine:follower_main",
+                                             device, share_card)
+    try:
+        if group.rank != 0:
+            follow_mesh(group.mesh)
+            group.close()
+            return None
+        return CaptionEngine(model_fn(group.mesh.device), tokenizer, mesh=group.mesh,
+                             on_close=group.close, **engine_kwargs)
+    except BaseException:
+        group.close(ok=False)
+        raise

@@ -18,10 +18,15 @@ The CLI follows the `-p/-c/-bp` YAML `type`-dispatch convention of every
 entry point (reference common.py:339-377).  The model is built as
 `inference._build_model` builds it: from output/{model}/snapshot/model.pt
 when it exists, on this process's card unless the caller passes
-device='cpu'.  Not ported, and raising: `mesh_shape` and
-`use_native=True`, as in the port's CLI.  One change to gitax's server:
-its listen backlog is 128 connections, not socketserver's 5, which
-resets a burst of concurrent connections before they are accepted.
+device='cpu'.  mesh_shape (an int N is [N, 1], else [data, model]) serves
+every device batch on a mesh of data x model ranks as the CLI does
+(`inference`'s docstring): one card a rank over NCCL, or every rank on
+card 0 over gloo with share_card=True.  The batcher's thread is the only
+one that reaches the mesh (`engine.dispatch_device_batch`); the request
+threads never do.  Not ported, and raising: `use_native=True`, as in the
+port's CLI.  One change to gitax's server: its listen backlog is 128
+connections, not socketserver's 5, which resets a burst of concurrent
+connections before they are accepted.
 """
 
 import json
@@ -35,28 +40,28 @@ from .common import dispatch_main
 def build_serving_stack(model_name, batch_size=32, max_wait_ms=4.0,
                         dtype="bfloat16", int8=False, num_beams=4,
                         max_steps=40, max_text_len=40, use_native=None,
-                        mesh_shape=None, max_hold_ms=None, device=None):
+                        mesh_shape=None, max_hold_ms=None, device=None, share_card=False):
     """Model + CaptionEngine + DynamicBatcher for `model_name`, built like
-    the TSV batch CLI (inference.py); on the card unless device='cpu'."""
+    the TSV batch CLI (inference.py); on the card unless device='cpu'.
+    With mesh_shape the engine is rank 0's of the mesh (closing it stops
+    the other ranks); under a launch of data x model processes, ranks 1..
+    serve rank 0's batches and return (None, None) when it closes."""
     import torch
 
     from .decode.beam import BeamSearchConfig
-    from .inference import _build_model, _load_param, _load_tokenizer, _no_mesh
+    from .inference import _build_model, _load_param, _load_tokenizer
     from .preprocess.transforms import get_image_transform
-    from .runtime.engine import CaptionEngine
+    from .runtime.engine import CaptionEngine, open_mesh_engine
     from .runtime.serving import DynamicBatcher
 
-    _no_mesh(mesh_shape)
     if use_native:
         raise NotImplementedError("use_native: gitax's libjpeg loader "
                                   "(gitax/native/dataloader.cpp) is not ported")
     param = _load_param(model_name)
     tdtype = getattr(torch, dtype)
     tokenizer = _load_tokenizer()
-    model = _build_model(model_name, param, dtype=tdtype, device=device)
-    engine = CaptionEngine(
-        model,
-        tokenizer,
+
+    engine_kwargs = dict(
         batch_size=batch_size,
         beam=BeamSearchConfig(num_beams=num_beams, max_steps=max_steps),
         # decode length: the engine sizes each prefix bucket's buffer at
@@ -67,6 +72,17 @@ def build_serving_stack(model_name, batch_size=32, max_wait_ms=4.0,
         int8=int8,
         transform=get_image_transform(param),
     )
+
+    def model_fn(dev):
+        return _build_model(model_name, param, dtype=tdtype, device=dev)
+
+    if mesh_shape is None:
+        engine = CaptionEngine(model_fn(device), tokenizer, **engine_kwargs)
+    else:
+        engine = open_mesh_engine(model_fn, tokenizer, mesh_shape, device=device,
+                                  share_card=share_card, **engine_kwargs)
+        if engine is None:  # a rank 1.. under a launcher
+            return None, None
     return engine, DynamicBatcher(engine, max_wait_ms=max_wait_ms,
                                   max_hold_ms=max_hold_ms)
 
@@ -157,7 +173,7 @@ def serve_caption(model_name, host="127.0.0.1", port=8080, batch_size=32,
                   num_beams=4, max_steps=40, max_text_len=40,
                   use_native=None, warmup=True, run_seconds=None,
                   warm_prefix_lens=(1,), mesh_shape=None, max_hold_ms=None,
-                  device=None):
+                  device=None, share_card=False):
     """Start the endpoint.  warmup: run every bucket size (plus any
     expected VQA prefix lengths) before accepting traffic, so that the
     kernels' first build and cuBLAS's first calls do not stall the
@@ -167,8 +183,10 @@ def serve_caption(model_name, host="127.0.0.1", port=8080, batch_size=32,
         model_name, batch_size=batch_size, max_wait_ms=max_wait_ms,
         dtype=dtype, int8=int8, num_beams=num_beams, max_steps=max_steps,
         max_text_len=max_text_len, use_native=use_native,
-        mesh_shape=mesh_shape, max_hold_ms=max_hold_ms, device=device,
+        mesh_shape=mesh_shape, max_hold_ms=max_hold_ms, device=device, share_card=share_card,
     )
+    if engine is None:  # a rank 1.. of a mesh under a launcher: rank 0 has closed
+        return
     try:
         if warmup:
             batcher.warm(prefix_lens=tuple(warm_prefix_lens))

@@ -27,8 +27,8 @@ and each test reads its case:
   data_parallel=2, device='cpu')` ends equal to it; validation on a
   [1, 2] mesh on rank 0 alone;
 * the refusals: a mesh product other than the world size, heads that do
-  not split, a sharded model in `generate`, `data_parallel` above the
-  card count.
+  not split, sampling on a tensor-parallel model in `generate`,
+  `data_parallel` above the card count.
 """
 
 import os
@@ -493,6 +493,6 @@ def test_run_finetune_validates_on_rank_0_under_tensor_parallelism(runs):
 def test_mesh_refusals_and_spawned_ranks_without_jax(runs):
     refused = case(runs, 2, "refusals")
     assert "2 x 2 != world size 2" in refused["mesh"]
-    assert "one card" in refused["generate"]
+    assert "sampling on a tensor-parallel model is not ported" in refused["generate"]
     for world in (2, 4):
         assert runs[world]["jax_imported"][1:] == [0.0] * (world - 1)

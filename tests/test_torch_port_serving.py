@@ -604,13 +604,21 @@ def test_http_accepts_a_burst_of_connections():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("kw,match", [(dict(mesh_shape=2), "mesh_shape"),
-                                      (dict(use_native=True), "use_native")])
-def test_build_serving_stack_refuses_what_is_not_ported(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        serve.build_serving_stack("GIT_BASE", device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match=match):
-        serve.serve_caption("GIT_BASE", device="cpu", **kw)
+@pytest.mark.parametrize("kw,error,match", [
+    (dict(mesh_shape=2, device=None), ValueError, r"mesh_shape \[2, 1\] needs 2 cards"),
+    (dict(use_native=True, device="cpu"), NotImplementedError, "use_native")])
+def test_build_serving_stack_refuses_what_is_not_ported(kw, error, match, monkeypatch):
+    """use_native=True raises; mesh_shape on the card with more ranks than
+    cards raises before any rank starts, unless share_card asks for one
+    shared card (CUDA mocked: one card)."""
+    for k in ("RANK", "WORLD_SIZE", "OMPI_COMM_WORLD_RANK", "OMPI_COMM_WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(error, match=match):
+        serve.build_serving_stack("GIT_BASE", **kw)
+    with pytest.raises(error, match=match):
+        serve.serve_caption("GIT_BASE", **kw)
 
 
 def test_serving_stack_on_the_cpu_when_asked(tmp_path, monkeypatch):

@@ -1,11 +1,13 @@
-"""The ranks of tests/test_torch_port_parallel.py: gloo CPU processes
-started by `gitax_torch.runtime.distributed.spawn_ranks`.
+"""The ranks of tests/test_torch_port_parallel.py (`main`) and
+tests/test_torch_port_mesh_engine.py (`infer_main`, `faulty_follower`):
+gloo CPU processes started by `gitax_torch.runtime.distributed`.
 
 A spawned rank imports this module and through it torch, numpy and
 gitax_torch only (never jax or gitax: the card's machine has no jax), and
 records whether jax reached its interpreter.  The test process writes
-the job (configs, weights, batches, TSV paths) to `job.pt`; rank 0
-writes each scenario's result, or its traceback, to `results{world}.pt`.
+the job (configs, weights, batches, TSV paths) to `job.pt` (inference:
+`infer_job.pt`); rank 0 writes each scenario's result, or its traceback,
+to `results{world}.pt` (`infer{world}.pt`).
 A scenario that fails on every rank at the same point is recorded and the
 next one runs; the group's timeout bounds a rank left waiting.
 """
@@ -106,8 +108,10 @@ def refusals(job):
     mesh = make_mesh_from_shape([1, dist.get_world_size()], device="cpu")
     model = shard_params(model_from(job["tiny"]["cfg"], job["tiny"]["weights"]), mesh)
     try:
-        model.generate(torch.zeros(1, 32, 32, 3), mode="greedy", max_steps=3)
-    except ValueError as e:
+        from gitax_torch.decode.beam import BeamSearchConfig
+
+        model.generate(torch.zeros(1, 32, 32, 3), beam=BeamSearchConfig(do_sample=True))
+    except NotImplementedError as e:
         out["generate"] = str(e)
     return out
 
@@ -200,3 +204,218 @@ def main(rank, world, init_method, job_dir):
     finally:
         torch.set_num_threads(threads)
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# inference on a mesh: the ranks of tests/test_torch_port_mesh_engine.py
+# ---------------------------------------------------------------------------
+
+
+def mesh_engine(job, shape, case="engine", **kw):
+    """The engine of a `shape` mesh on this group: rank 0's
+    (`CaptionEngine(mesh=...)` on the case's weights), or, on ranks 1..,
+    None after following rank 0's batches until it closed its engine."""
+    from gitax_torch.runtime.engine import CaptionEngine, follow_mesh
+    from gitax_torch.tokenization import BertTokenizer, build_tiny_vocab
+
+    mesh = make_mesh(*shape, device="cpu")
+    if dist.get_rank() != 0:
+        follow_mesh(mesh)
+        return None
+    spec = job[case]
+    return CaptionEngine(model_from(spec["cfg"], spec["weights"]),
+                         BertTokenizer(build_tiny_vocab(job["words"])), mesh=mesh,
+                         check_groups=True, **dict(job["engine_kw"], **kw))
+
+
+def mesh_tokens(job, shape, case="engine", items="images", prefix=(101,), **kw):
+    """The search's tokens for the job's items on a `shape` mesh, the
+    elements that differed within a model group, and the batch rows
+    (rank 0; None elsewhere)."""
+    import numpy as np
+
+    engine = mesh_engine(job, shape, case, **kw)
+    if engine is None:
+        return None
+    with engine:
+        inputs = job[items]
+        n, [(_, seqs)] = engine.dispatch(inputs, [list(prefix)] * len(inputs))
+        rows = [engine.to_host(s) for s in seqs]
+        return {"tokens": np.concatenate(rows)[:n], "rows": [len(r) for r in rows],
+                "unequal": engine.group_mismatches}
+
+
+def mesh_tsv(job, shape, kind, loop):
+    """The engine's TSV loop (`loop`: caption or vqa) with the job's
+    `kind` transform on a `shape` mesh: the output path (rank 0)."""
+    from gitax_torch.preprocess import transforms
+
+    engine = mesh_engine(job, shape, transform=transforms.TestTransform(
+        **job["transforms"][kind]))
+    if engine is None:
+        return None
+    out = os.path.join(job["dir"], "mesh_{}_{}.tsv".format(kind, loop))
+    with engine:
+        if loop == "vqa":
+            engine.run_vqa_tsv(job["img_tsv"], job["q_tsv"], out)
+        else:
+            engine.run_caption_tsv(job["img_tsv"], out)
+    return {"path": out, "unequal": engine.group_mismatches}
+
+
+def in_cli_dir(job, fn):
+    """fn() with the working directory at the CLI's (output/, aux_data/)
+    and the CLI's config and tokenizer set to the job's TINY ones."""
+    from gitax_torch import inference
+    from gitax_torch.tokenization import BertTokenizer, build_tiny_vocab
+
+    cli = job["cli"]
+    saved = (os.getcwd(), inference.config_from_param, inference._load_tokenizer)
+    os.chdir(cli["dir"])
+    inference.config_from_param = lambda param=None: cli["cfg"]
+    inference._load_tokenizer = lambda: BertTokenizer(build_tiny_vocab(cli["words"]))
+    try:
+        return fn()
+    finally:
+        os.chdir(saved[0])
+        inference.config_from_param, inference._load_tokenizer = saved[1:]
+
+
+def cli_tsv(job, loop, mesh_shape):
+    """test_git_inference_single_tsv with mesh_shape on this group."""
+    from gitax_torch import inference
+
+    out = "mesh_{}.tsv".format(loop)
+    q_tsv = "q.tsv" if loop == "vqa" else None
+
+    def run():
+        inference.test_git_inference_single_tsv("img.tsv", "TINY_CAP", q_tsv, out, batch_size=2,
+                                                dtype="float32", mesh_shape=mesh_shape,
+                                                device="cpu")
+        return os.path.join(job["cli"]["dir"], out) if dist.get_rank() == 0 else None
+
+    return in_cli_dir(job, run)
+
+
+def cli_image(job, trie, mesh_shape):
+    """test_git_inference_single_image (beam, or trie over names.txt) with
+    mesh_shape on this group: the caption on rank 0."""
+    from gitax_torch import inference
+
+    kw = dict(vocab_file="names.txt") if trie else {}
+    return in_cli_dir(job, lambda: inference.test_git_inference_single_image(
+        "f0.png", "TINY_CAP", "", mesh_shape=mesh_shape, device="cpu", **kw))
+
+
+def served(job):
+    """build_serving_stack(mesh_shape=2): each payload alone (a batch of
+    1, padded to 2 by the mesh), then /stats (rank 0)."""
+    from gitax_torch import serve
+    from gitax_torch.runtime.serving import DynamicBatcher
+
+    def run():
+        engine, batcher = serve.build_serving_stack("TINY_CAP", batch_size=2, dtype="float32",
+                                                    max_steps=8, max_text_len=8, mesh_shape=2,
+                                                    device="cpu")
+        if engine is None:
+            return None
+        batcher.close()  # the stack's own, with the default buckets
+        batcher = DynamicBatcher(engine, max_wait_ms=10.0, buckets=(1, 2))
+        try:
+            replies = [batcher.caption(p, timeout=120) for p in job["payloads"]]
+            question = batcher.caption(job["payloads"][0], question="what is the color",
+                                       timeout=120)
+        finally:
+            batcher.close()
+            engine.close()
+        return {"replies": replies, "question": question, "stats": batcher.stats.snapshot()}
+
+    return in_cli_dir(job, run)
+
+
+def mesh_refusals(job):
+    """What a mesh still refuses, on every rank: sampling on a model
+    sharded over 2 model ranks, a batch size that does not split over the
+    data axis."""
+    from gitax_torch.decode.beam import BeamSearchConfig
+    from gitax_torch.parallel.mesh import shard_for_inference
+    from gitax_torch.runtime.engine import CaptionEngine
+
+    out = {}
+    spec = job["engine"]
+    model = shard_for_inference(model_from(spec["cfg"], spec["weights"]),
+                                make_mesh(1, 2, device="cpu"))
+    try:
+        model.generate(torch.zeros(1, 32, 32, 3), beam=BeamSearchConfig(do_sample=True))
+    except NotImplementedError as e:
+        out["sample"] = str(e)
+    try:
+        CaptionEngine(model_from(spec["cfg"], spec["weights"]), None, batch_size=3,
+                      mesh=make_mesh(2, 1, device="cpu"))
+    except ValueError as e:
+        out["batch"] = str(e)
+    return out
+
+
+INFER_SCENARIOS = {
+    2: [("tsv_caption_crop", lambda job: mesh_tsv(job, (2, 1), "crop", "caption")),
+        ("tsv_vqa_crop", lambda job: mesh_tsv(job, (2, 1), "crop", "vqa")),
+        ("tsv_caption_minmax", lambda job: mesh_tsv(job, (2, 1), "minmax", "caption")),
+        ("tsv_vqa_minmax_tp", lambda job: mesh_tsv(job, (1, 2), "minmax", "vqa")),
+        ("cli_caption", lambda job: cli_tsv(job, "caption", 2)),
+        ("cli_vqa", lambda job: cli_tsv(job, "vqa", [2, 1])),
+        ("tokens_2x1", lambda job: mesh_tokens(job, (2, 1))),
+        ("tokens_1x2", lambda job: mesh_tokens(job, (1, 2))),
+        ("int8_1x2", lambda job: mesh_tokens(job, (1, 2), int8=True)),
+        ("video_1x2", lambda job: mesh_tokens(job, (1, 2), case="video", items="clips",
+                                              prefix=(101, 7, 9))),
+        ("serving", served),
+        ("refusals", mesh_refusals)],
+    4: [("tokens_2x2", lambda job: mesh_tokens(job, (2, 2))),
+        ("int8_2x2", lambda job: mesh_tokens(job, (2, 2), int8=True)),
+        ("video_2x2", lambda job: mesh_tokens(job, (2, 2), case="video", items="clips",
+                                              prefix=(101, 7, 9))),
+        ("cli_beam_2x2", lambda job: cli_image(job, False, [2, 2])),
+        ("cli_trie_2x2", lambda job: cli_image(job, True, [2, 2]))],
+}
+
+
+def infer_main(rank, world, init_method, job_dir):
+    """A rank of the inference group of `world` ranks: every scenario of
+    INFER_SCENARIOS[world] in order, rank 0 writing each one's result, or
+    its traceback, to infer{world}.pt."""
+    init_training_group(rank, world, init_method, device="cpu", timeout_s=TIMEOUT_S)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        job = torch.load(os.path.join(job_dir, "infer_job.pt"), weights_only=False)
+        job["dir"] = job_dir
+        results = {"jax_imported": per_rank("jax" in sys.modules, world)}
+        for name, fn in INFER_SCENARIOS[world]:
+            try:
+                results[name] = fn(job)
+            except Exception:
+                results[name] = {"error": traceback.format_exc()}
+        if rank == 0:
+            torch.save(results, os.path.join(job_dir, "infer{}.pt".format(world)))
+    finally:
+        torch.set_num_threads(threads)
+        dist.destroy_process_group()
+
+
+def faulty_follower(rank, world, init_method, mesh_shape, device, share_card, timeout_s):
+    """A follower rank whose search raises at rank 0's first batch: the
+    process ends with the error, and rank 0's next collective must
+    raise."""
+    from gitax_torch.runtime import distributed
+    from gitax_torch.runtime.engine import CaptionEngine
+
+    group = distributed.join_inference_group(rank, world, init_method, mesh_shape, device,
+                                             share_card, timeout_s)
+    engine = CaptionEngine.follower(group.mesh)
+
+    def fail(*a, **kw):
+        raise RuntimeError("planted failure on rank {}".format(rank))
+
+    engine.model.generate = fail
+    engine.follow()
