@@ -6,7 +6,7 @@
 Phases, each of which fails the run (non-zero exit) if it fails:
   1. device: the card's name and power limit; TF32 off for the parity
      phases;
-  2. build: the three CUDA kernels from gitax_torch/csrc (one nvcc each,
+  2. build: the CUDA kernels from gitax_torch/csrc (one nvcc a source,
      in parallel), their compile reports, whether each one's SASS holds
      wgmma (HGMMA) and TMA loads (UTMALDG) (kernels 2 and 3 must), the
      decode kernel's cluster plans at M 1 to 1542, the vocab head's launch
@@ -179,7 +179,34 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      replies equal one card's, /stats counting the mesh's padding, then
      16 closed-loop clients for 10 s beside phase 18.  The launches of
      every rank join the kernels JSON line's.
-Phases 14-19, 21, 22 and 23 write in build/gitax_torch/smoke_work, removed after.
+ 24. the doctor: `python -m gitax_torch.doctor --json` in a child process
+     exits 0 (CUDA init, a matmul, each kernel built and launched against
+     its plain version, the build directory, the TSV round trip); its
+     native probe (jpeglib.h / -ljpeg and nvjpeg.h / -lnvjpeg through the
+     toolkit's nvcc) on a line of its own;
+ 25. the w8a8 kernels (csrc/int8_dynamic.cu): quantize_rows' codes and row
+     scales and scale_rows' outputs equal their plain versions bit for bit
+     and torch._int_mm the exact int32 product, at COCO's (32 x 257) and
+     VQA's (32 x 1201) rows, K 1024/4096, N 1024/3072/4096, bf16 and f32;
+     the product split at each encoder GEMM (quantize_rows, _int_mm,
+     scale_rows) beside its bounds and the bf16 F.linear of the same
+     GEMM;
+ 26. the w8a8 encoder on the path (`quantize_git_model_(encoder=True)`):
+     GIT_LARGE_VQAv2 at 30x40 and GIT_LARGE_COCO, B=32, bf16: encode ms
+     bf16 against w8a8 (device events), launches = 4 x 24 a batch; COCO's
+     sequences against the bf16 weight-only int8 run's (the drift); the
+     cut model in f32: the card's w8a8 tokens = the CPU's plain path's;
+     in phase 23, the same on [1, 2] (ranks sharing the card over gloo) =
+     one card's;
+ 27. the reference checkpoint: phase 14 writes phase 5's model with
+     `ckpt.save_reference_checkpoint`, and the CLI's TSV of the one-colour
+     rows from it equals an in-memory engine's with the CLI's settings;
+ 28. row shards over hosts: in phase 23, (c)'s 16-row f32 TSV on 4 ranks =
+     2 hosts x mesh_shape 2, joined by host 0, byte-identical to the
+     one-card CLI's;
+ 29. the trace: `runtime.profiling.trace` around one COCO batch (after
+     phase 5) writes a Chrome trace that names kernel 1.
+Phases 14-19, 21, 22, 23 and 26-28 write in build/gitax_torch/smoke_work, removed after.
 Each slice prints its peak device memory.
 Prints the card's name and power limit, one JSON line describing the
 kernels (launches on the main path; error, time, plain time, bound and
@@ -206,7 +233,14 @@ KERNELS = {
     "flash_attention": ("gitax_torch/csrc/flash_attention.cu",
                         "gitax/ops/flash_attention.py:88"),
     "vocab_topk": ("gitax_torch/csrc/vocab_topk.cu", "gitax/ops/vocab_topk.py:63"),
+    # no Pallas kernel: the XLA fusions of gitax's w8a8 product
+    # (`_int8_dynamic_matmul`, gitax/models/nn.py:53-71)
+    "int8_quantize_rows": ("gitax_torch/csrc/int8_dynamic.cu", "gitax/models/nn.py:61"),
+    "int8_scale_rows": ("gitax_torch/csrc/int8_dynamic.cu", "gitax/models/nn.py:69"),
 }
+# the libraries the kernels live in, one nvcc each
+LIBRARIES = list(dict.fromkeys(os.path.splitext(os.path.basename(src))[0]
+                               for src, _ in KERNELS.values()))
 
 # COCO path shapes of the decode-attention call (GIT_LARGE_COCO, B=32)
 B, K, H, DH, M, T = 32, 4, 12, 64, 257, 41
@@ -394,11 +428,11 @@ def phase_build(card):
     from gitax_torch.ops import vocab_topk as vt
 
     t0 = time.perf_counter()
-    cuda_build.build_all(list(KERNELS))
+    cuda_build.build_all(LIBRARIES)
     log("build: {} in parallel in {:.1f} s ({})".format(
-        " and ".join(KERNELS), time.perf_counter() - t0,
-        ", ".join("{} {:.1f} s".format(n, cuda_build.build_seconds(n)) for n in KERNELS)))
-    for name in KERNELS:
+        " and ".join(LIBRARIES), time.perf_counter() - t0,
+        ", ".join("{} {:.1f} s".format(n, cuda_build.build_seconds(n)) for n in LIBRARIES)))
+    for name in LIBRARIES:
         for fn, line in ptxas_report(cuda_build.build_log(name)):
             log("build: {} {}: {}".format(name, fn, line))
     sass_report()
@@ -451,7 +485,7 @@ def sass_report():
     tool = os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
     if not os.path.isfile(tool):
         tool = shutil.which("cuobjdump")
-    for name in KERNELS:
+    for name in LIBRARIES:
         if not tool:
             log("build: {} SASS: HGMMA not checked, UTMALDG not checked (no cuobjdump)".format(name))
             continue
@@ -890,8 +924,10 @@ def random_model(name, seed, gate):
     return model
 
 
-def phase_coco_slice(card, cpu_model, tok):
-    """GIT_LARGE_COCO through the port's CaptionEngine, as served."""
+def phase_coco_slice(card, cpu_model, tok, trace_dir):
+    """GIT_LARGE_COCO through the port's CaptionEngine, as served; then one
+    batch under `runtime.profiling.trace` (29), whose trace file must name
+    kernel 1."""
     import numpy as np
     import torch
 
@@ -944,6 +980,21 @@ def phase_coco_slice(card, cpu_model, tok):
                                                      step_ms, card))
     log("coco slice: sample captions: {}".format(captions[:2]))
     peak_memory("coco slice", card)
+    from gitax_torch.runtime import profiling
+
+    t0 = time.perf_counter()
+    with profiling.trace(trace_dir):
+        engine.generate_batch(images[:32], prefixes[:32])
+    path = os.path.join(trace_dir, "trace.json")
+    with open(path) as fp:
+        events = json.load(fp)["traceEvents"]
+    kernel1 = [e for e in events if e.get("cat") == "kernel"
+               and "decode_attention_kernel" in e.get("name", "")]
+    check(kernel1, "the trace of one COCO batch names no decode_attention kernel")
+    log("trace: runtime.profiling.trace around one COCO batch wrote {} ({:.1f} MiB, {} events, {} "
+        "of them decode_attention kernels) in {:.2f} s".format(
+            os.path.relpath(path, ROOT), os.path.getsize(path) / 2**20, len(events), len(kernel1),
+            time.perf_counter() - t0))
     del engine, model
     torch.cuda.empty_cache()
     return launches, images, 96 / seconds, step_ms
@@ -1383,11 +1434,14 @@ def phase_vocab_kernel(card):
     f32_copies = [(c[0].float(),) + c[1:] for c in copies]
     del copies
     f32_ms = device_ms(cycled(vt.vocab_logits_topk_cuda, f32_copies), 20, "vocab_topk")
+    f32_plain_ms, _, _ = in_turns(cycled(vt.vocab_logits_topk_reference, f32_copies),
+                                  cycled(vt.vocab_logits_topk_cuda, f32_copies), 20, 60)
     f32_bound, f32_by = bound(vocab_moved(HEAD_R, 4), flops, F32_FLOPS)
     log("vocab kernel time, f32 (the parity path) R={} W={} V={}: kernel {:.4f} ms on the device "
-        "(profiler); bound {:.4f} ms ({}: {:.1f} GFLOP of f32 FMA at 67 TFLOP/s), {:.1%} of it "
-        "[{}]".format(HEAD_R, HEAD_W, HEAD_V, f32_ms, f32_bound, f32_by, flops / 1e9,
-                      f32_bound / f32_ms, card))
+        "(profiler); plain {:.4f} ms per call (events, in turns); bound {:.4f} ms ({}: {:.1f} "
+        "GFLOP of f32 FMA at 67 TFLOP/s), {:.1%} of it [{}]".format(
+            HEAD_R, HEAD_W, HEAD_V, f32_ms, f32_plain_ms, f32_bound, f32_by, flops / 1e9,
+            f32_bound / f32_ms, card))
     del f32_copies
     torch.cuda.empty_cache()
     # no single PyTorch call gives the scale, bias, -inf padding and the
@@ -1825,7 +1879,8 @@ def check_caption_rows(label, path, keys, decodes):
 
 
 def phase_coco_tsv(card, cpu_model, images, work, engine_rate):
-    """14. The COCO TSV through the CLI: the weights of phase 5 written as
+    """14. The COCO TSV through the CLI: the weights of phase 5 written by
+    `ckpt.save_reference_checkpoint` as
     output/GIT_LARGE_COCO/snapshot/model.pt, phase 5's 96 images as a TSV
     of 224x224 PNG payloads, `test_git_inference_single_tsv` in process
     (bf16, int8, batch 32); then 32 images of one colour plus noise
@@ -1834,6 +1889,7 @@ def phase_coco_tsv(card, cpu_model, images, work, engine_rate):
     import torch
 
     from gitax_torch import common, inference
+    from gitax_torch.ckpt import save_reference_checkpoint
     from gitax_torch.ops import flash_attention as fa
     from gitax_torch.ops.decode_attention import decode_attention
     from gitax_torch.runtime.engine import CaptionEngine
@@ -1843,7 +1899,7 @@ def phase_coco_tsv(card, cpu_model, images, work, engine_rate):
     snap = os.path.join(work, "output", "GIT_LARGE_COCO", "snapshot")
     os.makedirs(snap)
     t0 = time.perf_counter()
-    torch.save({"model": cpu_model.state_dict()}, os.path.join(snap, "model.pt"))
+    save_reference_checkpoint(os.path.join(snap, "model.pt"), cpu_model)
     write_s = time.perf_counter() - t0
     check(len(images) == COCO_TSV_ROWS, "{} images from phase 5".format(len(images)))
     keys = write_image_tsv(os.path.join(work, "coco.img.tsv"), images)
@@ -1889,7 +1945,8 @@ def phase_coco_tsv(card, cpu_model, images, work, engine_rate):
         "order, {} empty captions, {} beam steps, decode_attention launches {} = {} x {}, "
         "flash_attention 0; decoded by PIL".format(COCO_TSV_ROWS, via, COCO_TSV_ROWS, len(empty),
                                                    steps, launches, model.cfg.num_layers, steps))
-    log("coco tsv: checkpoint write {:.2f} s ({:.0f} MiB), load onto the card {:.2f} s; the TSV "
+    log("coco tsv: checkpoint write (save_reference_checkpoint) {:.2f} s ({:.0f} MiB), load onto "
+        "the card {:.2f} s; the TSV "
         "loop {:.2f} images/s ({:.2f} s for {} rows, the first batch's warm-up included) beside "
         "the engine's {:.2f} images/s on the same images decoded (phase 5) [{}]".format(
             write_s, os.path.getsize(os.path.join(snap, "model.pt")) / 2**20, build.seconds[0],
@@ -1932,7 +1989,7 @@ def phase_coco_tsv(card, cpu_model, images, work, engine_rate):
         "empty: {}".format(FLAT_ROWS, len(set(decodes.results)), len(flat_empty), "; ".join(
             "row {} ({}) tokens {}".format(i, k, ids[:6]) for i, k, ids in flat_empty[:8])))
     torch.cuda.empty_cache()
-    return launches, rate
+    return launches, rate, write_s
 
 
 def phase_vqa_tsv(card, cpu_model, tok, work, engine_rate):
@@ -4241,7 +4298,7 @@ def p23_serving(card, group, work, sharp, share, images, serve_rate):
     return total
 
 
-def phase_mesh_infer(card, coco, vqa, images, work, seed, rates):
+def phase_mesh_infer(card, coco, vqa, images, work, seed, rates, w8a8_want):
     """23. Inference on a mesh, the port's entry points on data x model
     ranks: this process is rank 0 and ranks 1.. are spawned processes that
     import gitax_torch only, NCCL a card a rank where the machine has a
@@ -4252,9 +4309,11 @@ def phase_mesh_infer(card, coco, vqa, images, work, seed, rates):
     (b) bf16 + int8 at full size: the COCO engine on DP = cards (2 on one
     card) beside one card, with kernel 3 on one batch, and VQA on [1, 2],
     with each rank's peak memory and the drift from one card; (c) the
-    CLI's TSV loop and the server with mesh_shape.  Returns the three
-    kernels' launches over every rank of the mesh runs, and the per-rank
-    kernel rows."""
+    CLI's TSV loop and the server with mesh_shape.  Also the cut model
+    w8a8 in f32 on [1, 2] against one card's w8a8 tokens (`w8a8_want`),
+    and (c)'s f32 TSV on 2 hosts x mesh_shape 2.  Returns the three
+    kernels' launches over every rank of the mesh runs, the per-rank
+    kernel rows, and rank 0's int8 launches."""
     import numpy as np
     import torch
 
@@ -4265,6 +4324,7 @@ def phase_mesh_infer(card, coco, vqa, images, work, seed, rates):
     dp = 4 if cards >= 4 else 2
     kernel_rows, _ = check_rank_kernels(card)
     launches = [0, 0, 0]
+    int8 = [0, 0]
 
     def add(x):
         for i in range(3):
@@ -4308,6 +4368,9 @@ def phase_mesh_infer(card, coco, vqa, images, work, seed, rates):
                 add(got)
                 add(p23_cli(card, group, work, sharp, share, rates["coco_tsv"]))
                 add(p23_serving(card, group, work, sharp, share, images, rates["serving"]))
+                int8 = list(p23_w8a8(card, group, work, seed, w8a8_want))
+            else:
+                add(p23_hosts(card, group, sharp, share))
             ok = True
         finally:
             group.close(ok)
@@ -4316,7 +4379,466 @@ def phase_mesh_infer(card, coco, vqa, images, work, seed, rates):
     log("phase 23 (inference on a mesh) {:.1f} s; launches over every rank of the mesh runs: "
         "decode_attention {} flash_attention {} vocab_topk {}".format(
             time.perf_counter() - t_phase, *launches))
-    return launches, kernel_rows
+    return launches, kernel_rows, int8
+
+# ---------------------------------------------------------------------------
+# 24-29: the doctor, the w8a8 encoder, the reference checkpoint, row shards
+# over hosts and the trace
+# ---------------------------------------------------------------------------
+
+# the encoder's four GEMMs (K, N) at GIT_LARGE's width 1024, and the rows
+# of a batch of 32 at COCO's S=257 and VQA's 30x40 grid (S=1201)
+W8A8_GEMMS = (("qkv", 1024, 3072), ("out_proj", 1024, 1024), ("c_fc", 1024, 4096),
+              ("c_proj", 4096, 1024))
+W8A8_ROWS = (("COCO", 32 * 257), ("VQA", 32 * 1201))
+# the H100 SXM's dense int8 tensor-core rate
+INT8_OPS = 1979e12
+W8A8_REPS = 3  # timed encodes after one warm-up
+W8A8_PARITY_ROWS = 8
+
+
+def phase_doctor(card):
+    """24. `python -m gitax_torch.doctor --json` in a child process: exit 0,
+    every required check passed; its native probe (jpeglib.h / -ljpeg,
+    nvjpeg.h / -lnvjpeg through the toolkit's nvcc) on a line of its
+    own."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "gitax_torch.doctor", "--json"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0, "the doctor exited {}: {}{}".format(r.returncode, r.stdout[-3000:],
+                                                                r.stderr[-3000:]))
+    report = json.loads(r.stdout.strip().splitlines()[-1])
+    checks = {c["name"]: c for c in report["checks"]}
+    check(report["ok"] and all(c["ok"] for c in report["checks"] if c["required"]),
+          "the doctor: {}".format(report))
+    log("doctor: native probe: {}".format(checks["native"]["detail"]))
+    log("doctor: {} ({:.1f} s) [{}]".format("; ".join(
+        "{} {} ({})".format(n, "ok" if c["ok"] else "warn", c["detail"][:160])
+        for n, c in checks.items() if n != "native"), time.perf_counter() - t0, card))
+
+
+def w8a8_activations(g, m, k, dtype):
+    """Encoder-like rows [m, k]: N(0, 1) with one outlier of 20 in every
+    7th row, in `dtype`."""
+    import torch
+
+    x = torch.randn(m, k, generator=g, device="cuda")
+    x[::7, 3] = 20.0
+    return x.to(dtype)
+
+
+def check_int8_kernels():
+    """The w8a8 kernels against their plain versions at COCO's and VQA's
+    encoder shapes: the codes and row scales bit for bit (each row's own
+    amax, and an amax from outside as under tensor parallelism), in bf16
+    and f32; torch._int_mm equal to the exact int32 product; the epilogue
+    bit for bit with its bias.  Returns the largest |kernel - plain|
+    (0.0)."""
+    import torch
+
+    from gitax_torch.ops import int8_dynamic as i8
+
+    g = torch.Generator(device="cuda").manual_seed(24)
+    worst = 0.0
+    for label, m in W8A8_ROWS:
+        for dtype in (torch.bfloat16, torch.float32):
+            xs = {k: w8a8_activations(g, m, k, dtype) for k in (1024, 4096)}
+            for k, x in xs.items():
+                for amax in (None, i8.row_amax(x) * 1.5):
+                    q, s = i8.quantize_rows_cuda(x, amax)
+                    q0, s0 = i8.quantize_rows_reference(x, amax)
+                    torch.cuda.synchronize()
+                    check(torch.equal(q, q0) and torch.equal(s, s0),
+                          "int8 quantize_rows {} M={} K={} {}{}: {} codes and {} scales "
+                          "differ".format(label, m, k, dtype, " (amax given)" if amax is not None
+                                          else "", int((q != q0).sum()), int((s != s0).sum())))
+            for name, k, n in W8A8_GEMMS:
+                q, s = i8.quantize_rows_reference(xs[k])
+                w = torch.randint(-127, 128, (n, k), generator=g, device="cuda",
+                                  dtype=torch.int8).t()
+                y = i8.int_mm(q, w)
+                if dtype == torch.bfloat16:  # the product does not see the activation dtype
+                    y0 = i8.int_mm_reference(q, w)
+                    check(torch.equal(y, y0), "torch._int_mm {} {} M={}: {} elements differ from "
+                          "the exact product".format(label, name, m, int((y != y0).sum())))
+                ws = torch.rand(n, generator=g, device="cuda") * 1e-3 + 1e-5
+                bias = (torch.randn(n, generator=g, device="cuda") * 0.1).to(dtype)
+                for b in (bias, None):
+                    out = i8.scale_rows_cuda(y, s, ws, b, dtype)
+                    ref = i8.scale_rows_reference(y, s, ws, b, dtype)
+                    torch.cuda.synchronize()
+                    err = float((out.float() - ref.float()).abs().max())
+                    worst = max(worst, err)
+                    check(torch.equal(out, ref), "int8 scale_rows {} {} M={} N={} {}{}: max "
+                          "|kernel - plain| {:.3e}".format(label, name, m, n, dtype,
+                                                           "" if b is None else " + bias", err))
+            del xs
+            torch.cuda.empty_cache()
+    log("int8 kernels: quantize_rows (codes, row scales; the row's amax and one given) and "
+        "scale_rows (with and without bias) equal their plain versions bit for bit, and "
+        "torch._int_mm the exact int32 product, at COCO's M={} and VQA's M={}, K 1024/4096, "
+        "N 1024/3072/4096, bf16 and f32".format(W8A8_ROWS[0][1], W8A8_ROWS[1][1]))
+    return worst
+
+
+def w8a8_bounds(m, k, n):
+    """(quant, _int_mm, epilogue, bf16 linear) bounds at bf16 activations:
+    each a (ms, 'bytes' | 'operations')."""
+    return (bound(m * k * 2 + m * k + m * 4, 0, INT8_OPS),
+            bound(m * k + k * n + m * n * 4, 2 * m * k * n, INT8_OPS),
+            bound(m * n * 4 + m * 4 + n * 4 + n * 2 + m * n * 2, 0, INT8_OPS),
+            bound(m * k * 2 + k * n * 2 + n * 2 + m * n * 2, 2 * m * k * n, BF16_FLOPS))
+
+
+def time_int8(card):
+    """The w8a8 product's split at each encoder GEMM, bf16, COCO's and
+    VQA's rows: quantize_rows, torch._int_mm and scale_rows (CUDA events)
+    beside their bounds, against the bf16 F.linear of the same GEMM (the
+    encoder's path without w8a8).  Then the kernels line's entries, at VQA's
+    rows: quantize_rows on c_proj's input (K=4096) and scale_rows on c_fc's
+    output (N=4096), device time from the profiler, the plain version in
+    turns, the bounds; no single PyTorch call computes either function."""
+    import torch
+    import torch.nn.functional as F
+
+    from gitax_torch.ops import int8_dynamic as i8
+
+    g = torch.Generator(device="cuda").manual_seed(25)
+    split = {}
+    for label, m in W8A8_ROWS:
+        for name, k, n in W8A8_GEMMS:
+            x = w8a8_activations(g, m, k, torch.bfloat16)
+            w = torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8).t()
+            wf = (torch.randn(n, k, generator=g, device="cuda") * 0.02).to(torch.bfloat16)
+            ws = torch.rand(n, generator=g, device="cuda") * 1e-3 + 1e-5
+            bias = (torch.randn(n, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+            q, s = i8.quantize_rows_cuda(x)
+            y = i8.int_mm(q, w)
+            t = (cuda_time_ms(lambda: i8.quantize_rows_cuda(x), 20, 3),
+                 cuda_time_ms(lambda: i8.int_mm(q, w), 20, 3),
+                 cuda_time_ms(lambda: i8.scale_rows_cuda(y, s, ws, bias, torch.bfloat16), 20, 3),
+                 cuda_time_ms(lambda: F.linear(x, wf, bias), 20, 3))
+            b = w8a8_bounds(m, k, n)
+            split[(label, name)] = t
+            log("w8a8 split {} {:8s} M={} K={} N={} bf16: quantize_rows {:.4f} ms (bound {:.4f}, "
+                "{}) + _int_mm {:.4f} (bound {:.4f}, {}) + scale_rows {:.4f} (bound {:.4f}, {}) = "
+                "{:.4f} ms against F.linear bf16 {:.4f} ms (bound {:.4f}, {}) (events) [{}]".format(
+                    label, name, m, k, n, t[0], b[0][0], b[0][1], t[1], b[1][0], b[1][1], t[2],
+                    b[2][0], b[2][1], sum(t[:3]), t[3], b[3][0], b[3][1], card))
+            del x, w, wf, q, y
+    torch.cuda.empty_cache()
+    for label, _ in W8A8_ROWS:
+        w8 = sum(sum(split[(label, name)][:3]) for name, _, _ in W8A8_GEMMS)
+        bf = sum(split[(label, name)][3] for name, _, _ in W8A8_GEMMS)
+        log("w8a8 split {}: one block's four GEMMs {:.4f} ms w8a8 against {:.4f} ms bf16 "
+            "F.linear ({:.2f}x) [{}]".format(label, w8, bf, w8 / bf, card))
+
+    m = W8A8_ROWS[1][1]
+    out = {}
+    x = w8a8_activations(g, m, 4096, torch.bfloat16)
+    plain_ms, _, _ = in_turns(lambda: i8.quantize_rows_reference(x),
+                              lambda: i8.quantize_rows_cuda(x), 5, 20, 3)
+    ms = device_ms(lambda: i8.quantize_rows_cuda(x), 20, "int8_quantize_rows")
+    b = w8a8_bounds(m, 4096, 1024)[0]
+    out["int8_quantize_rows"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+                                     library_ms=None)
+    log("int8 quantize_rows time, bf16 M={} K=4096 (VQA c_proj's input): {:.4f} ms on the device "
+        "(profiler), plain {:.4f} ms, bound {:.4f} ms ({}), {:.1%} of it [{}]".format(
+            m, ms, plain_ms, b[0], b[1], b[0] / ms, card))
+    del x
+    q = torch.randint(-127, 128, (m, 1024), generator=g, device="cuda", dtype=torch.int8)
+    w = torch.randint(-127, 128, (4096, 1024), generator=g, device="cuda", dtype=torch.int8).t()
+    y = i8.int_mm(q, w)
+    s = torch.rand(m, generator=g, device="cuda") * 0.1
+    ws = torch.rand(4096, generator=g, device="cuda") * 1e-3
+    bias = (torch.randn(4096, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+    plain_ms, _, _ = in_turns(lambda: i8.scale_rows_reference(y, s, ws, bias, torch.bfloat16),
+                              lambda: i8.scale_rows_cuda(y, s, ws, bias, torch.bfloat16), 5, 20, 3)
+    ms = device_ms(lambda: i8.scale_rows_cuda(y, s, ws, bias, torch.bfloat16), 20,
+                   "int8_scale_rows")
+    b = w8a8_bounds(m, 1024, 4096)[2]
+    out["int8_scale_rows"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+                                  library_ms=None)
+    log("int8 scale_rows time, bf16 M={} N=4096 (VQA c_fc's output, + bias): {:.4f} ms on the "
+        "device (profiler), plain {:.4f} ms, bound {:.4f} ms ({}), {:.1%} of it [{}]".format(
+            m, ms, plain_ms, b[0], b[1], b[0] / ms, card))
+    del q, w, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_int8_kernels(card):
+    """25. The w8a8 kernels: checked against their plain versions, the
+    product split at each encoder GEMM, the kernels line's times."""
+    t0 = time.perf_counter()
+    worst = check_int8_kernels()
+    out = time_int8(card)
+    for v in out.values():
+        v["max_abs_err"] = worst
+    log("phase 25 (the w8a8 kernels) {:.1f} s".format(time.perf_counter() - t0))
+    return out
+
+
+def int8_launches():
+    from gitax_torch.ops import int8_dynamic as i8
+
+    return i8.quantize_rows.launches, i8.scale_rows.launches
+
+
+def reset_int8_launches():
+    from gitax_torch.ops import int8_dynamic as i8
+
+    i8.quantize_rows.launches = 0
+    i8.scale_rows.launches = 0
+
+
+def encode_ms(model, x, dtype, reps=W8A8_REPS):
+    """The device span of `encode_images` (CUDA events), mean of `reps`
+    after a warm-up; the last output."""
+    import torch
+
+    out = model.encode_images(x, dtype)
+    spans = DeviceSpans(model, "encode_images")
+    for _ in range(reps):
+        out = model.encode_images(x, dtype)
+    torch.cuda.synchronize()
+    ms = spans.ms()
+    spans.remove()
+    return sum(ms) / len(ms), out
+
+
+def phase_w8a8_path(card, coco, vqa, images, seed):
+    """26. The w8a8 encoder on the path (`quantize_git_model_(model,
+    encoder=True)`): GIT_LARGE_VQAv2 at 30x40 (S=1201) and GIT_LARGE_COCO
+    (S=257), B=32, bf16 (the decoder weight-only int8, as the engine's
+    int8): encode ms, bf16 against w8a8 (device events), launches = 4 GEMMs
+    x 24 blocks a batch; COCO's sequences through the engine's search
+    against the bf16 weight-only-int8 run's (the drift); the cut model
+    (2 encoder blocks, 1 decoder layer) in f32: the card's w8a8 tokens
+    equal the CPU plain path's (the plain decode step on both sides).
+    Returns the int8 kernels' launches."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from gitax_torch.decode.beam import BeamSearchConfig
+    from gitax_torch.ops.quant import quantize_git_model_
+    from gitax_torch.runtime.engine import CaptionEngine
+    from gitax_torch.tokenization import BertTokenizer, build_tiny_vocab
+
+    t_phase = time.perf_counter()
+    launches = [0, 0]
+    rng = np.random.RandomState(seed + 26)
+    inputs = {"VQA": (vqa, torch.from_numpy(rng.randn(32, 420, 560, 3).astype(np.float32))),
+              "COCO": (coco, normalized(images[:32], torch.float32).cpu())}
+    blocks = coco.cfg.encoder.layers
+    for label, (cpu_model, x_host) in inputs.items():
+        torch.cuda.reset_peak_memory_stats()
+        x = x_host.cuda().to(torch.bfloat16)
+        model = build_model("cuda", torch.bfloat16, cpu_model)
+        bf16_ms, ref = encode_ms(model, x, torch.bfloat16)
+        if label == "VQA":  # where an encode's device time goes, before and after
+            profile_batch("w8a8 path VQA bf16 encode", card,
+                          lambda: model.encode_images(x, torch.bfloat16))
+        t0 = time.perf_counter()
+        quantize_git_model_(model, encoder=True)
+        q_s = time.perf_counter() - t0
+        reset_int8_launches()
+        w8_ms, got = encode_ms(model, x, torch.bfloat16)
+        n = int8_launches()
+        if label == "VQA":
+            profile_batch("w8a8 path VQA w8a8 encode", card,
+                          lambda: model.encode_images(x, torch.bfloat16))
+        check(n == (4 * blocks * (W8A8_REPS + 1),) * 2, "w8a8 {} encode: int8 launches {} != 4 x "
+              "{} blocks x {} encodes".format(label, n, blocks, W8A8_REPS + 1))
+        launches = [a + b for a, b in zip(launches, n)]
+        rel = float((got.float() - ref.float()).norm() / ref.float().norm())
+        log("w8a8 path {}: B=32 S={} bf16 encode {:.2f} ms, w8a8 {:.2f} ms ({:.2f}x; device "
+            "events, mean of {}); the encoder's output within {:.3e} relative L2 of bf16's; "
+            "quantize_git_model_(encoder=True) {:.1f} s; launches quantize_rows {} scale_rows {} "
+            "= 4 x {} x {} [{}]".format(label, x.shape[1] * x.shape[2] // 14 ** 2 + 1, bf16_ms,
+                                        w8_ms, w8_ms / bf16_ms, W8A8_REPS, rel, q_s, n[0], n[1],
+                                        blocks, W8A8_REPS + 1, card))
+        peak_memory("w8a8 path " + label, card)
+        del model, x, ref, got
+        torch.cuda.empty_cache()
+
+    # COCO drift: the engine's search, w8a8 + int8 against int8 alone
+    tok = BertTokenizer(build_tiny_vocab())
+    prefixes = [[tok.cls_token_id]] * 32
+    seqs = {}
+    for label, encoder in (("int8", False), ("w8a8", True)):
+        model = quantize_git_model_(build_model("cuda", torch.bfloat16, coco), encoder=encoder)
+        engine = CaptionEngine(model, tok, batch_size=32,
+                               beam=BeamSearchConfig(num_beams=4, max_steps=24),
+                               dtype=torch.bfloat16, fast_prefill=True, decode_kernel=True)
+        reset_int8_launches()
+        handle = engine.dispatch(images[:32], prefixes)
+        seqs[label] = torch.cat([t.cpu() for _, bucket in handle[1] for t in bucket])
+        n = int8_launches()
+        check((n[0] > 0) == encoder, "w8a8 drift {}: int8 launches {}".format(label, n))
+        launches = [a + b for a, b in zip(launches, n)]
+        engine.close()
+        del engine, model, handle
+        torch.cuda.empty_cache()
+    same = sum(bool(torch.equal(a, b)) for a, b in zip(seqs["int8"], seqs["w8a8"]))
+    log("w8a8 drift, COCO B=32 bf16 (beam 4, the engine's settings): {} of 32 sequences ({:.1%}) "
+        "equal the weight-only int8 run's; {} and {} distinct outputs [{}]".format(
+            same, same / 32, len({tuple(r) for r in seqs["int8"].tolist()}),
+            len({tuple(r) for r in seqs["w8a8"].tolist()}), card))
+
+    # f32: the cut model's w8a8 tokens, card (kernels) against CPU (plain)
+    cut = quantize_git_model_(p23_parity_model(seed), encoder=True)
+    x = w8a8_parity_images(seed)
+    beam = BeamSearchConfig(num_beams=4, max_steps=24)
+    want, _ = cut.generate(x.cpu(), beam=beam)
+    card_model = copy.deepcopy(cut).to("cuda")  # the int8 codes and scales as they are
+    reset_int8_launches()
+    got, _ = card_model.generate(x, beam=beam)
+    n = int8_launches()
+    launches = [a + b for a, b in zip(launches, n)]
+    differ = [i for i in range(len(want)) if not torch.equal(got[i].cpu(), want[i])]
+    check(not differ and n[0] > 0, "w8a8 f32: the card's tokens differ from the CPU's in rows {} "
+          "(launches {}): {} vs {}".format(differ, n, [got[i].tolist() for i in differ[:2]],
+                                           [want[i].tolist() for i in differ[:2]]))
+    log("w8a8 f32 (GIT_LARGE_COCO widths, 2 encoder blocks, 1 decoder layer, sharpened): {} "
+        "images, the card's tokens (int8 kernels, launches {}) equal the CPU's plain path's ({} "
+        "distinct) [{}]".format(W8A8_PARITY_ROWS, n, len({tuple(r) for r in want.tolist()}), card))
+    del card_model, cut
+    torch.cuda.empty_cache()
+    log("phase 26 (w8a8 on the path) {:.1f} s; launches quantize_rows {} scale_rows {}".format(
+        time.perf_counter() - t_phase, *launches))
+    return launches, got.cpu()
+
+
+def w8a8_parity_images(seed):
+    """W8A8_PARITY_ROWS uint8 224x224 images from the seed, normalised to
+    f32 on the card (every rank of phase 23 makes the same)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed + 26)
+    return normalized([rng.randint(0, 256, (224, 224, 3)).astype(np.uint8)
+                       for _ in range(W8A8_PARITY_ROWS)], torch.float32)
+
+
+def w8a8_mesh_rank(seed):
+    """Every rank of phase 23's 2-rank group: the cut model of (a), w8a8
+    (quantized whole on the CPU, then split over a [1, 2] mesh of the
+    group), f32, searching `w8a8_parity_images`; the tokens on rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    from gitax_torch.decode.beam import BeamSearchConfig
+    from gitax_torch.ops.quant import quantize_git_model_
+    from gitax_torch.parallel.mesh import make_mesh, shard_for_inference
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(1, 2, device=dev)
+    model = shard_for_inference(quantize_git_model_(p23_parity_model(seed), encoder=True).to(dev),
+                                mesh)
+    seqs, _ = model.generate(w8a8_parity_images(seed),
+                             beam=BeamSearchConfig(num_beams=4, max_steps=24))
+    return seqs.cpu() if dist.get_rank() == 0 else None
+
+
+def p23_w8a8(card, group, work, seed, want):
+    """(a) w8a8: the cut model on [1, 2], f32, every row-parallel product
+    on the row's whole amax (all-reduced over the model group) with its
+    int32 partials summed: one card's w8a8 tokens (`want`, phase 26).
+    Returns rank 0's int8 launches."""
+    t0 = time.perf_counter()
+    reset_int8_launches()
+    got, peaks, _ = mesh_run(group, lambda: group.call("chip_smoke", "w8a8_mesh_rank", work,
+                                                       dict(seed=seed)))
+    n = int8_launches()
+    differ = [i for i in range(len(want)) if not bool((got[i] == want[i]).all())]
+    check(not differ and n[0] > 0, "mesh [1, 2] w8a8 f32: rows {} differ from one card's (rank "
+          "0's launches {})".format(differ, n))
+    log("mesh [1, 2] w8a8 f32 (the cut model of (a), the encoder's row-parallel products on the "
+        "row's all-reduced amax, int32 partials summed): {} images give one card's w8a8 tokens; "
+        "rank 0's launches quantize_rows {} scale_rows {}; {:.2f} s [{}]".format(
+            len(want), n[0], n[1], time.perf_counter() - t0, card))
+    return n
+
+
+def p23_hosts(card, group, sharp, share):
+    """(c) row shards over hosts: (c)'s 16-row f32 TSV through
+    test_git_inference_single_tsv(mesh_shape=2) on the 4-rank group, which
+    is 2 hosts of a [2, 1] mesh each: each host's rank 0 captions its 8
+    rows, host 0 joins the shards; byte-identical to the one-card CLI's.
+    Returns the launches over every rank."""
+    t0 = time.perf_counter()
+    small = dict(image_tsv="small.img.tsv", model_name="GIT_LARGE_COCO", question_tsv=None,
+                 out_tsv="small.hosts.tsv", batch_size=8, dtype="float32", mesh_shape=2,
+                 share_card=share)
+    _, peaks, launches = mesh_run(group, lambda: group.call(
+        "gitax_torch.inference", "test_git_inference_single_tsv", sharp, small))
+    with open(os.path.join(sharp, "small.one.tsv"), "rb") as a, \
+            open(os.path.join(sharp, "small.hosts.tsv"), "rb") as b:
+        one, hosts = a.read(), b.read()
+    shards = [os.path.join(sharp, "small.hosts.tsv.{}.2.tsv".format(h)) for h in range(2)]
+    check(all(os.path.isfile(s) for s in shards), "row shards over hosts: a host's shard is "
+          "missing")
+    check(one == hosts, "row shards over hosts: the joined f32 TSV differs from the one-card "
+          "CLI's")
+    log("row shards over hosts: {} rows through test_git_inference_single_tsv(mesh_shape=2) on 4 "
+        "ranks = 2 hosts x [2, 1] (rows {} and {}), joined by host 0 = the one-card CLI's TSV, "
+        "byte for byte ({} bytes); launches over every rank decode_attention {}; peak memory a "
+        "rank {} MiB; {:.2f} s [{}]".format(
+            P23_TSV_ROWS, "0-7", "8-15", len(hosts), launches[0], ["%.1f" % p for p in peaks],
+            time.perf_counter() - t0, card))
+    return launches
+
+
+def phase_reference_checkpoint(card, cpu_model, work, write_s):
+    """27. The reference checkpoint: phase 14 wrote phase 5's model with
+    `ckpt.save_reference_checkpoint` (f32 CPU tensors under the
+    reference's names), and the CLI loaded it for both its TSVs; here the
+    CLI's TSV of the 32 one-colour rows equals, byte for byte, the TSV of
+    an engine with the CLI's settings around the in-memory model."""
+    import torch
+
+    from gitax_torch import inference
+    from gitax_torch.ckpt import load_torch_checkpoint
+    from gitax_torch.decode.beam import BeamSearchConfig
+    from gitax_torch.models.git import GitModel
+    from gitax_torch.preprocess.transforms import get_image_transform
+    from gitax_torch.runtime.engine import CaptionEngine
+
+    t0 = time.perf_counter()
+    path = os.path.join(work, "output", "GIT_LARGE_COCO", "snapshot", "model.pt")
+    sd = load_torch_checkpoint(path)
+    check(sorted(sd) == sorted(cpu_model.state_dict()) and all(
+        t.dtype == torch.float32 for t in sd.values()), "the reference checkpoint's names or types")
+    param = inference._load_param("GIT_LARGE_COCO")
+    model = GitModel(inference.config_from_param(param), device="cuda", dtype=torch.bfloat16)
+    model.load_state_dict(cpu_model.state_dict())
+    engine = CaptionEngine(model, inference._load_tokenizer(), batch_size=32,
+                           beam=BeamSearchConfig(num_beams=4, max_steps=40), dtype=torch.bfloat16,
+                           int8=True, transform=get_image_transform(param))
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        with engine:
+            engine.run_caption_tsv("flat.img.tsv", "flat.mem.tsv")
+    finally:
+        os.chdir(cwd)
+    with open(os.path.join(work, "flat.out.tsv"), "rb") as a, \
+            open(os.path.join(work, "flat.mem.tsv"), "rb") as b:
+        cli, mem = a.read(), b.read()
+    check(cli == mem, "the CLI's captions from the reference checkpoint differ from the in-memory "
+          "model's")
+    log("reference checkpoint: save_reference_checkpoint wrote GIT_LARGE_COCO in {:.2f} s ({:.1f} "
+        "MiB, {} tensors, f32); the CLI's {} rows from it = the in-memory model's, byte for byte "
+        "(bf16, int8, batch 32); {:.2f} s [{}]".format(
+            write_s, os.path.getsize(path) / 2**20, len(sd), FLAT_ROWS,
+            time.perf_counter() - t0, card))
+    del engine, model, sd
+    torch.cuda.empty_cache()
+
 
 def main(argv):
     import torch
@@ -4344,9 +4866,11 @@ def main(argv):
     t_start = time.perf_counter()
 
     phase_build(card)  # 2
+    phase_doctor(card)  # 24
     stats = {"decode_attention": phase_decode_kernel(card),  # 3
              "flash_attention": phase_flash_kernel(card),  # 4
              "vocab_topk": phase_vocab_kernel(card)}  # 9
+    stats.update(phase_int8_kernels(card))  # 25
 
     # 13: the decoders; the TSVs and the checkpoint go in the checkout's
     # build tree, removed at the end
@@ -4358,9 +4882,10 @@ def main(argv):
     # 5, 6, 14, 16, 17: the COCO path
     coco = random_model("GIT_LARGE_COCO", seed=0, gate=12)
     coco_launches, images, coco_rate, coco_step_ms = phase_coco_slice(
-        card, coco, BertTokenizer(build_tiny_vocab()))
+        card, coco, BertTokenizer(build_tiny_vocab()), os.path.join(work, "trace"))  # and 29
     phase_coco_f32_parity(coco, images)
-    tsv_d, tsv_rate = phase_coco_tsv(card, coco, images, work, coco_rate)
+    tsv_d, tsv_rate, write_s = phase_coco_tsv(card, coco, images, work, coco_rate)
+    phase_reference_checkpoint(card, coco, work, write_s)  # 27
     phase_tsv_f32_parity(coco, work)
     phase_greedy_trie(card, coco, work)
     t0 = time.perf_counter()
@@ -4378,9 +4903,14 @@ def main(argv):
     phase_vqa_f32_parity(vqa, pairs)
     vqa_tsv_d, vqa_tsv_f, _ = phase_vqa_tsv(card, vqa, vqa_tok, work, vqa_rate)
 
-    # 23: inference on a mesh, on phase 14's checkpoint and TSV
-    mesh_d, mesh_rows = phase_mesh_infer(card, coco, vqa, images, work, seed,
-                                         {"coco_tsv": tsv_rate, "serving": serve_rate})
+    # 26: the w8a8 encoder on the COCO and VQA paths
+    w8a8_launches, w8a8_tokens = phase_w8a8_path(card, coco, vqa, images, seed)
+
+    # 23: inference on a mesh, on phase 14's checkpoint and TSV (with 28, row
+    # shards over hosts, and the w8a8 cut model on [1, 2])
+    mesh_d, mesh_rows, mesh_int8 = phase_mesh_infer(card, coco, vqa, images, work, seed,
+                                                    {"coco_tsv": tsv_rate,
+                                                     "serving": serve_rate}, w8a8_tokens)
     del coco
     del vqa, pairs
     shutil.rmtree(work)
@@ -4413,17 +4943,23 @@ def main(argv):
     launches = {"decode_attention": coco_launches + vqa_d + video_d + tsv_d + vqa_tsv_d
                 + serve_d + sample_d + context_d + mesh_d[0],
                 "flash_attention": vqa_f + video_f + vqa_tsv_f + mesh_d[1],
-                "vocab_topk": vocab_launches + mesh_d[2]}
+                "vocab_topk": vocab_launches + mesh_d[2],
+                "int8_quantize_rows": w8a8_launches[0] + mesh_int8[0],
+                "int8_scale_rows": w8a8_launches[1] + mesh_int8[1]}
     stats["decode_attention"]["launches_with_mem_bias"] = context_d
+    check(all(n > 0 for n in launches.values()), "a kernel of the path was not launched: "
+          "{}".format(launches))
     log("main-path launches: decode_attention {} (COCO {} + VQA {} + video {} + COCO TSV {} + VQA "
         "TSV {} + serving {} + sampling {} + text context {}, the last with mem_bias, + mesh {}), "
         "flash_attention {} (VQA {} + video {} + VQA TSV {} + mesh {}), vocab_topk {} (video, "
         "vocab_kernel on, {} + mesh {}; 0 under sampling); the mesh's counted over every rank; "
-        "all phases {:.1f} s".format(
+        "int8_quantize_rows {} and int8_scale_rows {} (the w8a8 encoder, {} and {} + the mesh's "
+        "rank 0 {} and {}); all phases {:.1f} s".format(
             launches["decode_attention"], coco_launches, vqa_d, video_d, tsv_d, vqa_tsv_d, serve_d,
             sample_d, context_d, mesh_d[0], launches["flash_attention"], vqa_f, video_f, vqa_tsv_f,
             mesh_d[1], launches["vocab_topk"], vocab_launches, mesh_d[2],
-            time.perf_counter() - t_start))
+            launches["int8_quantize_rows"], launches["int8_scale_rows"], w8a8_launches[0],
+            w8a8_launches[1], mesh_int8[0], mesh_int8[1], time.perf_counter() - t_start))
     for name, rows in mesh_rows.items():
         log("{} at a mesh rank's shapes: {}".format(name, json.dumps(rows)))
     log(card)

@@ -14,12 +14,22 @@ A reference checkpoint (`output/{model}/snapshot/model.pt`) loads with
 `load_torch_checkpoint`, `infer_visual_config` (the encoder its shapes
 define) and `load_git_state_dict` (names matched by `align_by_suffix`),
 the counterparts of gitax's `ckpt/torch_convert.py:42, 64, 328`.
+
+The other way: `save_reference_checkpoint(path, model)` writes a port
+model (fine-tuned with the port, on one card or gathered from a mesh) as
+a reference `{'model': state_dict}` (`torch_convert.export_git_state_dict`),
+the file the CLIs load from `output/{model}/snapshot/model.pt`.
+A gitax w8a8 tree (`quantize_git_params(encoder=True)`: the encoder's
+`kernel_q8_dyn`) fills the ViT's w8a8 layers (`Linear.set_int8(...,
+dynamic=True)`, `MultiheadSelfAttention.set_int8`).
 """
 
 from __future__ import annotations
 
 import io
 import logging
+import os
+import os.path as op
 import re
 from typing import Dict
 
@@ -28,24 +38,46 @@ import torch
 
 from ..models.config import GitConfig, ViTConfig
 from ..models.git import GitModel
+from .torch_convert import export_git_state_dict
 
 
 def _t(a):
     return torch.from_numpy(np.array(a, np.float32))
 
 
+def _int8_leaves(p, pick, sl):
+    """(int8 kernel [in, out] of the column slice `sl`, its f32 scales,
+    w8a8) of a quantized gitax entry, or None for an fp one."""
+    for name, dynamic in (("kernel_q8", False), ("kernel_q8_dyn", True)):
+        if name in p:
+            return (torch.from_numpy(np.array(pick(p[name])[:, sl], np.int8)),
+                    _t(pick(p["kernel_scale"])[sl]), dynamic)
+    return None
+
+
 def _fill_linear(lin, p, i=None, cols=None):
-    """Fill a port Linear from a gitax {'kernel' [in, out] | 'kernel_q8',
-    'kernel_scale', 'bias'} entry; `i` picks a layer of a stacked entry,
-    `cols` a column slice of a fused one."""
+    """Fill a port Linear from a gitax {'kernel' [in, out] | 'kernel_q8' |
+    'kernel_q8_dyn', 'kernel_scale', 'bias'} entry; `i` picks a layer of a
+    stacked entry, `cols` a column slice of a fused one."""
     pick = (lambda a: np.asarray(a)[i]) if i is not None else np.asarray
     sl = cols if cols is not None else slice(None)
-    if "kernel_q8" in p:
-        lin.set_int8(torch.from_numpy(np.array(pick(p["kernel_q8"])[:, sl], np.int8)),
-                     _t(pick(p["kernel_scale"])[sl]))
+    int8 = _int8_leaves(p, pick, sl)
+    if int8 is not None:
+        lin.set_int8(*int8[:2], dynamic=int8[2])
     else:
         lin.weight.copy_(_t(pick(p["kernel"])[:, sl].T))
     lin.bias.copy_(_t(pick(p["bias"])[sl]))
+
+
+def _fill_qkv(attn, p, i):
+    """Fill the ViT's fused qkv from a gitax stacked entry: fp, or w8a8
+    (`kernel_q8_dyn`: all 3D columns, as the fp weight takes them)."""
+    int8 = _int8_leaves(p, lambda a: np.asarray(a)[i], slice(None))
+    if int8 is not None:
+        attn.set_int8(*int8[:2])
+    else:
+        attn.in_proj_weight.copy_(_t(np.asarray(p["kernel"])[i].T))
+    attn.in_proj_bias.copy_(_t(np.asarray(p["bias"])[i]))
 
 
 def _fill_ln(ln, p, i=None):
@@ -59,7 +91,7 @@ def params_from_gitax(tree: dict, cfg: GitConfig, device=None,
                       dtype=torch.float32) -> GitModel:
     """gitax params tree (numpy) -> GitModel on `device` (default: the
     CUDA card; raises without one) in `dtype` (int8 values and f32 scales
-    keep their types)."""
+    keep their types; a w8a8 encoder stays w8a8)."""
     model = GitModel(cfg, device=device, dtype=dtype)
 
     ie, vit = tree["image_encoder"], model.image_encoder
@@ -82,8 +114,7 @@ def params_from_gitax(tree: dict, cfg: GitConfig, device=None,
     for i, blk in enumerate(vit.transformer.resblocks):
         _fill_ln(blk.ln_1, blocks["ln_1"], i)
         _fill_ln(blk.ln_2, blocks["ln_2"], i)
-        blk.attn.in_proj_weight.copy_(_t(np.asarray(blocks["attn"]["qkv"]["kernel"])[i].T))
-        blk.attn.in_proj_bias.copy_(_t(np.asarray(blocks["attn"]["qkv"]["bias"])[i]))
+        _fill_qkv(blk.attn, blocks["attn"]["qkv"], i)
         _fill_linear(blk.attn.out_proj, blocks["attn"]["out"], i)
         _fill_linear(blk.mlp.c_fc, blocks["mlp"]["c_fc"], i)
         _fill_linear(blk.mlp.c_proj, blocks["mlp"]["c_proj"], i)
@@ -186,3 +217,23 @@ def load_git_state_dict(model: GitModel, sd):
     raises on a missing or misshapen entry."""
     model.load_state_dict(align_by_suffix(list(model.state_dict()), sd), strict=True)
     return model
+
+
+def save_reference_checkpoint(path, model):
+    """Write a port model as a reference-layout torch checkpoint
+    ({'model': state_dict} of f32 CPU tensors; gitax
+    `ckpt/__init__.py:26-40`), so that the port's CLIs and server
+    (`output/{model}/snapshot/model.pt`) and the PyTorch reference run a
+    model fine-tuned with the port.  The file is written beside `path` and
+    renamed into place, so a run cut mid-write leaves no half-written
+    checkpoint.  A model on a mesh is gathered first: every rank of its
+    model group calls this, and its mesh's rank 0 writes.  Returns path."""
+    sd = {k: torch.from_numpy(v) for k, v in export_git_state_dict(model).items()}
+    if model.mesh is not None and model.mesh.rank != 0:
+        return path
+    parent = op.dirname(op.abspath(path))
+    os.makedirs(parent, exist_ok=True)
+    tmp = op.join(parent, ".{}.tmp-{}".format(op.basename(path), os.getpid()))
+    torch.save({"model": sd}, tmp)
+    os.replace(tmp, path)
+    return path

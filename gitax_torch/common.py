@@ -3,21 +3,26 @@ of `gitax.common` that the port's CLI uses, copied (that module imports
 PyYAML at module level, and the port must import where PyYAML is absent).
 `tests/test_torch_port_tsv.py` holds each copy equal to gitax's.
 
-Copied: the `$`-path dict helpers that `parse_general_args` needs, the
-`-c/-p/-bp` YAML CLI convention and `dispatch_main`, `init_logging`,
-`json_dump` (its separators and key order fix the bytes of every output
-TSV), `hash_sha1`, `write_to_file`, `read_to_buffer`,
-`ensure_directory`, `load_list_file` and the env-var rank discovery.
-Changed: PyYAML is imported inside the two YAML readers (only a
-`parameter.yaml` or a `-p` string needs it), and an initialised
+Copied: the `$`-path dict helpers (`dict_remove_path` too) and the
+two-layer `Config`, the `-c/-p/-bp` YAML CLI convention and
+`dispatch_main`, `init_logging`, `json_dump` (its separators and key
+order fix the bytes of every output TSV), `hash_sha1`, `write_to_file`,
+`read_to_buffer`, `ensure_directory`, `load_list_file`, the env-var rank
+discovery, the locked and retried reads (`acquire_lock`, `release_lock`,
+`limited_retry_agent`, `exclusive_open_to_read`, which reads gitax's env
+vars GITAX_DISABLE_EXCLUSIVE_READ and QD_DISABLE_EXCLUSIVE_READ_BY_LOCK)
+and `progress`.  Changed: PyYAML is imported inside the two YAML readers
+(only a `parameter.yaml` or a `-p` string needs it), an initialised
 `torch.distributed` process group wins over the env vars where gitax
-asks `jax.distributed`.
+asks `jax.distributed`, and the lock files carry the port's prefix
+(`gitax_torch_lock...`) in the temporary directory (gitax's /tmp).
 """
 
 from __future__ import annotations
 
 import argparse
 import base64
+import copy
 import hashlib
 import json
 import logging
@@ -68,6 +73,14 @@ def dict_update_path_value(d, path, value):
     cur[parts[-1]] = value
 
 
+def dict_remove_path(d, path):
+    parts = path.split("$")
+    cur = d
+    for part in parts[:-1]:
+        cur = cur[part]
+    del cur[parts[-1]]
+
+
 def get_all_path(d, with_list=True, leaf_only=True):
     """Enumerate '$'-joined paths to the leaves of a nested structure."""
     paths = []
@@ -106,6 +119,43 @@ def dict_ensure_path_key_converted(d):
             expanded = {}
             dict_update_path_value(expanded, k, v)
             dict_update_nested_dict(d, expanded)
+
+
+class Config(object):
+    """Two-layer config: ``overwrite`` shadows ``default``.
+
+    Attribute access for a missing key returns ``None`` (mirrors
+    reference common.py:15-50), which lets call sites probe optional
+    keys without try/except.
+    """
+
+    def __init__(self, default, overwrite=None):
+        object.__setattr__(self, "default", default or {})
+        object.__setattr__(self, "overwrite", overwrite or {})
+
+    def get(self, key):
+        base = (
+            dict_get_path_value(self.default, key)
+            if dict_has_path(self.default, key)
+            else None
+        )
+        if dict_has_path(self.overwrite, key):
+            over = dict_get_path_value(self.overwrite, key)
+            if isinstance(base, dict) and isinstance(over, dict):
+                base = dict(base)
+                base.update(over)
+            else:
+                base = over
+        return base
+
+    def __getattr__(self, key):
+        return self.get(key)
+
+    def get_dict(self):
+        merged = copy.deepcopy(self.default)
+        for p in get_all_path(self.overwrite, with_list=False):
+            dict_update_path_value(merged, p, dict_get_path_value(self.overwrite, p))
+        return merged
 
 
 def load_from_yaml_str(s):
@@ -256,3 +306,80 @@ def load_list_file(fname):
     if lines and lines[-1] == "":
         lines.pop()
     return lines
+
+
+# ---------------------------------------------------------------------------
+# file-lock + retry IO helpers (reference common.py:228-270): exclusive
+# locks around reads guard against concurrent-mount (blobfuse-style)
+# races; retry-with-jitter absorbs transient storage failures.
+# ---------------------------------------------------------------------------
+
+
+def _lock_path(name):
+    import tempfile
+
+    return op.join(tempfile.gettempdir(), name)
+
+
+def acquire_lock(lock_file=None):
+    """Hold an exclusive lock on `lock_file` (default: the port's lock file
+    in the temporary directory); returns the open file to release."""
+    import fcntl
+
+    lock_file = lock_file or _lock_path("gitax_torch_lockfile.LOCK")
+    ensure_directory(op.dirname(lock_file))
+    fd = open(lock_file, "w+")
+    fcntl.lockf(fd, fcntl.LOCK_EX)
+    return fd
+
+
+def release_lock(fd):
+    fd.close()
+
+
+def limited_retry_agent(num, func, *args, **kwargs):
+    """Call func, retrying up to num times with random sleep
+    (reference common.py:239-254)."""
+    import random
+    import time
+
+    for i in range(num):
+        try:
+            return func(*args, **kwargs)
+        except Exception as e:
+            logging.warning("attempt %d/%d failed: %s", i + 1, num, e)
+            if i == num - 1:
+                raise
+            time.sleep(random.random() * 5)
+
+
+def exclusive_open_to_read(fname, mode="r"):
+    """Open under an exclusive per-file lock unless
+    GITAX_DISABLE_EXCLUSIVE_READ is set (reference common.py:256-270)."""
+    disable = os.environ.get(
+        "GITAX_DISABLE_EXCLUSIVE_READ", os.environ.get("QD_DISABLE_EXCLUSIVE_READ_BY_LOCK")
+    )
+    lock_fd = None
+    if not (disable and int(disable)):
+        lock_fd = acquire_lock(_lock_path("gitax_torch_lock_{}".format(hash_sha1(fname))))
+    try:
+        return limited_retry_agent(10, open, fname, mode)
+    finally:
+        if lock_fd is not None:
+            release_lock(lock_fd)
+
+
+def progress(iterable, desc="", mininterval=2):
+    """tqdm wrapper stamping the caller's file:line into the description
+    (reference qd_tqdm, common.py:379-398)."""
+    import inspect
+
+    from tqdm import tqdm
+
+    frame = inspect.currentframe().f_back
+    message = "{}:{}".format(op.basename(frame.f_code.co_filename), frame.f_lineno)
+    return tqdm(
+        iterable,
+        desc="{} {}".format(message, desc).strip(),
+        mininterval=mininterval,
+    )

@@ -21,9 +21,15 @@ the others, or, under a launch of exactly data x model processes
 (torchrun), each process is its launcher's rank and ranks 1.. return
 None.  One card a rank over NCCL; share_card=True puts every rank on
 card 0 over gloo (a rehearsal); device='cpu': gloo CPU ranks.  Rank 0
-loads or draws the weights and broadcasts them.  RANK/WORLD_SIZE row
-shards together with a mesh raise.  Not ported, and raising:
-`use_native=True` (gitax's libjpeg loader).
+loads or draws the weights and broadcasts them.  A launch of H x data x
+model processes is H hosts, each with its own mesh (gitax's
+`make_mesh_from_shape`): each host's rank 0 runs the TSV loop on its row
+shard, and host 0 joins the shards; a launch of another size raises.
+Not ported, and raising: `use_native=True` (gitax's libjpeg loader).
+
+A model fine-tuned with the port is served by writing it with
+`ckpt.save_reference_checkpoint('output/{model}/snapshot/model.pt',
+model)`, which this CLI and `serve.py` load.
 """
 
 from __future__ import annotations
@@ -188,8 +194,9 @@ def test_git_inference_single_tsv(image_tsv, model_name, question_tsv, out_tsv, 
     RANK/WORLD_SIZE (or an initialised torch.distributed group); each
     rank writes out.{rank}.{world}.tsv and rank 0 concatenates.
     mesh_shape: every row through one engine on a mesh (module
-    docstring), rank 0 writing out_tsv; batch_size must divide over its
-    data axis.  use_native: None or False (images decode with PIL); True
+    docstring), rank 0 writing out_tsv (on several hosts: each host its
+    row shard, host 0 joining them); batch_size must divide over its data
+    axis.  use_native: None or False (images decode with PIL); True
     raises."""
     from .decode.beam import BeamSearchConfig
     from .runtime.engine import CaptionEngine, open_mesh_engine
@@ -213,7 +220,7 @@ def test_git_inference_single_tsv(image_tsv, model_name, question_tsv, out_tsv, 
             mesh_shape, device=device, share_card=share_card, **kwargs)
         if engine is None:  # a rank 1.. under a launcher
             return
-        rank, world = 0, 1
+        rank, world = engine.mesh.host, engine.mesh.hosts  # a row shard a host
     with engine:
         if question_tsv:
             engine.run_vqa_tsv(image_tsv, question_tsv, out_tsv, rank, world)

@@ -36,7 +36,7 @@ from ..decode.trie import trie_greedy_search
 from ..ops.vocab_topk import TILE
 from . import textual as T
 from .config import GitConfig
-from .nn import Linear, empty_param
+from .nn import empty_param
 from .vit import VisualTransformer, vit_forward
 
 
@@ -50,6 +50,12 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device: the port runs on the card unless the caller "
                            "passes device='cpu'")
     return torch.device("cuda")
+
+
+def quantized_modules(model):
+    """The names of a model's int8 modules: `Linear`s, the head and the
+    ViT's fused qkv (`quantized`)."""
+    return [name for name, m in model.named_modules() if getattr(m, "quantized", False)]
 
 
 class GitModel(nn.Module):
@@ -93,18 +99,17 @@ class GitModel(nn.Module):
 
     def trainable_(self, flag: bool = True):
         """Make every floating parameter trainable (flag=True) or frozen.
-        Raises on a model with an int8 `Linear` or head
-        (`Linear.quantized`): weight-only int8 is an inference format, as
-        in gitax.  The tied head is one Parameter shared by
+        Raises on a model with an int8 `Linear`, head or fused qkv
+        (`quantized`): int8, weight-only or w8a8, is an inference format,
+        as in gitax.  The tied head is one Parameter shared by
         `textual.embedding.words` and `textual.output`, so the gradients of
         the embedding and of the head sum into it, as into gitax's one
         `embedding.words` leaf."""
         if flag:
-            int8 = [name for name, m in self.named_modules()
-                    if isinstance(m, Linear) and m.quantized]
+            int8 = quantized_modules(self)
             if int8:
-                raise ValueError("int8 Linears cannot train (weight-only int8 is an inference "
-                                 "format): {}".format(", ".join(int8)))
+                raise ValueError("int8 Linears cannot train (weight-only int8 and w8a8 are "
+                                 "inference formats): {}".format(", ".join(int8)))
         for p in self.parameters():
             if p.is_floating_point():
                 p.requires_grad_(flag)

@@ -4,7 +4,10 @@ functions, the counterpart of `gitax.models.nn`.
 Layout convention: `Linear.weight` is `[out, in]`, as in torch and the
 reference state dict.  A weight-only int8 `Linear` (ops/quant.py) holds
 `weight_q8_t [in, out]` int8 and a per-output-channel `weight_scale`,
-the same values gitax stores as `kernel_q8` / `kernel_scale`.  Its
+the same values gitax stores as `kernel_q8` / `kernel_scale`; a `Linear`
+tagged `dynamic` (gitax's `kernel_q8_dyn`, the w8a8 encoder) holds the
+same buffers and quantizes its input per row at run time
+(`ops/int8_dynamic.py`).  Its
 storage is always out-major (a row-major [out, in] seen transposed,
 each output channel's weights contiguous), whichever loader filled it:
 the layout the fused vocab-head kernel reads.  LayerNorm
@@ -29,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import flash_qkv_attention
+from ..ops.int8_dynamic import int8_dynamic_matmul
 from ..parallel.comm import reduce_from_model
 
 
@@ -57,7 +61,8 @@ class Linear(nn.Module):
 
     `weight` may be a Parameter shared with another module (the tied
     output head).  After `set_int8` the fp weight is dropped and the
-    module holds the int8 values and scales instead."""
+    module holds the int8 values and scales instead; `dynamic` tags the
+    w8a8 form, whose activations are quantized too."""
 
     def __init__(self, in_features, out_features, bias=True, device=None,
                  dtype=None):
@@ -66,24 +71,30 @@ class Linear(nn.Module):
         self.bias = empty_param((out_features,), device, dtype) if bias else None
         self.register_buffer("weight_q8_t", None)
         self.register_buffer("weight_scale", None)
+        self.dynamic = False
 
     @property
     def quantized(self):
         return self.weight_q8_t is not None
 
-    def set_int8(self, q8_t, scale):
+    def set_int8(self, q8_t, scale, dynamic=False):
         """Replace the fp weight with int8 `q8_t [in, out]` and f32
-        `scale [out]` (see ops/quant.py), stored out-major."""
+        `scale [out]` (see ops/quant.py), stored out-major; dynamic=True:
+        the w8a8 form (`int8_dynamic_matmul`), else weight-only."""
         device = self.weight.device
         del self._parameters["weight"]
-        q8_t = q8_t.to(device=device, dtype=torch.int8)
-        self.register_buffer("weight_q8_t", q8_t.t().contiguous().t())
-        self.register_buffer(
-            "weight_scale", scale.to(device=device, dtype=torch.float32)
-        )
+        self.weight_q8_t, self.weight_scale = int8_buffers(q8_t, scale, device)
+        self.dynamic = dynamic
 
     def forward(self, x):
         return linear(x, self)
+
+
+def int8_buffers(q8_t, scale, device):
+    """(int8 `q8_t [in, out]` stored out-major, f32 `scale [out]`) on
+    `device`: the storage of every int8 weight."""
+    q8_t = q8_t.to(device=device, dtype=torch.int8)
+    return q8_t.t().contiguous().t(), scale.to(device=device, dtype=torch.float32)
 
 
 def acc_dtype(dtype):
@@ -108,7 +119,10 @@ def layer_norm(x, weight, bias, eps):
 def linear(x, lin: Linear):
     """fp: x @ W^T + b in x's dtype.  Weight-only int8: the int8 weight
     is converted to x's dtype, multiplied, and the per-output-channel
-    scale applied after the matmul (gitax nn.py:36-43)."""
+    scale applied after the matmul (gitax nn.py:36-43).  w8a8 (`dynamic`):
+    `int8_dynamic_matmul`, the bias added in it (gitax nn.py:26-35)."""
+    if lin.dynamic:
+        return int8_dynamic_matmul(x, lin.weight_q8_t, lin.weight_scale, lin.bias)
     if lin.quantized:
         y = torch.matmul(x, lin.weight_q8_t.to(x.dtype))
         y = y * lin.weight_scale.to(x.dtype)
@@ -124,9 +138,12 @@ def row_linear(x, lin: Linear, tp_group=None):
     partial product x @ W_shard^T summed over the model group, then the
     (replicated) bias, added once.  An int8 layer sums x @ q8_shard and
     then applies its (replicated) per-output scale: (sum_r x_r q_r) s.
-    `linear` itself when tp_group is None."""
+    A w8a8 layer takes the row's amax over the group and sums int32
+    (`int8_dynamic_matmul`).  `linear` itself when tp_group is None."""
     if tp_group is None:
         return linear(x, lin)
+    if lin.dynamic:
+        return int8_dynamic_matmul(x, lin.weight_q8_t, lin.weight_scale, lin.bias, tp_group)
     if lin.quantized:
         y = reduce_from_model(torch.matmul(x, lin.weight_q8_t.to(x.dtype)), tp_group)
         y = y * lin.weight_scale.to(x.dtype)

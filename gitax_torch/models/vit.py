@@ -18,6 +18,11 @@ Under tensor parallelism (`parallel.mesh.shard_params` sets `tp_group`)
 each block holds its rank's heads and FFN columns: the fused qkv and
 `c_fc` are column-parallel behind Megatron's f, `out_proj` and `c_proj`
 row-parallel with g; the head count is read from the block's width.
+
+`ops.quant.quantize_git_model_(model, encoder=True)` puts the four GEMMs
+of every block (the fused qkv, `out_proj`, `c_fc`, `c_proj`) on gitax's
+w8a8 path (`ops/int8_dynamic.py`); the patch embedding, the embeddings,
+the LayerNorms and the attention products stay in the activation dtype.
 """
 
 from __future__ import annotations
@@ -30,22 +35,43 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.flash_attention import auto_flash
 from .config import ViTConfig
 from ..parallel.comm import copy_to_model
-from .nn import LayerNorm, Linear, empty_param, linear, quick_gelu, row_linear, self_attention
+from ..ops.int8_dynamic import int8_dynamic_matmul
+from .nn import (LayerNorm, Linear, empty_param, int8_buffers, linear, quick_gelu, row_linear,
+                 self_attention)
 
 
 class MultiheadSelfAttention(nn.Module):
     """Fused-qkv self-attention parameters, named as torch's
     nn.MultiheadAttention (`in_proj_weight [3D, D]`, `in_proj_bias`,
-    `out_proj`)."""
+    `out_proj`).  After `set_int8` (the w8a8 encoder, ops/quant.py) the
+    fused projection holds `in_proj_q8_t [D, 3D]` int8, stored out-major,
+    and `in_proj_scale [3D]` in place of `in_proj_weight`."""
 
     def __init__(self, width, device=None, dtype=None):
         super().__init__()
         self.in_proj_weight = empty_param((3 * width, width), device, dtype)
         self.in_proj_bias = empty_param((3 * width,), device, dtype)
+        self.register_buffer("in_proj_q8_t", None)
+        self.register_buffer("in_proj_scale", None)
         self.out_proj = Linear(width, width, device=device, dtype=dtype)
 
+    @property
+    def quantized(self):
+        return self.in_proj_q8_t is not None
+
+    def set_int8(self, q8_t, scale):
+        """Replace the fp `in_proj_weight` with gitax's `kernel_q8_dyn`
+        [D, 3D] and `kernel_scale` [3D]: the w8a8 fused projection."""
+        device = self.in_proj_weight.device
+        del self._parameters["in_proj_weight"]
+        self.in_proj_q8_t, self.in_proj_scale = int8_buffers(q8_t, scale, device)
+
     def fused_qkv(self, x):
-        """The fused projection [B, T, 3D] (q | k | v)."""
+        """The fused projection [B, T, 3D] (q | k | v), on the flash path
+        and the plain one alike; w8a8 once quantized."""
+        if self.quantized:
+            return int8_dynamic_matmul(x, self.in_proj_q8_t, self.in_proj_scale,
+                                       self.in_proj_bias)
         return F.linear(x, self.in_proj_weight.to(x.dtype)) + self.in_proj_bias.to(x.dtype)
 
     def project(self, x):

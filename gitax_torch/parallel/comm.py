@@ -2,7 +2,8 @@
 leaves to XLA's SPMD partitioner (gitax `parallel/mesh.py:1-17`).
 
 Every collective of the port's mesh goes through this module, and
-each is an `all_reduce` (a sum) or a `broadcast`: NCCL takes both across
+each is an `all_reduce` (a sum, or a max: the w8a8 encoder's row
+amax) or a `broadcast`: NCCL takes both across
 cards, and gloo takes both for CUDA tensors too, so the same code runs
 over NCCL one card per rank, over gloo in CPU processes (the tests), and
 over gloo with ranks that share one card (`chip_smoke.py`).  A group of
@@ -33,6 +34,15 @@ def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     group=None."""
     if group is not None:
         _dist().all_reduce(t, group=group)
+    return t
+
+
+def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of `t` over `group`, in place; returns it.  The
+    identity for group=None."""
+    if group is not None:
+        dist = _dist()
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     return t
 
 

@@ -18,6 +18,14 @@ index r // model and model index r % model.
   of each third (`QKV`), where gitax's spec shards the fused kernel's
   last axis contiguously and GSPMD reshards.
 
+Inference may run one mesh per host (`make_mesh_from_shape`, gitax
+mesh.py:36-48): a launch of H x data x model ranks is H hosts, host h
+holding ranks h*d*m .. (h+1)*d*m - 1, each with its own mesh, and the
+TSV loops split the rows over the hosts (`Mesh.host`, `Mesh.hosts`,
+`Mesh.hosts_group`).  Every group the mesh makes carries the timeout its
+caller gives (`make_mesh`'s timeout_s), so that a rank that hangs makes
+the others' collectives raise.
+
 `shard_params` replaces a full model's parameters by this rank's shards
 (`shard_for_inference` also its int8 buffers, for generation);
 `gather_params` and `load_sharded` go back and forth between shards and
@@ -30,6 +38,7 @@ all-reduce or a broadcast (`parallel/comm.py`).
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 import re
 from typing import Optional
@@ -61,6 +70,9 @@ _RULES = {
     "intermediate.dense.weight": COLUMN,
     "intermediate.dense.bias": COLUMN,
     "output.dense.weight": ROW,
+    # the w8a8 fused qkv (models/vit.py::MultiheadSelfAttention.set_int8)
+    "attn.in_proj_q8_t": QKV,
+    "attn.in_proj_scale": QKV,
 }
 _BLOCK = re.compile(r"(?:image_encoder\.transformer\.resblocks|textual\.transformer\.encoder\.layer)"
                     r"\.\d+\.(.+)$")
@@ -76,7 +88,10 @@ def split_rule(name: str) -> Optional[str]:
     substring match would take `weight_scale` for a weight): `weight_q8_t`
     splits as the layer's `weight`; `weight_scale`, one per output
     channel, with the columns of a column-parallel layer and replicated
-    for a row-parallel one, whose outputs are full width."""
+    for a row-parallel one, whose outputs are full width.  The rule holds
+    for weight-only int8 and w8a8 (`dynamic`) layers alike, as gitax's
+    holds for `kernel_q8` and `kernel_q8_dyn`; the ViT's w8a8 fused qkv
+    splits its `in_proj_q8_t` and `in_proj_scale` by heads (`QKV`)."""
     m = _BLOCK.match(name)
     if not m:
         return None
@@ -129,7 +144,9 @@ def unshard_tensor(kind, shard, mesh: "Mesh"):
 class Mesh:
     """This rank's place in a (data, model) mesh: the axis sizes, its
     coordinates, its device and the process groups of its row (model
-    group) and column (data group); a group of one rank is None."""
+    group) and column (data group); a group of one rank is None.  `rank`
+    is the rank within the mesh; a launch of several hosts runs one mesh
+    per host, whose rank 0 is global rank `base`."""
 
     data: int
     model: int
@@ -138,6 +155,15 @@ class Mesh:
     data_group: object = None
     model_group: object = None
     backend: Optional[str] = None  # the backend of its groups
+    timeout_s: Optional[float] = None  # the timeout of its groups
+    base: int = 0  # the global rank of this mesh's rank 0
+    hosts: int = 1  # meshes in the launch, one a host
+    hosts_group: object = None  # gloo, the hosts' rank 0s, when hosts > 1
+
+    @property
+    def host(self):
+        """This mesh's host index: its row shard of a TSV."""
+        return self.base // (self.data * self.model)
 
     @property
     def data_rank(self):
@@ -175,35 +201,55 @@ def local_device(device=None) -> torch.device:
     return torch.device("cuda", int(os.environ.get("LOCAL_RANK", dist.get_rank())))
 
 
-def make_mesh(data: Optional[int] = None, model: int = 1, device=None, backend=None) -> Mesh:
-    """The mesh of an initialised process group of data x model ranks
-    (data None: world // model); any other product raises, as gitax's
-    assert does.  Every rank calls it (it creates the groups).  device:
-    this rank's (default `local_device()`); backend: the groups' (default
-    the process group's)."""
+def make_mesh(data: Optional[int] = None, model: int = 1, device=None, backend=None,
+              timeout_s: Optional[float] = None, hosts: int = 1) -> Mesh:
+    """The mesh of an initialised process group of hosts x data x model
+    ranks (data None: world // (hosts * model)); any other product raises,
+    as gitax's assert does.  Every rank calls it: it creates every host's
+    groups, in the same order.  device: this rank's (default
+    `local_device()`); backend: the groups' (default the process
+    group's); timeout_s: the groups' (default the process group's as
+    `runtime.distributed.init_training_group` set it: a group made with
+    no timeout would take torch's default, 30 min for gloo and 10 for
+    NCCL, whatever its caller asked).
+
+    Under NCCL the timeout is kept by the watchdog: torch documents that a
+    collective past it is aborted and the process brought down, unless
+    TORCH_NCCL_BLOCKING_WAIT=1, with which the waiting call raises
+    instead.  Under gloo the waiting call raises."""
     import torch.distributed as dist
+
+    from ..runtime.distributed import group_timeout_s
 
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised process group "
                            "(runtime.distributed.init_training_group)")
     world, rank = dist.get_world_size(), dist.get_rank()
     if data is None:
-        data = world // model
-    if data * model != world:
-        raise ValueError("mesh {} x {} != world size {}".format(data, model, world))
-    mesh = Mesh(data=data, model=model, rank=rank, device=local_device(device),
-                backend=backend or dist.get_backend())
-    # every rank creates every group, in the same order
-    if model > 1:
-        for d in range(data):
-            group = dist.new_group([d * model + m for m in range(model)], backend=backend)
-            if d == mesh.data_rank:
-                mesh.model_group = group
-    if data > 1:
-        for m in range(model):
-            group = dist.new_group([d * model + m for d in range(data)], backend=backend)
-            if m == mesh.model_rank:
-                mesh.data_group = group
+        data = world // (hosts * model)
+    per = data * model
+    if hosts * per != world:
+        raise ValueError("mesh {} x {}{} != world size {}".format(
+            data, model, " on {} hosts".format(hosts) if hosts > 1 else "", world))
+    timeout_s = group_timeout_s() if timeout_s is None else timeout_s
+    timeout = datetime.timedelta(seconds=timeout_s)
+    mesh = Mesh(data=data, model=model, rank=rank % per, device=local_device(device),
+                backend=backend or dist.get_backend(), timeout_s=timeout_s,
+                base=rank - rank % per, hosts=hosts)
+    for base in range(0, world, per):
+        mine = base == mesh.base
+        if model > 1:
+            for d in range(data):
+                group = dist.new_group([base + d * model + m for m in range(model)],
+                                       backend=backend, timeout=timeout)
+                if mine and d == mesh.data_rank:
+                    mesh.model_group = group
+        if data > 1:
+            for m in range(model):
+                group = dist.new_group([base + d * model + m for d in range(data)],
+                                       backend=backend, timeout=timeout)
+                if mine and m == mesh.model_rank:
+                    mesh.data_group = group
     return mesh
 
 
@@ -215,10 +261,36 @@ def mesh_dims(mesh_shape):
     return dims
 
 
-def make_mesh_from_shape(mesh_shape, device=None, backend=None) -> Mesh:
-    """The CLI's mesh (`mesh_dims`)."""
+# a host's rank 0 waits at the shards' barrier for the other hosts as long
+# as their rows take, as the reference's file-system poll waits
+_HOSTS_TIMEOUT = datetime.timedelta(days=30)
+
+
+def make_mesh_from_shape(mesh_shape, device=None, backend=None,
+                         timeout_s: Optional[float] = None) -> Mesh:
+    """The CLI's mesh (`mesh_dims`), as gitax's docstring defines it: the
+    mesh of ONE host.  A launch of H x data x model ranks is H hosts of
+    data x model ranks each, host h holding global ranks h*d*m to
+    (h+1)*d*m - 1; each host runs its own mesh, and the TSV loops split
+    the rows over the hosts (`Mesh.host` of `Mesh.hosts`).  With more than
+    one host, every rank also makes `hosts_group`, a gloo group of the
+    hosts' rank 0s for the shards' barrier.  A launch that is not a
+    multiple of data x model raises."""
+    import torch.distributed as dist
+
     data, model = mesh_dims(mesh_shape)
-    return make_mesh(data=data, model=model, device=device, backend=backend)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world % (data * model):
+        raise ValueError("mesh_shape {} needs a multiple of {} ranks (hosts of data x model "
+                         "ranks), and the process group has {}".format(
+                             [data, model], data * model, world))
+    hosts = world // (data * model)
+    mesh = make_mesh(data=data, model=model, device=device, backend=backend,
+                     timeout_s=timeout_s, hosts=hosts)
+    if hosts > 1:
+        mesh.hosts_group = dist.new_group(list(range(0, world, data * model)), backend="gloo",
+                                          timeout=_HOSTS_TIMEOUT)
+    return mesh
 
 
 def _owner(model, name):
@@ -258,7 +330,7 @@ def _shard_(model, mesh: Mesh):
             kind = split_rule(name)
             if kind is not None:
                 module, leaf = _owner(model, name)
-                if leaf == "weight_q8_t":  # [in, out] out-major: split its [out, in] storage
+                if leaf.endswith("_q8_t"):  # [in, out] out-major: split its [out, in] storage
                     shard = shard_tensor(kind, b.t(), mesh.model, mesh.model_rank).t()
                 else:
                     shard = shard_tensor(kind, b, mesh.model, mesh.model_rank)
@@ -277,7 +349,9 @@ def shard_params(model, mesh: Mesh):
     takes them)."""
     if model.mesh is not None:
         raise ValueError("the model is already on a mesh")
-    quantized = [n for n, m in model.named_modules() if getattr(m, "quantized", False)]
+    from ..models.git import quantized_modules
+
+    quantized = quantized_modules(model)
     if quantized:
         raise ValueError("int8 Linears cannot be sharded for training: {}".format(
             ", ".join(quantized)))
@@ -339,7 +413,8 @@ def _moments_by_owner(local, named, mesh: Mesh) -> dict:
                         ("exp_avg_sq", p)):
             t = (mine[k].to(device=mesh.device, dtype=like.dtype).clone() if mine is not None
                  else torch.empty_like(like, device=mesh.device))
-            st[k] = comm.broadcast(t, owner * mesh.model + mesh.model_rank, mesh.data_group)
+            st[k] = comm.broadcast(t, mesh.base + owner * mesh.model + mesh.model_rank,
+                                   mesh.data_group)
         st["step"] = st["step"].cpu()
         state[i] = st
     return state

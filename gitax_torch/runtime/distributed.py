@@ -18,11 +18,13 @@ card).  `spawn_ranks` starts the ranks of one command (train.py's
 
 Inference on several cards (`mesh_shape` in the CLI and the server,
 `runtime.engine.CaptionEngine(mesh=...)`) joins its group with
-`open_inference_group`: under a launch of exactly data x model ranks
-(torchrun) each process is a rank; otherwise this process is rank 0 and
-`SpawnedRanks` starts ranks 1.. , which serve rank 0's batches until it
-closes the engine.  The group's timeout is minutes (MESH_TIMEOUT_S), so a
-rank that fails ends the others' collectives with an error, not a hang.
+`open_inference_group`: under a launch of H x data x model ranks
+(torchrun) each process is a rank and each host of data x model ranks
+runs its own mesh on its row shard of a TSV; otherwise this process is
+rank 0 and `SpawnedRanks` starts ranks 1.. , which serve rank 0's
+batches until it closes the engine.  The timeout of the group and of
+every group its mesh makes is minutes (MESH_TIMEOUT_S), so a rank that
+fails or hangs ends the others' collectives with an error.
 """
 
 from __future__ import annotations
@@ -108,8 +110,22 @@ def check_data_parallel(n: int, device=None, label=None):
                          "puts every rank on card 0 over gloo)".format(label, n, cards))
 
 
+# the timeout of the training group unless its caller gives one
+TRAIN_TIMEOUT_S = 1800
+# the timeout init_training_group gave the process group, the default of
+# the mesh's groups (`group_timeout_s`)
+_GROUP_TIMEOUT_S = None
+
+
+def group_timeout_s():
+    """The timeout, in seconds, of the process group as
+    `init_training_group` made it (TRAIN_TIMEOUT_S for a group made
+    elsewhere): the groups a mesh makes take it unless told otherwise."""
+    return _GROUP_TIMEOUT_S if _GROUP_TIMEOUT_S is not None else TRAIN_TIMEOUT_S
+
+
 def init_training_group(rank=None, world_size=None, init_method=None, device=None,
-                        share_card=False, timeout_s=1800):
+                        share_card=False, timeout_s=TRAIN_TIMEOUT_S):
     """Join the process group of multi-card training; returns (this rank's
     device, the backend for the mesh's groups: `parallel.mesh.make_mesh`'s
     `backend`).  rank, world_size and init_method default to the env://
@@ -143,11 +159,13 @@ def init_training_group(rank=None, world_size=None, init_method=None, device=Non
             raise ValueError("the process group is rank {} of {}, not {} of {}".format(
                 dist.get_rank(), dist.get_world_size(), rank, world_size))
         return dev, backend
+    global _GROUP_TIMEOUT_S
     kwargs = dict(backend=backend, init_method=init_method or "env://", world_size=world_size,
                   rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
     if backend == "nccl":
         kwargs["device_id"] = dev
     dist.init_process_group(**kwargs)
+    _GROUP_TIMEOUT_S = timeout_s
     logging.info("training group: rank %d/%d, %s on %s", rank, world_size, backend, dev)
     return dev, backend
 
@@ -243,14 +261,16 @@ def launched_world():
 
 class InferenceGroup(object):
     """This rank's part of an inference mesh: `mesh` (a
-    `parallel.mesh.Mesh`), the spawned ranks when this process started
-    them (`ranks`), and whether it initialised the process group."""
+    `parallel.mesh.Mesh`, its host's), the spawned ranks when this
+    process started them (`ranks`), and whether it initialised the
+    process group."""
 
     def __init__(self, mesh, ranks=None, owns_group=False):
         self.mesh, self.ranks, self.owns_group = mesh, ranks, owns_group
 
     @property
     def rank(self):
+        """The rank within this host's mesh: 0 drives the engine."""
         return self.mesh.rank
 
     def close(self, ok=True):
@@ -270,8 +290,8 @@ class InferenceGroup(object):
 def join_inference_group(rank, world_size, init_method, mesh_shape, device=None,
                          share_card=False, timeout_s=MESH_TIMEOUT_S, ranks=None):
     """Join the group of an inference mesh as `rank` (the placement rules
-    of `init_training_group`) and make its (data, model) mesh; returns an
-    `InferenceGroup`."""
+    of `init_training_group`) and make its host's (data, model) mesh, its
+    groups on `timeout_s`; returns an `InferenceGroup`."""
     import torch.distributed as dist
 
     from ..parallel.mesh import make_mesh_from_shape
@@ -279,23 +299,27 @@ def join_inference_group(rank, world_size, init_method, mesh_shape, device=None,
     owns = not dist.is_initialized()
     dev, backend = init_training_group(rank, world_size, init_method, device=device,
                                        share_card=share_card, timeout_s=timeout_s)
-    return InferenceGroup(make_mesh_from_shape(mesh_shape, device=dev, backend=backend), ranks,
-                          owns)
+    return InferenceGroup(make_mesh_from_shape(mesh_shape, device=dev, backend=backend,
+                                               timeout_s=timeout_s), ranks, owns)
 
 
 def open_inference_group(mesh_shape, follower: str, device=None, share_card=False,
                          timeout_s=MESH_TIMEOUT_S) -> InferenceGroup:
-    """The group of an entry point's `mesh_shape` (data x model ranks).
-    Under a launch of exactly that many processes (torchrun, or an
-    initialised group) this process is its launcher's rank.  Otherwise it
-    is rank 0 and ranks 1.. are spawned running `follower`
-    ("module:function", called as fn(rank, world, init_method,
-    mesh_shape, device, share_card, timeout_s)).  device='cpu': gloo on
-    the CPU; else NCCL with one card a rank, raising before anything
-    starts when the machine has fewer cards than ranks, unless share_card
-    puts every rank on card 0 over gloo.  A launch of another number of
-    processes raises: row shards over hosts, each with its own mesh, are
-    not ported."""
+    """The group of an entry point's `mesh_shape` (data x model ranks a
+    host).  Under a launch of several processes (torchrun, or an
+    initialised group) this process is its launcher's rank, and a launch
+    of H x data x model processes is H hosts, each running its own mesh
+    over its own ranks (gitax mesh.py:36-48; the TSV loops split the rows
+    over the hosts).  Otherwise this process is rank 0 and ranks 1.. are
+    spawned running `follower` ("module:function", called as fn(rank,
+    world, init_method, mesh_shape, device, share_card, timeout_s)).
+    device='cpu': gloo on the CPU; else NCCL with one card a rank
+    (cuda:LOCAL_RANK), raising before anything starts when the machine
+    has fewer cards than ranks, unless share_card puts every rank on card
+    0 over gloo.  Before anything starts, a launch that is not a multiple
+    of data x model raises, and so does a LOCAL_WORLD_SIZE (torchrun's
+    processes a machine) other than data x model: a host's mesh never
+    spans machines."""
     import torch
 
     from ..parallel.mesh import mesh_dims
@@ -304,12 +328,19 @@ def open_inference_group(mesh_shape, follower: str, device=None, share_card=Fals
     world = data * model
     rank, launched = launched_world()
     if launched > 1:
-        if launched != world:
-            raise NotImplementedError(
-                "mesh_shape {} needs {} ranks, and this launch has {} processes: RANK/WORLD_SIZE "
-                "row shards over hosts, each host with its own mesh, are not ported (launch "
-                "data x model ranks, or one process)".format(list((data, model)), world, launched))
-        return join_inference_group(rank, world, None, mesh_shape, device, share_card, timeout_s)
+        if launched % world:
+            raise ValueError(
+                "mesh_shape {} takes hosts of {} ranks, and this launch has {} processes: row "
+                "shards over hosts need a multiple of data x model".format(
+                    list((data, model)), world, launched))
+        local = _int_env("LOCAL_WORLD_SIZE")
+        if local is not None and local != world:
+            raise ValueError(
+                "mesh_shape {} is one host's mesh of {} ranks, and LOCAL_WORLD_SIZE is {}: a "
+                "host's mesh never spans machines (launch data x model processes a "
+                "machine)".format(list((data, model)), world, local))
+        return join_inference_group(rank, launched, None, mesh_shape, device, share_card,
+                                    timeout_s)
     cpu = device is not None and torch.device(device).type == "cpu"
     if not cpu:
         if share_card:

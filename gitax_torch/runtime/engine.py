@@ -8,7 +8,9 @@ file-system barrier.  The port's engine, as gitax's:
     (ceil(N/W) contiguous rows per rank, inference.py:157-169), and each
     rank writes `out.{rank}.{world}.tsv`, which rank 0 concatenates
     (`finish_shards`: a torch.distributed barrier when a process group is
-    up, else the reference's poll of the file system);
+    up, else the reference's poll of the file system); on a launch of
+    several hosts, each host's mesh takes its own rows and the barrier is
+    a gloo group of the hosts' rank 0s (`Mesh.hosts_group`);
   * within a process, images are decoded and transformed by a host
     thread pool that prefetches ahead of the device (`_prefetched_chunks`)
     while the search runs batch by batch, the tail batch padded with its
@@ -116,20 +118,28 @@ def wait_and_concat_shards(out_tsv: str, world_size: int,
     concat_tsv_files(shards, out_tsv)
 
 
-def finish_shards(out_tsv: str, rank: int, world_size: int):
+def finish_shards(out_tsv: str, rank: int, world_size: int, group=None):
     """After this rank's shard is written: with a torch.distributed group
     of more than one process, a barrier (every shard is closed before its
     rank enters), then rank 0 concatenates; otherwise rank 0 polls the
-    file system for the shards (reference inference.py:214-225)."""
+    file system for the shards (reference inference.py:214-225).  group:
+    the group of the shards' writers (the hosts' rank 0s of a launch of
+    several meshes), else the whole process group."""
     if world_size <= 1:
         return
-    if distributed.is_active():
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.barrier(group=group)
+    elif distributed.is_active():
         distributed.barrier("gitax_tsv_shards:" + op.basename(out_tsv))
+    else:
         if rank == 0:
-            concat_tsv_files(["{}.{}.{}.tsv".format(out_tsv, r, world_size)
-                              for r in range(world_size)], out_tsv)
-    elif rank == 0:
-        wait_and_concat_shards(out_tsv, world_size)
+            wait_and_concat_shards(out_tsv, world_size)
+        return
+    if rank == 0:
+        concat_tsv_files(["{}.{}.{}.tsv".format(out_tsv, r, world_size)
+                          for r in range(world_size)], out_tsv)
 
 
 # the ops of rank 0's header, and its int64 slots: op, ndim, shape (up to
@@ -143,23 +153,31 @@ _IDLE = datetime.timedelta(days=30)
 
 
 class _Channel(object):
-    """The groups an engine on a mesh adds, made by every rank in the same
-    order: `control` (gloo, every rank, host tensors: the headers) and
-    `world` (every rank, the mesh's backend: the weights and batches)."""
+    """The groups an engine on a mesh adds over its host's ranks: `control`
+    (gloo, host tensors: the headers) and `world` (the mesh's backend: the
+    weights and batches, on the mesh's timeout; the idle wait between
+    batches is control's).  Every rank of the launch makes every host's,
+    in the same order.  `src`: the global rank of the mesh's rank 0."""
 
     def __init__(self, mesh):
         import torch.distributed as dist
 
-        ranks = list(range(dist.get_world_size()))
-        self.control = dist.new_group(ranks, backend="gloo", timeout=_IDLE)
-        self.world = dist.new_group(ranks, backend=mesh.backend)
+        per = mesh.data * mesh.model
+        timeout = datetime.timedelta(seconds=mesh.timeout_s or distributed.group_timeout_s())
+        self.src = mesh.base
+        for base in range(0, dist.get_world_size(), per):
+            ranks = list(range(base, base + per))
+            control = dist.new_group(ranks, backend="gloo", timeout=_IDLE)
+            world = dist.new_group(ranks, backend=mesh.backend, timeout=timeout)
+            if base == mesh.base:
+                self.control, self.world = control, world
 
     def header(self, values=None):
         """Rank 0's header (values, a list of ints) on every rank."""
         t = torch.zeros(_HEADER, dtype=torch.int64)
         if values is not None:
             t[:len(values)] = torch.tensor(values, dtype=torch.int64)
-        return comm.broadcast(t, 0, self.control).tolist()
+        return comm.broadcast(t, self.src, self.control).tolist()
 
 
 class CaptionEngine(object):
@@ -210,8 +228,8 @@ class CaptionEngine(object):
                     transform=types.SimpleNamespace(
                         mean=list(getattr(transform, "mean", CLIP_MEAN)),
                         std=list(getattr(transform, "std", CLIP_STD))))},
-                    0, self._channel.control)
-            broadcast_params(model, 0, self._channel.world)
+                    self._channel.src, self._channel.control)
+            broadcast_params(model, self._channel.src, self._channel.world)
             self._lock = threading.Lock()
         if int8:
             # weight-only int8 decoder and head matmuls (ops/quant.py); the
@@ -249,7 +267,7 @@ class CaptionEngine(object):
         """The engine of a rank 1.. of a mesh: rank 0's settings and model
         config arrive by broadcast, its weights by `broadcast_params`."""
         channel = _Channel(mesh)
-        spec = comm.broadcast_object(None, 0, channel.control)
+        spec = comm.broadcast_object(None, channel.src, channel.control)
         model = GitModel(spec["cfg"], device=mesh.device, dtype=spec["dtype"])
         return cls(model, None, mesh=mesh, _channel=channel, **spec["kwargs"])
 
@@ -351,11 +369,11 @@ class CaptionEngine(object):
                                      + [int(imgs.dtype != np.uint8), pref.shape[1],
                                         int(bool(generate))])
                 if generate:
-                    comm.broadcast_object(generate, 0, self._channel.control)
-                dev_imgs = comm.broadcast(torch.from_numpy(imgs).to(self.device), 0,
-                                          self._channel.world)
-                dev_pref = comm.broadcast(torch.from_numpy(pref).to(self.device), 0,
-                                          self._channel.world)
+                    comm.broadcast_object(generate, self._channel.src, self._channel.control)
+                dev_imgs = comm.broadcast(torch.from_numpy(imgs).to(self.device),
+                                          self._channel.src, self._channel.world)
+                dev_pref = comm.broadcast(torch.from_numpy(pref).to(self.device),
+                                          self._channel.src, self._channel.world)
                 return self._run(dev_imgs, dev_pref, generate or None)
             except BaseException:
                 self._broken = True
@@ -392,12 +410,13 @@ class CaptionEngine(object):
             ndim = head[1]
             shape = head[2:2 + ndim]
             is_float, tp, kw = head[7:10]
-            generate = comm.broadcast_object(None, 0, self._channel.control) if kw else None
+            generate = (comm.broadcast_object(None, self._channel.src, self._channel.control)
+                        if kw else None)
             imgs = torch.empty(shape, dtype=torch.float32 if is_float else torch.uint8,
                                device=self.device)
-            comm.broadcast(imgs, 0, self._channel.world)
+            comm.broadcast(imgs, self._channel.src, self._channel.world)
             pref = torch.empty((shape[0], tp), dtype=torch.int64, device=self.device)
-            comm.broadcast(pref, 0, self._channel.world)
+            comm.broadcast(pref, self._channel.src, self._channel.world)
             self._run(imgs, pref, generate)
 
     def _dispatch_batch(self, images: List[np.ndarray], prefixes: List[List[int]]):
@@ -563,7 +582,7 @@ class CaptionEngine(object):
                 meter.update(len(pkeys))
 
         tsv_writer(rows(), cur_out)
-        finish_shards(out_tsv, rank, world_size)
+        finish_shards(out_tsv, rank, world_size, self.mesh and self.mesh.hosts_group)
 
     # -- TSV VQA pipeline ---------------------------------------------------
     def run_vqa_tsv(self, image_tsv_path, question_tsv_path, out_tsv,
@@ -629,7 +648,7 @@ class CaptionEngine(object):
                 yield (json_dump({"answer": ans, "question_id": qid}),)
 
         tsv_writer(rows(), cur_out)
-        finish_shards(out_tsv, rank, world_size)
+        finish_shards(out_tsv, rank, world_size, self.mesh and self.mesh.hosts_group)
 
 
 def follower_main(rank, world_size, init_method, mesh_shape, device=None, share_card=False,

@@ -246,18 +246,18 @@ def test_cli_runs_on_the_card_unless_told_otherwise(workdir, monkeypatch):
 
 
 def test_cli_refuses_what_is_not_ported(workdir, monkeypatch):
-    """use_native=True raises; so does mesh_shape under RANK/WORLD_SIZE row
-    shards of another size (row shards over hosts, each with its own
-    mesh, are not ported), before any rank starts."""
+    """use_native=True raises; so does mesh_shape under a launch that is
+    not a multiple of its data x model ranks (row shards over hosts take
+    hosts of data x model ranks each), before any rank starts."""
     with pytest.raises(NotImplementedError, match="libjpeg"):
         pt_inf.test_git_inference_single_tsv("img.tsv", "TINY_CAP", None, "o.tsv",
                                              use_native=True, device="cpu")
     monkeypatch.setenv("RANK", "0")
     monkeypatch.setenv("WORLD_SIZE", "3")
-    with pytest.raises(NotImplementedError, match="row shards over hosts"):
+    with pytest.raises(ValueError, match="row shards over hosts"):
         pt_inf.test_git_inference_single_tsv("img.tsv", "TINY_CAP", None, "o.tsv",
                                              mesh_shape=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="row shards over hosts"):
+    with pytest.raises(ValueError, match="row shards over hosts"):
         pt_inf.test_git_inference_single_image(png_file(workdir / "x.png", 1), "TINY_CAP",
                                                mesh_shape=[1, 2], device="cpu")
 

@@ -419,3 +419,125 @@ def faulty_follower(rank, world, init_method, mesh_shape, device, share_card, ti
 
     engine.model.generate = fail
     engine.follow()
+
+
+# ---------------------------------------------------------------------------
+# row shards over hosts, w8a8 on a mesh, the groups' timeouts: the ranks
+# of tests/test_torch_port_hosts.py
+# ---------------------------------------------------------------------------
+
+
+def hosts_tsv(job, loop, mesh_shape):
+    """test_git_inference_single_tsv with mesh_shape on this launch (H
+    hosts of data x model ranks): the joined TSV's path on global rank 0."""
+    from gitax_torch import inference
+
+    out = "hosts_{}_{}.tsv".format(loop, "x".join(map(str, mesh_shape)))
+    q_tsv = "q.tsv" if loop == "vqa" else None
+
+    def run():
+        inference.test_git_inference_single_tsv("img.tsv", "TINY_CAP", q_tsv, out, batch_size=2,
+                                                dtype="float32", mesh_shape=mesh_shape,
+                                                device="cpu")
+        return os.path.join(job["cli"]["dir"], out) if dist.get_rank() == 0 else None
+
+    return in_cli_dir(job, run)
+
+
+def w8a8_tokens(job, mesh_shape):
+    """The w8a8 model (`quantize_git_model_(encoder=True)`, then split)
+    searching the job's images on this launch's `mesh_shape` meshes, one a
+    host: each data rank its rows; the [B, L] tokens on every host's rank
+    0 ({host: tokens} on global rank 0, through the hosts' group)."""
+    import numpy as np
+
+    from gitax_torch.decode.beam import BeamSearchConfig
+    from gitax_torch.ops.quant import quantize_git_model_
+    from gitax_torch.parallel.mesh import shard_for_inference
+
+    spec = job["w8a8"]
+    mesh = make_mesh_from_shape(mesh_shape, device="cpu")
+    model = shard_for_inference(quantize_git_model_(model_from(spec["cfg"], spec["weights"]),
+                                                    encoder=True), mesh)
+    images = torch.from_numpy(spec["images"])
+    lo, hi = mesh.batch_rows(len(images))
+    with torch.no_grad():
+        seqs, _ = model.generate(images[lo:hi], beam=BeamSearchConfig(**spec["beam"]))
+    if mesh.model_rank != 0:
+        return None
+    full = comm.gather_rows(seqs, lo, len(images), mesh.data_group)
+    if mesh.rank != 0:
+        return None
+    hosts = [None] * mesh.hosts
+    if mesh.hosts > 1:
+        dist.all_gather_object(hosts, full.numpy(), group=mesh.hosts_group)
+    else:
+        hosts[0] = full.numpy()
+    return {h: np.asarray(t) for h, t in enumerate(hosts)} if dist.get_rank() == 0 else None
+
+
+def w8a8_row_parallel(job):
+    """A w8a8 row-parallel layer on a [1, 2] mesh a host: each model rank
+    holds half of K (the job's planted rows keep their amax on one rank or
+    the other); the output on global rank 0."""
+    from gitax_torch.ops.int8_dynamic import int8_dynamic_matmul
+
+    spec = job["row"]
+    mesh = make_mesh_from_shape([1, 2], device="cpu")
+    k = spec["x"].shape[1] // 2
+    part = slice(mesh.model_rank * k, (mesh.model_rank + 1) * k)
+    y = int8_dynamic_matmul(spec["x"][:, part], spec["w_q8_t"][part], spec["scale"], spec["bias"],
+                            mesh.model_group)
+    return y if dist.get_rank() == 0 else None
+
+
+HOSTS_SCENARIOS = [
+    ("hosts_caption_2x1", lambda job: hosts_tsv(job, "caption", [2, 1])),
+    ("hosts_vqa_2x1", lambda job: hosts_tsv(job, "vqa", [2, 1])),
+    ("hosts_caption_1x2", lambda job: hosts_tsv(job, "caption", [1, 2])),
+    ("hosts_vqa_1x2", lambda job: hosts_tsv(job, "vqa", [1, 2])),
+    ("w8a8_1x2", lambda job: w8a8_tokens(job, [1, 2])),
+    ("w8a8_2x2", lambda job: w8a8_tokens(job, [2, 2])),
+    ("w8a8_row", w8a8_row_parallel),
+]
+
+
+def hosts_main(rank, world, init_method, job_dir):
+    """A rank of a launch of `world` gloo CPU ranks: every scenario of
+    HOSTS_SCENARIOS in order, rank 0 writing each one's result, or its
+    traceback, to hosts.pt."""
+    init_training_group(rank, world, init_method, device="cpu", timeout_s=TIMEOUT_S)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        job = torch.load(os.path.join(job_dir, "hosts_job.pt"), weights_only=False)
+        job["dir"] = job_dir
+        results = {"jax_imported": per_rank("jax" in sys.modules, world)}
+        for name, fn in HOSTS_SCENARIOS:
+            try:
+                results[name] = fn(job)
+            except Exception:
+                results[name] = {"error": traceback.format_exc()}
+        if rank == 0:
+            torch.save(results, os.path.join(job_dir, "hosts.pt"))
+    finally:
+        torch.set_num_threads(threads)
+        dist.destroy_process_group()
+
+
+def sleeping_follower(rank, world, init_method, timeout_s, sleep_s):
+    """A rank that joins the group (on TIMEOUT_S: a loaded machine may start
+    it late), makes the groups rank 0 makes on `timeout_s` (a [1, 2]
+    mesh's model group, a [2, 1] mesh's data group, an engine channel on
+    the [1, 2] mesh) and then hangs: it sleeps instead of joining rank 0's
+    collectives."""
+    import time
+
+    from gitax_torch.runtime.engine import _Channel
+
+    init_training_group(rank, world, init_method, device="cpu", timeout_s=TIMEOUT_S)
+    dist.barrier()
+    mesh = make_mesh(1, 2, device="cpu", timeout_s=timeout_s)
+    make_mesh(2, 1, device="cpu", timeout_s=timeout_s)
+    _Channel(mesh)
+    time.sleep(sleep_s)
