@@ -206,7 +206,28 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      one-card CLI's;
  29. the trace: `runtime.profiling.trace` around one COCO batch (after
      phase 5) writes a Chrome trace that names kernel 1.
-Phases 14-19, 21, 22, 23 and 26-28 write in build/gitax_torch/smoke_work, removed after.
+ 30. the CLIP towers: RN50 at its published widths (layers (3, 4, 6, 3),
+     width 64, heads 32, output 1024, 224 px) and its text tower (width
+     512, 8 heads, 12 layers, context 77, vocab 49408), random weights
+     from --seed: f32 on the card (TF32 off) within 1e-4 of the largest
+     output of the port's CPU plain path on 2 images and 2 token rows
+     (grid, pooled, text), the bf16 drift, ms per batch of 32 beside the
+     FLOP bound in f32 and bf16 (cuDNN's convolutions: no Pallas kernel);
+ 31. the CLIP-loaded encoder: a synthesised ViT-L/14 archive (COCO's
+     encoder weights, a projection, a tiny text tower) written to the
+     work dir and removed, loaded with verify='warn' and resized to 480
+     px, then GIT's grid encode of 420x560 inputs (S=1201) in bf16 with
+     kernel 2 on: every call on 4 images held to its plain version at
+     check_flash_case's bounds, then B=32: 24 launches counted, ms per
+     batch beside flash=False, the outputs' relative L2 distance;
+ 32. sampling on a tensor-parallel model (in phase 23's 2-rank group):
+     the cut model in f32 on [1, 2] with phase 19's sampled search (R=2)
+     gives one card's tokens with the same seed; GIT_LARGE_COCO bf16 +
+     int8 on [1, 2]: ms per beam step sampled and by beam search;
+ 33. the native loader (g++, libjpeg): whether it built and why not; where
+     it built, 16 JPEG rows through the caption TSV with use_native on and
+     off.
+Phases 14-19, 21, 22, 23, 26-28, 31 and 33 write in build/gitax_torch/smoke_work, removed after.
 Each slice prints its peak device memory.
 Prints the card's name and power limit, one JSON line describing the
 kernels (launches on the main path; error, time, plain time, bound and
@@ -1763,9 +1784,10 @@ def png_bytes(img):
 
 def phase_decoders(work):
     """13. Which image decoders the machine offers: PIL, cv2,
-    torchvision.io, libjpeg's header and library through g++.  Information
-    for a later native loader.  The TSV loops decode with PIL, as gitax
-    does, so the run stops here without it."""
+    torchvision.io, libjpeg's header and library through g++, and whether
+    the native loader built (`use_native=None` takes it where it did,
+    else PIL, as gitax does).  PNG rows decode with PIL either way, so the
+    run stops here without it."""
     import importlib
     import shutil
 
@@ -1795,8 +1817,11 @@ def phase_decoders(work):
         pil_image()
     except ImportError as e:
         check(False, "the TSV loops decode with PIL: {}".format(e))
-    log("decoders: {}; the TSV loops decode with PIL; PyYAML (the -p CLI's parser) {}".format(
-        "; ".join(found), "present" if have_yaml() else "absent"))
+    from gitax_torch import native
+
+    log("decoders: {}; the TSV loops decode with {}; PyYAML (the -p CLI's parser) {}".format(
+        "; ".join(found), "the native loader (use_native=None)" if native.available()
+        else "PIL, the native loader not built", "present" if have_yaml() else "absent"))
 
 
 def have_yaml():
@@ -4343,6 +4368,7 @@ def phase_mesh_infer(card, coco, vqa, images, work, seed, rates, w8a8_want):
     vqa_items = [rng.randint(0, 256, (420, 560, 3)).astype(np.uint8) for _ in range(P23_ROWS)]
     vqa_pref = [encode_prefix(tok, VQA_QUESTIONS[1], 40)] * len(vqa_items)
     vqa_one = p23_one_card_rate(vqa, tok, vqa_items, vqa_pref)
+    samp_want = p32_one_card(parity_model, tok, inputs, seed)
     sharp = p23_sharp(work, coco)
     p23_small_one_card(sharp)
     gc.collect()
@@ -4366,6 +4392,8 @@ def phase_mesh_infer(card, coco, vqa, images, work, seed, rates, w8a8_want):
                 got, _ = p23_rate(card, group, (1, 2), vqa, tok, vqa_items, vqa_pref, "VQA",
                                   vqa_one)
                 add(got)
+                add(p32_sampling(card, group, parity_model, tok, inputs, seed, samp_want, coco,
+                                 coco_tok, coco_items, coco_pref))
                 add(p23_cli(card, group, work, sharp, share, rates["coco_tsv"]))
                 add(p23_serving(card, group, work, sharp, share, images, rates["serving"]))
                 int8 = list(p23_w8a8(card, group, work, seed, w8a8_want))
@@ -4840,6 +4868,426 @@ def phase_reference_checkpoint(card, cpu_model, work, write_s):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 30-33: the CLIP towers, the CLIP-loaded encoder, sampling on a tensor-
+# parallel model (in phase 23), the native loader
+# ---------------------------------------------------------------------------
+
+# CLIP RN50's published widths and its text tower (reference CLIP/clip.py's
+# RN50 archive: vision layers (3, 4, 6, 3), width 64, embed 1024, 224 px;
+# text width 512, 8 heads, 12 layers, context 77, vocab 49408)
+RN50 = dict(layers=(3, 4, 6, 3), width=64, output_dim=1024, heads=32, input_resolution=224)
+RN50_TEXT = dict(context_length=77, vocab_size=49408, width=512, heads=8, layers=12)
+CLIP_B, CLIP_PARITY_ROWS, CLIP_REPS = 32, 2, 5
+# the CLIP-loaded ViT-L/14 resized to 480 px (a 34 x 34 table), run on
+# VQA's 420 x 560 inputs (a 30 x 40 grid, S = 1201: the table interpolated)
+CLIP_RES, CLIP_HW = 480, (420, 560)
+CLIP_CHECK_B = 4  # the kernel held against its plain version on every call
+
+
+def resnet_flops(cfg, h, w, pooled):
+    """Multiply-adds x 2 of `models.resnet.resnet_forward` on one h x w
+    image: the convolutions, and the attention pool where pooled."""
+    f = 0
+
+    def conv(cin, cout, k, r):
+        return 2 * cin * cout * k * k * r[0] * r[1]
+
+    r = (h // 2, w // 2)
+    half = cfg.width // 2
+    f += conv(3, half, 3, r) + conv(half, half, 3, r) + conv(half, cfg.width, 3, r)
+    r = (r[0] // 2, r[1] // 2)
+    inplanes = cfg.width
+    for gi, n in enumerate(cfg.layers):
+        planes = cfg.width * 2 ** gi
+        for bi in range(n):
+            s = 2 if gi and not bi else 1
+            f += conv(inplanes, planes, 1, r) + conv(planes, planes, 3, r)
+            out = (r[0] // s, r[1] // s)
+            f += conv(planes, 4 * planes, 1, out)
+            if s > 1 or inplanes != 4 * planes:
+                f += conv(inplanes, 4 * planes, 1, out)
+            inplanes, r = 4 * planes, out
+    if pooled:
+        e, t = cfg.embed_dim, r[0] * r[1] + 1
+        f += 2 * e * e + 2 * 2 * t * e * e + 2 * 2 * t * e + 2 * e * cfg.output_dim
+    return f
+
+
+def text_flops(cfg, t, embed):
+    """Multiply-adds x 2 of `models.clip.text_forward` on one row of t
+    tokens."""
+    w = cfg.width
+    return cfg.layers * t * (24 * w * w + 4 * t * w) + 2 * w * embed
+
+
+def clip_tokens(g, n, cfg):
+    """n token rows as CLIP's tokenizer lays them out: a random length,
+    random ids, the EOT (the highest id) last, zeros after."""
+    import torch
+
+    tok = torch.zeros(n, cfg.context_length, dtype=torch.long)
+    lengths = torch.randint(5, cfg.context_length + 1, (n,), generator=g)
+    for i, n_tok in enumerate(lengths.tolist()):
+        tok[i, :n_tok - 1] = torch.randint(1, cfg.vocab_size - 1, (n_tok - 1,), generator=g)
+        tok[i, n_tok - 1] = cfg.vocab_size - 1
+    return tok
+
+
+def phase_clip_towers(card, seed):
+    """30. CLIP's RN50 at its published widths and its text tower, random
+    weights from `seed` (`init_params`): the card's f32 output (both TF32
+    switches off) within 1e-4 of its largest magnitude of the port's CPU
+    plain path on CLIP_PARITY_ROWS images and token rows, grid, pooled
+    and text; the bf16 drift; ms per batch of CLIP_B (CUDA events, mean of
+    CLIP_REPS after a warm-up) beside the FLOP bound, f32 and bf16.  The
+    convolutions are cuDNN's (gitax's are XLA convolutions: no Pallas
+    kernel stands behind them)."""
+    import torch
+
+    from gitax_torch.models import clip, resnet
+
+    t0 = time.perf_counter()
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "phase 30 holds f32 with TF32 off")
+    cfg = resnet.ResNetConfig(**RN50)
+    tcfg = clip.CLIPTextConfig(**RN50_TEXT)
+    g = torch.Generator().manual_seed(seed + 30)
+    cpu_rn = resnet.ModifiedResNet(cfg, device="cpu").init_params(g)
+    cpu_tx = clip.TextTransformer(tcfg, cfg.output_dim, device="cpu").init_params(g)
+    images = torch.randn(CLIP_B, cfg.input_resolution, cfg.input_resolution, 3, generator=g)
+    tokens = clip_tokens(g, CLIP_B, tcfg)
+    n = CLIP_PARITY_ROWS
+    with torch.inference_mode():
+        want = {"grid": resnet.resnet_forward(cpu_rn, images[:n]),
+                "pooled": resnet.resnet_forward(cpu_rn, images[:n], output_grid=False),
+                "text": clip.text_forward(cpu_tx, tokens[:n])}
+    x, tok = images.cuda(), tokens.cuda()
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        rn = resnet.ModifiedResNet(cfg, device="cuda", dtype=dtype)
+        rn.load_state_dict(cpu_rn.state_dict())
+        tx = clip.TextTransformer(tcfg, cfg.output_dim, device="cuda", dtype=dtype)
+        tx.load_state_dict(cpu_tx.state_dict())
+        calls = {"grid": lambda: resnet.resnet_forward(rn, x, dtype),
+                 "pooled": lambda: resnet.resnet_forward(rn, x, dtype, output_grid=False),
+                 "text": lambda: clip.text_forward(tx, tok, dtype)}
+        name = "f32" if dtype == torch.float32 else "bf16"
+        peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+        with torch.inference_mode():
+            for label, fn in calls.items():
+                out = fn()[:n].float().cpu()
+                check(torch.isfinite(out).all().item() and out.shape == want[label].shape,
+                      "CLIP {} {}: shape {} or non-finite".format(label, name, tuple(out.shape)))
+                err = ((out - want[label]).abs().max() / want[label].abs().max()).item()
+                if dtype == torch.float32:
+                    check(err <= 1e-4, "CLIP {} f32 card vs CPU: {} of max|out|".format(label, err))
+                ms = cuda_time_ms(fn, CLIP_REPS, warmup=1)
+                if label == "text":
+                    flops = CLIP_B * text_flops(tcfg, tcfg.context_length, cfg.output_dim)
+                    # the embedding rows the tokens gather, not the whole table
+                    params = (sum(p.numel() for p in tx.parameters())
+                              - tx.token_embedding.weight.numel() + tok.numel() * tcfg.width)
+                    io_bytes = tok.numel() * 8 + CLIP_B * cfg.output_dim * dtype.itemsize
+                else:
+                    flops = CLIP_B * resnet_flops(cfg, cfg.input_resolution, cfg.input_resolution,
+                                                  label == "pooled")
+                    params = sum(p.numel() for p in rn.parameters())
+                    io_bytes = (x.numel() * 4 + CLIP_B * (cfg.output_dim if label == "pooled"
+                                                          else 49 * cfg.embed_dim)
+                                * dtype.itemsize)
+                bound_ms, bound_by = bound(params * dtype.itemsize + io_bytes, flops, peak)
+                rows[label, name] = ms
+                log("CLIP {} {} B={}: {:.4f} ms per batch (events, mean of {} after a warm-up); "
+                    "bound {:.4f} ms ({}: {:.1f} GFLOP), {:.1%} of it; card vs CPU f32 plain "
+                    "on {} rows: max|diff| {:.3e} of max|out| ({}) [{}]".format(
+                        "RN50 " + label if label != "text" else "RN50 text tower", name, CLIP_B,
+                        ms, CLIP_REPS, bound_ms, bound_by, flops / 1e9, bound_ms / ms, n, err,
+                        "tol 1e-4" if dtype == torch.float32 else "bf16 drift", card))
+        del rn, tx
+        torch.cuda.empty_cache()
+    log("phase 30 (the CLIP towers) {:.1f} s".format(time.perf_counter() - t0))
+    return rows
+
+
+def clip_archive_state_dict(cpu_model, g):
+    """A CLIP ViT-L/14 state dict: GIT_LARGE_COCO's encoder (ViT-L/14 at
+    224 px, CLIP's own widths) under `visual.` with a projection to 768,
+    and a tiny text tower (width 64, one layer, vocab 1000)."""
+    import torch
+
+    from gitax_torch.models import clip
+
+    sd = {"visual." + k: v for k, v in cpu_model.image_encoder.state_dict().items()}
+    width = cpu_model.cfg.encoder.width
+    sd["visual.proj"] = torch.randn(width, 768, generator=g) * width ** -0.5
+    tcfg = clip.CLIPTextConfig(context_length=77, vocab_size=1000, width=64, heads=1, layers=1)
+    sd.update(clip.TextTransformer(tcfg, 768, device="cpu").init_params(g).state_dict())
+    return sd, tcfg
+
+
+def phase_clip_encoder(card, cpu_model, work, seed):
+    """31. A synthesised ViT-L/14 CLIP archive (GIT_LARGE_COCO's encoder
+    weights under `visual.`, a projection, a tiny text tower), written by
+    `ckpt.clip_archive.save_clip_archive` into the work dir and removed
+    after; `load_image_encoder_from_archive(..., 480, verify='warn')` on
+    the card in bf16: its positional table resized to 34 x 34, then GIT's
+    grid encode of 420 x 560 inputs (S = 1201, the table interpolated at
+    run time, as VQA's) with kernel 2 forced on.  Every one of the
+    encoder's kernel-2 calls on CLIP_CHECK_B images held to its plain
+    version at `check_flash_case`'s bf16 bounds on the path's own inputs;
+    then B=32: the launches (24) counted, ms per batch beside flash=False
+    on the same weights, and the two outputs' relative L2 distance.
+    Returns the counted kernel-2 launches."""
+    import torch
+
+    from gitax_torch.ckpt import clip_archive
+    from gitax_torch.models import nn as mnn
+    from gitax_torch.models.vit import vit_forward
+    from gitax_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(seed + 31)
+    sd, tcfg = clip_archive_state_dict(cpu_model, g)
+    path = os.path.join(work, "ViT-L-14.pt")  # the published name: its pin applies
+    t1 = time.perf_counter()
+    clip_archive.save_clip_archive(path, sd, cpu_model.cfg.encoder.input_resolution,
+                                   tcfg.context_length, tcfg.vocab_size)
+    write_s, size = time.perf_counter() - t1, os.path.getsize(path)
+    t1 = time.perf_counter()
+    cfg, vit = clip_archive.load_image_encoder_from_archive(path, CLIP_RES, verify="warn",
+                                                            device="cuda", dtype=torch.bfloat16)
+    load_s = time.perf_counter() - t1
+    os.remove(path)
+    check(cfg.grid == CLIP_RES // cfg.patch_size and vit.proj is not None
+          and tuple(vit.positional_embedding.shape) == (cfg.num_tokens, cfg.width),
+          "the resized encoder: {} {}".format(cfg, tuple(vit.positional_embedding.shape)))
+    gh, gw = CLIP_HW[0] // cfg.patch_size, CLIP_HW[1] // cfg.patch_size
+    x = torch.randn(CLIP_B, CLIP_HW[0], CLIP_HW[1], 3, generator=g).cuda().to(torch.bfloat16)
+
+    real, errs = mnn.flash_qkv_attention, []
+
+    def held(qkv, h):
+        out = real(qkv, h)
+        q, k, v = [t.transpose(1, 2) for t in qkv.unflatten(2, (3, h, DH)).unbind(2)]
+        o = out.unflatten(2, (h, DH)).transpose(1, 2).float()
+        ref32 = fa.attention_reference(q.float(), k.float(), v.float())
+        ref = fa.attention_reference(q, k, v).float()
+        err, same = (o - ref32).abs().max().item(), (o - ref).abs().max().item()
+        atol, same_tol = v.float().abs().max().item() / 128, ref32.abs().max().item() / 64
+        check(torch.allclose(o, ref32, atol=atol, rtol=1 / 128) and same <= same_tol,
+              "CLIP encoder call {}: kernel 2 vs plain {} (tol {}), vs plain bf16 {} (tol "
+              "{})".format(len(errs), err, atol, same, same_tol))
+        errs.append(err)
+        return out
+
+    with torch.inference_mode():
+        mnn.flash_qkv_attention = held
+        try:
+            vit_forward(vit, x[:CLIP_CHECK_B], torch.bfloat16, flash=True)
+        finally:
+            mnn.flash_qkv_attention = real
+        check(len(errs) == cfg.layers, "{} checked calls, {} layers".format(len(errs), cfg.layers))
+        torch.cuda.synchronize()
+        fa.launches = 0
+        got = vit_forward(vit, x, torch.bfloat16, flash=True)
+        torch.cuda.synchronize()
+        launches = fa.launches
+        plain = vit_forward(vit, x, torch.bfloat16, flash=False)
+        ker_ms = cuda_time_ms(lambda: vit_forward(vit, x, torch.bfloat16, flash=True), 3, 1)
+        plain_ms = cuda_time_ms(lambda: vit_forward(vit, x, torch.bfloat16, flash=False), 3, 1)
+    check(launches == cfg.layers, "flash_attention launches {} != {}".format(launches, cfg.layers))
+    check(got.shape == (CLIP_B, gh * gw + 1, cfg.width) and torch.isfinite(got).all().item(),
+          "CLIP encode: shape {} or non-finite".format(tuple(got.shape)))
+    rel = ((got.float() - plain.float()).norm() / plain.float().norm()).item()
+    check(rel <= 2 ** -5, "CLIP encode, kernel 2 on vs off: relative L2 {}".format(rel))
+    log("CLIP archive ViT-L/14 (GIT_LARGE_COCO's encoder + proj [1024, 768] + a tiny text tower, "
+        "{:.1f} MiB): written in {:.2f} s, loaded with verify='warn' and resized to {} px "
+        "({}x{} table) on the card in {:.2f} s; encode of {}x{} inputs (grid {}x{}, S={}), bf16: "
+        "kernel 2 on all {} calls of {} images within check_flash_case's bounds (max|out-plain_f32| "
+        "{:.3e}); B={}: {} launches, {:.2f} ms per batch (events) against {:.2f} with flash=False, "
+        "outputs {:.3e} apart (relative L2) [{}]".format(
+            size / 2 ** 20, write_s, CLIP_RES, cfg.grid, cfg.grid, load_s, CLIP_HW[0], CLIP_HW[1],
+            gh, gw, gh * gw + 1, len(errs), CLIP_CHECK_B, max(errs), CLIP_B, launches, ker_ms,
+            plain_ms, rel, card))
+    del vit, got, plain
+    torch.cuda.empty_cache()
+    log("phase 31 (the CLIP-loaded encoder) {:.1f} s".format(time.perf_counter() - t0))
+    return launches
+
+
+P32_BEAM = dict(num_beams=4, max_steps=41, norm_max_length=1024, do_sample=True,
+                temperature=0.7, top_k=50, top_p=0.9, repetition_penalty=1.2)
+P32_R = 2  # num_return_sequences
+
+
+def p32_generate(engine, seed, **kw):
+    """The sampled search's `generate` arguments (phase 19's settings,
+    P32_R sequences an input), a generator on the card from `seed`."""
+    import torch
+
+    from gitax_torch.decode.beam import BeamSearchConfig
+
+    return dict(beam=BeamSearchConfig(**P32_BEAM), decode_kernel=True,
+                num_return_sequences=P32_R, rng=torch.Generator("cuda").manual_seed(seed), **kw)
+
+
+def p32_sample(engine, items, prefixes, generate):
+    """One device batch of `items` through `dispatch_device_batch` with
+    `generate`: the [B * R, L] sequences on the host."""
+    import numpy as np
+
+    return engine.to_host(engine.dispatch_device_batch(np.stack(items), np.asarray(prefixes),
+                                                       **generate))
+
+
+def p32_one_card(cpu_model, tok, inputs, seed):
+    """One card's f32 sampled tokens of (a)'s first COCO rows."""
+    import torch
+
+    from gitax_torch.runtime.engine import CaptionEngine
+
+    items, prefixes = [x[:P23_PARITY_ROWS] for x in inputs["coco"]]
+    with CaptionEngine(build_model("cuda", torch.float32, cpu_model), tok,
+                       batch_size=P23_PARITY_ROWS, dtype=torch.float32, use_native=False) as engine:
+        out = p32_sample(engine, items, prefixes, p32_generate(engine, seed))
+    torch.cuda.empty_cache()
+    return out
+
+
+def p32_sampling(card, group, cpu_model, tok, inputs, seed, want, coco, coco_tok, items, pref):
+    """32 (in 23). Sampling on a tensor-parallel model, [1, 2]: (a)'s cut
+    model in f32, its first COCO rows through the engine with phase 19's
+    sampled search and P32_R sequences an input, a generator on the card
+    seeded from `seed` (the follower's comes by pickle; `generate` gives
+    each rank the state of the model group's rank 0): one card's tokens
+    (`want`), the ranks equal; then GIT_LARGE_COCO at full size, bf16 +
+    int8, B=32: ms per beam step (host clock over rank 0's decode steps)
+    sampled and, in the same engine, beam search as phase 23 runs it.
+    Returns the kernels' launches over every rank."""
+    import numpy as np
+    import torch
+
+    from gitax_torch.decode.beam import BeamSearchConfig
+
+    t0 = time.perf_counter()
+    rows = [x[:P23_PARITY_ROWS] for x in inputs["coco"]]
+
+    def parity():
+        engine = group.engine((1, 2), build_model("cuda", torch.float32, cpu_model), tok,
+                              batch_size=P23_PARITY_ROWS, dtype=torch.float32, decode_kernel=True)
+        with engine:
+            return p32_sample(engine, *rows, p32_generate(engine, seed)), engine.group_mismatches
+
+    (got, unequal), _, launches = mesh_run(group, parity)
+    differ = [i for i in range(len(want)) if not np.array_equal(got[i], want[i])]
+    check(got.shape == want.shape and not differ, "TP sampling f32 [1, 2]: rows {} differ from one "
+          "card's: {} vs {}".format(differ, [got[i].tolist() for i in differ[:2]],
+                                    [want[i].tolist() for i in differ[:2]]))
+    check(unequal == 0, "TP sampling: {} elements differ within the model group".format(unequal))
+    log("TP sampling f32 [1, 2] (the cut model; temperature 0.7, top-k 50, top-p 0.9, repetition "
+        "penalty 1.2, R={}, torch.Generator('cuda') seed {}): {} rows = one card's ({} distinct), "
+        "the ranks equal; launches over every rank decode_attention {} flash_attention {} "
+        "vocab_topk {}".format(P32_R, seed, len(got), len({tuple(r) for r in got.tolist()}),
+                               *launches))
+
+    def rate():
+        engine = group.engine((1, 2), build_model("cuda", torch.bfloat16, coco), coco_tok,
+                              batch_size=P23_ROWS, beam=BeamSearchConfig(num_beams=4, max_steps=40),
+                              dtype=torch.bfloat16, int8=True, fast_prefill=True, decode_kernel=True)
+        out = {}
+        with engine:
+            sampled = p32_generate(engine, seed, fast_prefill=True)
+            p32_sample(engine, items[:P23_ROWS], pref[:P23_ROWS], sampled)  # warm-up
+            for label, kw in (("sampled", sampled), ("beam", None)):
+                torch.cuda.synchronize()
+                engine.model.decode_step_calls = 0
+                t1 = time.perf_counter()
+                if kw is None:
+                    seqs = engine_tokens(engine, items[:P23_ROWS], pref[:P23_ROWS], P23_ROWS)
+                else:
+                    seqs = p32_sample(engine, items[:P23_ROWS], pref[:P23_ROWS], kw)
+                wall = time.perf_counter() - t1
+                steps = engine.model.decode_step_calls
+                out[label] = (wall / steps * 1e3, steps, len({tuple(r) for r in seqs.tolist()}))
+        return out, engine.group_mismatches
+
+    (timed, unequal), peaks, more = mesh_run(group, rate)
+    check(unequal == 0, "TP sampling bf16: {} elements differ within the model group".format(
+        unequal))
+    launches = [a + b for a, b in zip(launches, more)]
+    log("TP sampling bf16+int8 [1, 2], GIT_LARGE_COCO B={}: sampled (R={}) {:.2f} ms per beam step "
+        "over {} steps ({} distinct of {}), beam search {:.2f} ms per beam step over {} steps ({} "
+        "distinct), host clock over rank 0's decode steps, a warm-up batch first; peak memory a "
+        "rank {} MiB [{}; {}]".format(
+            P23_ROWS, P32_R, timed["sampled"][0], timed["sampled"][1], timed["sampled"][2],
+            P23_ROWS * P32_R, timed["beam"][0], timed["beam"][1], timed["beam"][2],
+            ["%.1f" % p for p in peaks], card, mesh_layout(group.world,
+                                                           torch.cuda.device_count())[1]))
+    log("phase 32 (sampling on [1, 2], in 23) {:.1f} s".format(time.perf_counter() - t0))
+    return launches
+
+
+NATIVE_ROWS = 16
+
+
+def phase_native(card, cpu_model, work):
+    """33. The native loader (`gitax_torch.native`: g++ and libjpeg): one
+    line with `available()` and, where it did not build, the build log's
+    reason (then `use_native=None` decodes with PIL, as gitax does; the
+    line counts as no check passed).  Where it built: NATIVE_ROWS JPEG rows
+    through `run_caption_tsv` with use_native True and False: the same
+    keys in order, each row one caption, and the share of equal captions
+    (the loader's pixels are not PIL's)."""
+    import base64
+    import io
+    import json
+
+    import numpy as np
+    import torch
+
+    from gitax_torch import native
+    from gitax_torch.io.image import pil_image
+    from gitax_torch.io.tsv import TSVFile, tsv_writer
+    from gitax_torch.preprocess.transforms import TestTransform
+    from gitax_torch.runtime.engine import CaptionEngine
+    from gitax_torch.tokenization import BertTokenizer, build_tiny_vocab
+
+    t0 = time.perf_counter()
+    ok = native.available()
+    log("native loader: available() {}; {} [{}]".format(
+        ok, "built at {}".format(native.so_path()) if ok else
+        "not built ({}): use_native=None decodes with PIL, as gitax does where the loader does "
+        "not build; no check passed here".format(native.unavailable_reason()), card))
+    if not ok:
+        return
+    rng = np.random.RandomState(33)
+    rows = []
+    for i in range(NATIVE_ROWS):
+        buf = io.BytesIO()
+        pil_image().fromarray(rng.randint(0, 256, (300, 400, 3)).astype(np.uint8)).save(
+            buf, format="JPEG", quality=90)
+        rows.append(["jpg{}".format(i), base64.b64encode(buf.getvalue())])
+    tsv = os.path.join(work, "native.img.tsv")
+    tsv_writer(rows, tsv)
+    out = {}
+    for use_native in (True, False):
+        path = os.path.join(work, "native_{}.tsv".format(use_native))
+        with CaptionEngine(build_model("cuda", torch.bfloat16, cpu_model),
+                           BertTokenizer(build_tiny_vocab()), dtype=torch.bfloat16, int8=True,
+                           transform=TestTransform(224), use_native=use_native) as engine:
+            engine.run_caption_tsv(tsv, path)
+        t = TSVFile(path)
+        out[use_native] = [(t[i][0], json.loads(t[i][1])) for i in range(len(t))]
+    keys = [[k for k, _ in out[b]] for b in (True, False)]
+    check(keys[0] == keys[1] == [r[0] for r in rows], "native TSV keys {}".format(keys))
+    check(all(len(c) == 1 for b in out for _, c in out[b]), "one caption a row")
+    same = np.mean([a[1] == b[1] for a, b in zip(out[True], out[False])])
+    log("native loader: {} JPEG rows through run_caption_tsv, use_native True and False: the same "
+        "keys in order, one caption a row, {:.1%} of the captions equal; {:.1f} s [{}]".format(
+            NATIVE_ROWS, same, time.perf_counter() - t0, card))
+
+
 def main(argv):
     import torch
 
@@ -4911,10 +5359,16 @@ def main(argv):
     mesh_d, mesh_rows, mesh_int8 = phase_mesh_infer(card, coco, vqa, images, work, seed,
                                                     {"coco_tsv": tsv_rate,
                                                      "serving": serve_rate}, w8a8_tokens)
+    # 31: a CLIP ViT-L/14 archive (COCO's encoder weights) resized to 480 px;
+    # 33: the native loader
+    clip_f = phase_clip_encoder(card, coco, work, seed)
+    phase_native(card, coco, work)
     del coco
     del vqa, pairs
     shutil.rmtree(work)
     torch.cuda.empty_cache()
+    # 30: CLIP's RN50 and its text tower
+    phase_clip_towers(card, seed)
 
     # 10, 11, 12: the video path
     video = video_model(seed=2)
@@ -4942,7 +5396,7 @@ def main(argv):
 
     launches = {"decode_attention": coco_launches + vqa_d + video_d + tsv_d + vqa_tsv_d
                 + serve_d + sample_d + context_d + mesh_d[0],
-                "flash_attention": vqa_f + video_f + vqa_tsv_f + mesh_d[1],
+                "flash_attention": vqa_f + video_f + vqa_tsv_f + mesh_d[1] + clip_f,
                 "vocab_topk": vocab_launches + mesh_d[2],
                 "int8_quantize_rows": w8a8_launches[0] + mesh_int8[0],
                 "int8_scale_rows": w8a8_launches[1] + mesh_int8[1]}
@@ -4951,13 +5405,14 @@ def main(argv):
           "{}".format(launches))
     log("main-path launches: decode_attention {} (COCO {} + VQA {} + video {} + COCO TSV {} + VQA "
         "TSV {} + serving {} + sampling {} + text context {}, the last with mem_bias, + mesh {}), "
-        "flash_attention {} (VQA {} + video {} + VQA TSV {} + mesh {}), vocab_topk {} (video, "
+        "flash_attention {} (VQA {} + video {} + VQA TSV {} + mesh {} + CLIP encoder {}), "
+        "vocab_topk {} (video, "
         "vocab_kernel on, {} + mesh {}; 0 under sampling); the mesh's counted over every rank; "
         "int8_quantize_rows {} and int8_scale_rows {} (the w8a8 encoder, {} and {} + the mesh's "
         "rank 0 {} and {}); all phases {:.1f} s".format(
             launches["decode_attention"], coco_launches, vqa_d, video_d, tsv_d, vqa_tsv_d, serve_d,
             sample_d, context_d, mesh_d[0], launches["flash_attention"], vqa_f, video_f, vqa_tsv_f,
-            mesh_d[1], launches["vocab_topk"], vocab_launches, mesh_d[2],
+            mesh_d[1], clip_f, launches["vocab_topk"], vocab_launches, mesh_d[2],
             launches["int8_quantize_rows"], launches["int8_scale_rows"], w8a8_launches[0],
             w8a8_launches[1], mesh_int8[0], mesh_int8[1], time.perf_counter() - t_start))
     for name, rows in mesh_rows.items():

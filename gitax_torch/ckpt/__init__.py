@@ -12,8 +12,16 @@ A video tree's `img_temporal_embedding` [F, Dv] fills the F parameters
 
 A reference checkpoint (`output/{model}/snapshot/model.pt`) loads with
 `load_torch_checkpoint`, `infer_visual_config` (the encoder its shapes
-define) and `load_git_state_dict` (names matched by `align_by_suffix`),
-the counterparts of gitax's `ckpt/torch_convert.py:42, 64, 328`.
+define: a ViT or CLIP's ModifiedResNet) and `load_git_state_dict` (names
+matched by `align_by_suffix`), the counterparts of gitax's
+`ckpt/torch_convert.py:42, 64, 328`.
+
+The CLIP towers: `load_clip_visual` (a CLIP state dict's visual tower, ViT
+or ResNet, as a port module), `load_resnet_state_dict` and
+`load_clip_text_state_dict` (reference names, no converter), and from
+gitax's numpy trees `resnet_params_from_gitax` and
+`clip_text_params_from_gitax`; whole CLIP archives load with
+`ckpt.clip_archive.load_clip_archive`.
 
 The other way: `save_reference_checkpoint(path, model)` writes a port
 model (fine-tuned with the port, on one card or gathered from a mesh) as
@@ -36,8 +44,11 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..models.clip import CLIPTextConfig, TextTransformer
 from ..models.config import GitConfig, ViTConfig
-from ..models.git import GitModel
+from ..models.git import GitModel, resolve_device
+from ..models.resnet import ModifiedResNet, ResNetConfig
+from ..models.vit import VisualTransformer
 from .torch_convert import export_git_state_dict
 
 
@@ -194,20 +205,148 @@ def align_by_suffix(expected_keys, loaded: Dict[str, object]):
 
 
 def infer_visual_config(sd, prefix="visual."):
-    """The ViT architecture that a state dict's shapes define, as the
+    """The visual tower that a state dict's shapes define, as the
     reference's build_model does (CLIP/model.py:402-425): ('vit',
-    ViTConfig).  The ModifiedResNet encoder is not ported and raises."""
-    if not (prefix + "conv1.weight" in sd
-            and any(k.startswith(prefix + "transformer.") for k in sd)):
-        raise NotImplementedError("the state dict under {!r} is not a ViT; the ResNet "
-                                  "encoder is not ported".format(prefix))
-    conv = sd[prefix + "conv1.weight"]
-    width, patch = conv.shape[0], conv.shape[-1]
-    grid = int(round((sd[prefix + "positional_embedding"].shape[0] - 1) ** 0.5))
-    block_re = re.compile(re.escape(prefix) + r"transformer\.resblocks\.(\d+)\.")
-    layers = len({m.group(1) for k in sd if (m := block_re.match(k))})
-    return "vit", ViTConfig(patch_size=int(patch), width=int(width), layers=layers,
-                            heads=int(width) // 64, input_resolution=int(patch * grid))
+    ViTConfig) or ('resnet', ResNetConfig) (gitax
+    torch_convert.py:328-377)."""
+    if prefix + "conv1.weight" in sd and any(k.startswith(prefix + "transformer.") for k in sd):
+        conv = sd[prefix + "conv1.weight"]
+        width, patch = conv.shape[0], conv.shape[-1]
+        grid = int(round((sd[prefix + "positional_embedding"].shape[0] - 1) ** 0.5))
+        block_re = re.compile(re.escape(prefix) + r"transformer\.resblocks\.(\d+)\.")
+        layers = len({m.group(1) for k in sd if (m := block_re.match(k))})
+        return "vit", ViTConfig(patch_size=int(patch), width=int(width), layers=layers,
+                                heads=int(width) // 64, input_resolution=int(patch * grid))
+    counts = tuple(
+        len({m.group(1) for k in sd
+             if (m := re.match(re.escape(prefix) + r"layer{}\.(\d+)\.".format(i), k))})
+        for i in (1, 2, 3, 4))
+    width = sd[prefix + "layer1.0.conv1.weight"].shape[0]
+    out_grid = int(round((sd[prefix + "attnpool.positional_embedding"].shape[0] - 1) ** 0.5))
+    out_dim = sd[prefix + "attnpool.c_proj.weight"].shape[0]
+    return "resnet", ResNetConfig(layers=counts, width=int(width), output_dim=int(out_dim),
+                                  heads=int(width) * 32 // 64, input_resolution=out_grid * 32)
+
+
+def _strip(sd, prefix):
+    """The entries of `sd` under `prefix`, the prefix dropped; BatchNorm's
+    `num_batches_tracked` left out."""
+    return {k[len(prefix):]: v for k, v in sd.items()
+            if k.startswith(prefix) and not k.endswith("num_batches_tracked")}
+
+
+@torch.no_grad()
+def load_resnet_state_dict(model: ModifiedResNet, sd, prefix=""):
+    """Fill a port ModifiedResNet from a reference state dict (the keys
+    under `prefix`, e.g. 'visual.'), casting to the model's dtype and
+    device; raises on a missing, extra or misshapen entry."""
+    model.load_state_dict(_strip(sd, prefix), strict=True)
+    return model
+
+
+@torch.no_grad()
+def load_clip_text_state_dict(model: TextTransformer, sd):
+    """Fill a port TextTransformer from a reference CLIP state dict (its
+    top-level text keys; the `visual.*` entries are ignored)."""
+    keys = set(model.state_dict())
+    model.load_state_dict({k: v for k, v in sd.items() if k in keys}, strict=True)
+    return model
+
+
+def text_config_from_state_dict(sd):
+    """(CLIPTextConfig, embed_dim) of a CLIP state dict's text tower, as
+    the reference infers them (CLIP/model.py:420-426)."""
+    width = int(sd["ln_final.weight"].shape[0])
+    layers = len({k.split(".")[2] for k in sd if k.startswith("transformer.resblocks")})
+    cfg = CLIPTextConfig(width=width, heads=width // 64, layers=layers,
+                         context_length=int(sd["positional_embedding"].shape[0]),
+                         vocab_size=int(sd["token_embedding.weight"].shape[0]))
+    return cfg, int(sd["text_projection"].shape[1])
+
+
+def load_clip_visual(sd, prefix="visual.", device=None, dtype=torch.float32):
+    """A CLIP checkpoint's visual tower -> (kind, config, module) on
+    `device` (default: the CUDA card): a ViT (`VisualTransformer`, with
+    `proj` where the state dict carries it) or a `ModifiedResNet`
+    (gitax torch_convert.py:380-388, which converts to numpy trees and
+    leaves `proj` out)."""
+    kind, cfg = infer_visual_config(sd, prefix)
+    device = resolve_device(device)
+    if kind == "resnet":
+        return kind, cfg, load_resnet_state_dict(ModifiedResNet(cfg, device, dtype), sd, prefix)
+    proj = sd.get(prefix + "proj")
+    vit = VisualTransformer(cfg, device, dtype,
+                            output_dim=None if proj is None else int(proj.shape[1]))
+    with torch.no_grad():
+        vit.load_state_dict(_strip(sd, prefix), strict=True)
+    return kind, cfg, vit
+
+
+@torch.no_grad()
+def resnet_params_from_gitax(tree: dict, cfg: ResNetConfig, device=None,
+                             dtype=torch.float32) -> ModifiedResNet:
+    """A gitax ModifiedResNet tree (numpy, `convert_resnet_state_dict`'s:
+    HWIO convs, BatchNorm {scale, bias, mean, var}, the attention pool's
+    [in, out] kernels) -> ModifiedResNet on `device` (default: the CUDA
+    card) in `dtype`."""
+    model = ModifiedResNet(cfg, device=device, dtype=dtype)
+
+    def conv(m, k):
+        m.weight.copy_(_t(np.asarray(k, np.float32).transpose(3, 2, 0, 1)))
+
+    def bn(m, p):
+        m.weight.copy_(_t(p["scale"]))
+        m.bias.copy_(_t(p["bias"]))
+        m.running_mean.copy_(_t(p["mean"]))
+        m.running_var.copy_(_t(p["var"]))
+
+    stem = tree["stem"]
+    for i in (1, 2, 3):
+        conv(getattr(model, "conv{}".format(i)), stem["conv{}".format(i)])
+        bn(getattr(model, "bn{}".format(i)), stem["bn{}".format(i)])
+    for gi, group in enumerate(tree["layers"]):
+        for blk, p in zip(getattr(model, "layer{}".format(gi + 1)), group):
+            for i in (1, 2, 3):
+                conv(getattr(blk, "conv{}".format(i)), p["conv{}".format(i)])
+                bn(getattr(blk, "bn{}".format(i)), p["bn{}".format(i)])
+            if ("downsample" in p) != (blk.downsample is not None):
+                raise ValueError("layer{}: the tree's downsample branch does not fit the "
+                                 "config".format(gi + 1))
+            if blk.downsample is not None:
+                conv(blk.downsample["0"], p["downsample"]["conv"])
+                bn(blk.downsample["1"], p["downsample"]["bn"])
+    pool = tree.get("attnpool")
+    if pool is not None:
+        model.attnpool.positional_embedding.copy_(_t(pool["positional_embedding"]))
+        for name in ("q", "k", "v", "c"):
+            lin = getattr(model.attnpool, name + "_proj")
+            lin.weight.copy_(_t(np.asarray(pool[name]["kernel"]).T))
+            lin.bias.copy_(_t(pool[name]["bias"]))
+    return model
+
+
+@torch.no_grad()
+def clip_text_params_from_gitax(tree: dict, cfg: CLIPTextConfig, device=None,
+                                dtype=torch.float32) -> TextTransformer:
+    """A gitax text-tower tree (numpy, `convert_clip_text_state_dict`'s:
+    stacked blocks, [in, out] kernels) -> TextTransformer on `device`
+    (default: the CUDA card) in `dtype`."""
+    proj = np.asarray(tree["text_projection"])
+    model = TextTransformer(cfg, proj.shape[1], device=device, dtype=dtype)
+    model.token_embedding.weight.copy_(_t(tree["token_embedding"]))
+    model.positional_embedding.copy_(_t(tree["positional_embedding"]))
+    blocks = tree["blocks"]
+    for i, blk in enumerate(model.transformer.resblocks):
+        _fill_ln(blk.ln_1, blocks["ln_1"], i)
+        _fill_ln(blk.ln_2, blocks["ln_2"], i)
+        _fill_qkv(blk.attn, blocks["attn"]["qkv"], i)
+        _fill_linear(blk.attn.out_proj, blocks["attn"]["out"], i)
+        _fill_linear(blk.mlp.c_fc, blocks["mlp"]["c_fc"], i)
+        _fill_linear(blk.mlp.c_proj, blocks["mlp"]["c_proj"], i)
+    _fill_ln(model.ln_final, tree["ln_final"])
+    model.text_projection.copy_(_t(proj))
+    model.logit_scale.copy_(_t(tree["logit_scale"]))
+    return model
 
 
 @torch.no_grad()

@@ -18,8 +18,9 @@ Checks:
   cache     the kernels' build directory resolvable + writable
   native    what the toolchain offers a native JPEG loader: jpeglib.h
             and -ljpeg, nvjpeg.h and -lnvjpeg, each compiled and linked
-            by the CUDA toolkit's nvcc (optional: the port decodes with
-            PIL)
+            by the CUDA toolkit's nvcc, and whether the port's loader
+            (gitax_torch/native, g++ and libjpeg) built (optional: without
+            it the port decodes with PIL)
   vocab     bert-base-uncased vocab discoverable (optional: needed only
             for real-checkpoint tokenization)
   tsv       TSV write/read round-trip under a temp dir
@@ -238,11 +239,23 @@ def native_probe(nvcc=None):
     return out
 
 
+def native_loader_line():
+    """Whether the port's native loader (`gitax_torch.native`, g++ and
+    libjpeg) built, and where it did not, the build log's reason."""
+    from . import native
+
+    if native.available():
+        return "loader built ({}): use_native=None decodes with it".format(native.so_path().name)
+    return "loader not built ({}): use_native=None decodes with PIL".format(
+        native.unavailable_reason())
+
+
 def _check_native():
     probes = native_probe()
     detail = "; ".join("{} {}".format(k, v) for k, v in probes.items())
+    detail += "; " + native_loader_line()
     if not any(v.startswith("found") for v in probes.values()):
-        raise RuntimeError(detail + " (the port decodes with PIL)")
+        raise RuntimeError(detail)
     return detail
 
 

@@ -25,7 +25,8 @@ loads or draws the weights and broadcasts them.  A launch of H x data x
 model processes is H hosts, each with its own mesh (gitax's
 `make_mesh_from_shape`): each host's rank 0 runs the TSV loop on its row
 shard, and host 0 joins the shards; a launch of another size raises.
-Not ported, and raising: `use_native=True` (gitax's libjpeg loader).
+use_native: gitax's native loader for the TSV loops
+(`runtime.engine.resolve_use_native`: None where it built, else PIL).
 
 A model fine-tuned with the port is served by writing it with
 `ckpt.save_reference_checkpoint('output/{model}/snapshot/model.pt',
@@ -196,20 +197,20 @@ def test_git_inference_single_tsv(image_tsv, model_name, question_tsv, out_tsv, 
     mesh_shape: every row through one engine on a mesh (module
     docstring), rank 0 writing out_tsv (on several hosts: each host its
     row shard, host 0 joining them); batch_size must divide over its data
-    axis.  use_native: None or False (images decode with PIL); True
-    raises."""
+    axis.  use_native: the native loader (libjpeg, C++) where it built
+    (None), always (True: raises where it did not build, naming the
+    reason) or never (False: PIL)."""
     from .decode.beam import BeamSearchConfig
-    from .runtime.engine import CaptionEngine, open_mesh_engine
+    from .runtime.engine import CaptionEngine, open_mesh_engine, resolve_use_native
 
-    if use_native:
-        raise NotImplementedError("use_native: gitax's libjpeg loader "
-                                  "(gitax/native/dataloader.cpp) is not ported")
+    use_native = resolve_use_native(use_native)  # before any rank starts
     yaml_path = "output/{}/parameter.yaml".format(model_name)
     param = load_from_yaml_file(yaml_path) if op.isfile(yaml_path) else _load_param(model_name)
     tdtype = getattr(torch, dtype)
     tokenizer = _load_tokenizer()
     kwargs = dict(batch_size=batch_size, beam=BeamSearchConfig(num_beams=4, max_steps=40),
-                  dtype=tdtype, int8=int8, transform=get_image_transform(param))
+                  dtype=tdtype, int8=int8, transform=get_image_transform(param),
+                  use_native=use_native)
     if mesh_shape is None:
         engine = CaptionEngine(_build_model(model_name, param, dtype=tdtype, device=device),
                                tokenizer, **kwargs)

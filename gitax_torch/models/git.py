@@ -19,7 +19,10 @@ or, sharded by `parallel.mesh.shard_params`, on a (data, model) mesh.
 Generation also runs on a model sharded for tensor parallelism
 (`parallel.mesh.shard_for_inference`): every rank of a model group runs
 the same search on the same full logits (the all-reduce gives each rank
-the same sums); sampling there raises.
+the same sums); a sampled search first gives every rank's generator the
+state of the group's rank 0 (`share_generator`), so that each rank draws
+the same noise, as gitax's SPMD search draws one key that every shard
+sees.
 """
 
 from __future__ import annotations
@@ -266,16 +269,15 @@ class GitModel(nn.Module):
         and the port does not ignore a kernel switch silently.
 
         On a model sharded over a model group of m > 1 ranks, every rank
-        of the group calls this with the same inputs; sampling there
-        raises (each rank would need the same generator stream: not
-        ported)."""
+        of the group calls this with the same inputs; a sampled search
+        there first sets every rank's `rng` to the state of the group's
+        rank 0 (one broadcast a call, `share_generator`), so that the
+        ranks draw the same noise whatever their callers seeded."""
         if mode not in ("beam", "greedy", "trie"):
             raise ValueError("generate mode {!r}: 'beam', 'greedy' or 'trie'".format(mode))
-        if mode == "beam" and beam is not None and beam.do_sample \
+        if mode == "beam" and beam is not None and beam.do_sample and rng is not None \
                 and self.textual.tp_group is not None:
-            raise NotImplementedError("sampling on a tensor-parallel model is not ported: every "
-                                      "rank of the model group would need the same generator "
-                                      "stream; sample on a mesh of model size 1")
+            share_generator(rng, self.mesh)
         if mode != "beam":
             if decode_kernel or vocab_kernel or fast_prefill:
                 raise ValueError("mode {!r} runs the plain decode step and the exact prefill: "
@@ -331,6 +333,20 @@ class GitModel(nn.Module):
         if beam.num_keep_best == 1:
             decoded, logprobs = decoded[:, 0], logprobs[:, 0]
         return decoded, logprobs
+
+
+def share_generator(rng: torch.Generator, mesh):
+    """Give `rng` the state of its model group's rank 0 on every rank of
+    the group: `rng.get_state()` broadcast over `mesh.model_group`, as
+    bytes on the mesh's device (NCCL takes CUDA tensors only).  Returns
+    rng."""
+    from ..parallel import comm
+
+    state = rng.get_state()
+    src = mesh.base + mesh.data_rank * mesh.model  # the group's rank 0, globally
+    t = comm.broadcast(state.to(mesh.device), src, mesh.model_group)
+    rng.set_state(t.cpu())
+    return rng
 
 
 def eos_gate_params(words, positions, eos_id=102, gate=12):

@@ -8,7 +8,11 @@ Parameter names follow the reference VisualTransformer
 
 `vit_forward` patchifies by space-to-depth and one matmul, not a conv, so
 cuDNN's TF32 default never applies; pre-norm blocks with QuickGELU;
-`ln_post` over ALL tokens (GIT's output_grid mode).  Any grid of whole
+`ln_post` over ALL tokens (GIT's output_grid mode), or, with
+output_grid=False, CLIP's image embedding: `ln_post` on the class token,
+then the projection `proj` [width, output_dim], which a
+`VisualTransformer(..., output_dim=...)` holds (a CLIP state dict
+carries it; GIT's does not).  Any grid of whole
 patches runs: the stored positional table serves the configured square
 grid, and other grids (the MinMax high-res inputs) interpolate it
 bicubically (`_pos_embed_for`, CLIP/model.py:245-251).  Attention takes
@@ -104,7 +108,7 @@ class Transformer(nn.Module):
 
 
 class VisualTransformer(nn.Module):
-    def __init__(self, cfg: ViTConfig, device=None, dtype=None):
+    def __init__(self, cfg: ViTConfig, device=None, dtype=None, output_dim=None):
         super().__init__()
         self.cfg = cfg
         w, p = cfg.width, cfg.patch_size
@@ -115,6 +119,8 @@ class VisualTransformer(nn.Module):
         self.ln_pre = LayerNorm(w, cfg.ln_eps, device, dtype)
         self.transformer = Transformer(cfg, device, dtype)
         self.ln_post = LayerNorm(w, cfg.ln_eps, device, dtype)
+        # CLIP's image-embedding projection (x @ proj); None in GIT's encoder
+        self.proj = empty_param((w, output_dim), device, dtype) if output_dim else None
         # the model group under tensor parallelism (parallel/mesh.py)
         self.tp_group = None
 
@@ -125,7 +131,7 @@ class VisualTransformer(nn.Module):
         zero biases), drawn from `generator` on the CPU."""
         scale = self.cfg.width ** -0.5
         for name, p in self.named_parameters():
-            if name in ("class_embedding", "positional_embedding"):
+            if name in ("class_embedding", "positional_embedding", "proj"):
                 std = scale
             elif name.endswith("bias") or ".ln_" in name or name.startswith("ln_"):
                 p.fill_(0.0 if name.endswith("bias") else 1.0)
@@ -149,20 +155,31 @@ def _pos_embed_for(vit: VisualTransformer, gh, gw, dtype):
     interpolated as [1, W, g, g] with torch's bicubic (a = -0.75, edges
     clamped: the kernel gitax's `ops/interp.py` matches), in the activation
     dtype as gitax does (vit.py:91-100); the class row is kept."""
-    cfg = vit.cfg
     pos = vit.positional_embedding.to(dtype)
-    g = cfg.grid
+    g = vit.cfg.grid
     if (gh, gw) == (g, g):
         return pos
-    spatial = pos[1:].reshape(g, g, cfg.width).permute(2, 0, 1)[None]
+    return resize_pos_embed(pos, g, gh, gw)
+
+
+def resize_pos_embed(pos, g, gh, gw):
+    """A positional table [1 + g*g, W] for a (gh, gw) grid: the class row
+    kept, the spatial rows [g, g, W] interpolated as [1, W, g, g] with
+    torch's bicubic (a = -0.75, align_corners=False, edges clamped), in
+    pos's dtype (reference torch_common.py:19-39, CLIP/model.py:245-251)."""
+    w = pos.shape[-1]
+    spatial = pos[1:].reshape(g, g, w).permute(2, 0, 1)[None]
     resized = F.interpolate(spatial, size=(gh, gw), mode="bicubic", align_corners=False)
-    return torch.cat([pos[:1], resized[0].permute(1, 2, 0).reshape(gh * gw, cfg.width)], 0)
+    return torch.cat([pos[:1], resized[0].permute(1, 2, 0).reshape(gh * gw, w)], 0)
 
 
 def vit_forward(vit: VisualTransformer, images, dtype=torch.float32, fast=None, flash=None,
-                remat=False):
+                remat=False, output_grid=True):
     """images [B, H, W, 3] (NHWC, normalized; H and W whole patches) ->
-    tokens [B, 1 + gh*gw, width].  flash=None applies gitax's auto rule
+    tokens [B, 1 + gh*gw, width]; with output_grid=False CLIP's image
+    embedding [B, output_dim] (`ln_post` on the class token, then `proj`
+    where the encoder holds one, else [B, width]; gitax vit.py:163-169).
+    flash=None applies gitax's auto rule
     (`ops.flash_attention.auto_flash`: S >= 640, not f32, on a CUDA
     device); True or False forces the fused-attention kernel on or off
     (the kernel has no backward: training passes False).
@@ -204,4 +221,7 @@ def vit_forward(vit: VisualTransformer, images, dtype=torch.float32, fast=None, 
             x = checkpoint(_block, x, blk, heads, fast, flash, tp, use_reentrant=False)
         else:
             x = _block(x, blk, heads, fast, flash, tp)
+    if not output_grid:
+        x = vit.ln_post(x[:, 0])
+        return x if vit.proj is None else torch.matmul(x, vit.proj.to(x.dtype))
     return vit.ln_post(x)

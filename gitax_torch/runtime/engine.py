@@ -30,10 +30,15 @@ per-prefix-length beam settings (`beam_for`, `_caption_fn`),
 models (`dispatch_varshape`: images cut to whole patches and grouped into
 exact-grid buckets) and `resolve`.  Items are images [H, W, 3] or video
 clips [F, H, W, 3], one shape per dispatch.  As in gitax, the engine runs
-the plain vocab head (no `vocab_kernel`).  Not ported: the native libjpeg
-decode.  The beam loop reads the host once per step, so `dispatch`
-returns when the device is nearly done: the decode pool overlaps the
-search, detokenisation overlaps nothing.
+the plain vocab head (no `vocab_kernel`).  `use_native` is gitax's
+switch for the native loader (`gitax_torch.native`: libjpeg decode,
+resize and crop in C++, uint8 out): None uses it where it built, True
+requires it (raising with the build's reason where it did not build),
+False decodes with PIL.  On a machine without `jpeglib.h` (the H100's)
+None decodes with PIL, as gitax does there.  The beam loop reads the
+host once per step, so `dispatch` returns when the device is nearly
+done: the decode pool overlaps the search, detokenisation overlaps
+nothing.
 
 On a mesh (`mesh=`, gitax pipeline.py:166-182 and 334-378) the engine is
 one process per rank, not gitax's one SPMD program.  Rank 0 is the
@@ -82,6 +87,23 @@ from ..parallel.mesh import broadcast_params, mesh_dims, shard_for_inference
 from ..preprocess.transforms import CLIP_MEAN, CLIP_STD
 from ..tokenization import encode_prefix
 from . import distributed
+
+
+def resolve_use_native(use_native: Optional[bool]) -> bool:
+    """gitax's `use_native` rule (pipeline.py:197-201): None -> the native
+    loader where it built, else PIL; True -> the loader, raising with the
+    build's reason where it did not build; False -> PIL."""
+    if use_native is False:
+        return False
+    from .. import native
+
+    if use_native is None:
+        return native.available()
+    if not native.available():
+        raise RuntimeError("use_native=True: the native loader did not build ({}); pass "
+                           "use_native=None or False to decode with PIL".format(
+                               native.unavailable_reason()))
+    return True
 
 
 def shard_range(total: int, rank: int, world_size: int) -> Tuple[int, int]:
@@ -203,7 +225,10 @@ class CaptionEngine(object):
                  max_text_len: int = 40, int8: bool = False,
                  fast_prefill: Optional[bool] = None, decode_kernel=None,
                  transform=None, decode_workers: int = 8, mesh=None, on_close=None,
-                 check_groups: bool = False, _channel=None):
+                 check_groups: bool = False, use_native: Optional[bool] = None,
+                 _channel=None):
+        # before any collective: a refusal leaves no follower waiting
+        self.use_native = resolve_use_native(use_native)
         self.mesh = mesh
         self.check_groups = check_groups
         self.group_mismatches = 0
@@ -269,7 +294,9 @@ class CaptionEngine(object):
         channel = _Channel(mesh)
         spec = comm.broadcast_object(None, channel.src, channel.control)
         model = GitModel(spec["cfg"], device=mesh.device, dtype=spec["dtype"])
-        return cls(model, None, mesh=mesh, _channel=channel, **spec["kwargs"])
+        # a follower decodes nothing: rank 0 sends it the batches
+        return cls(model, None, mesh=mesh, use_native=False, _channel=channel,
+                   **spec["kwargs"])
 
     def close(self):
         """End the decode pool's threads; on a mesh's rank 0 also stop the
@@ -389,12 +416,20 @@ class CaptionEngine(object):
         images, pref = images[lo:hi], pref[lo:hi]
         if images.dtype != torch.uint8:
             images = images.to(self.dtype)
+        rng = (generate or {}).get("rng")
+        if rng is not None and rng.device != self.device:
+            # rank 0's generator, unpickled on another card: its state
+            # (a seed and an offset on CUDA) on this rank's device
+            local = torch.Generator(self.device)
+            local.set_state(rng.get_state())
+            generate = dict(generate, rng=local)
         seqs, _ = self._caption_fn(pref.shape[1], generate)(images, pref)
         if self.check_groups and mesh.model > 1:
             unequal = comm.count_unequal(seqs, mesh.model_group, mesh.model)
         if mesh.model_rank != 0:
             return None
-        full = comm.gather_rows(seqs, lo, total, mesh.data_group)
+        per_row = seqs.shape[0] // (hi - lo)  # num_return_sequences
+        full = comm.gather_rows(seqs, lo * per_row, total * per_row, mesh.data_group)
         if self.check_groups and mesh.model > 1:
             n = comm.all_reduce(torch.tensor([unequal], device=self.device), mesh.data_group)
             self.group_mismatches += int(n.item())
@@ -511,8 +546,36 @@ class CaptionEngine(object):
 
     def _decode_chunk(self, payloads):
         """Decode a list of base64 payloads to a list of arrays (None for
-        failures)."""
-        return [self._decode_row(p) for p in payloads]
+        failures): with the native loader uint8 arrays, a fixed crop or
+        the MinMax size of the high-res family, with PIL for each row
+        libjpeg refuses (PNG payloads); else the transform's float arrays
+        (gitax pipeline.py:249-287)."""
+        if not self.use_native:
+            return [self._decode_row(p) for p in payloads]
+        from .. import native
+        from ..preprocess.transforms import center_crop, min_max_resize, resize_shorter
+
+        raw = [p.encode() if isinstance(p, str) else p for p in payloads]
+        crop = self.transform.crop_size
+        ratio_max = getattr(self.transform, "respect_ratio_max", None)
+        if ratio_max is not None:
+            decoded = native.decode_minmax_batch(raw, crop, ratio_max)
+        else:
+            arrs, ok = native.decode_resize_crop_batch(raw, crop)
+            decoded = [arrs[i] if good else None for i, good in enumerate(ok)]
+        out = []
+        for i, arr in enumerate(decoded):
+            if arr is not None:
+                out.append(arr)
+                continue
+            img = image_from_base64(payloads[i])
+            if img is None:
+                out.append(None)
+            elif ratio_max is not None:
+                out.append(np.asarray(min_max_resize(img, crop, ratio_max), np.uint8))
+            else:
+                out.append(np.asarray(center_crop(resize_shorter(img, crop), crop), np.uint8))
+        return out
 
     def _prefetched_chunks(self, image_tsv, idxs, granule, depth=2):
         """Iterate (chunk_row_indices, decoded_arrays) with `depth` chunks

@@ -23,10 +23,11 @@ every device batch on a mesh of data x model ranks as the CLI does
 (`inference`'s docstring): one card a rank over NCCL, or every rank on
 card 0 over gloo with share_card=True.  The batcher's thread is the only
 one that reaches the mesh (`engine.dispatch_device_batch`); the request
-threads never do.  Not ported, and raising: `use_native=True`, as in the
-port's CLI.  One change to gitax's server: its listen backlog is 128
-connections, not socketserver's 5, which resets a burst of concurrent
-connections before they are accepted.
+threads never do.  use_native is the engine's (the TSV loops' decode;
+requests decode with the transform, as in gitax).  One change to gitax's
+server: its listen backlog is 128 connections, not socketserver's 5,
+which resets a burst of concurrent connections before they are
+accepted.
 """
 
 import json
@@ -51,12 +52,10 @@ def build_serving_stack(model_name, batch_size=32, max_wait_ms=4.0,
     from .decode.beam import BeamSearchConfig
     from .inference import _build_model, _load_param, _load_tokenizer
     from .preprocess.transforms import get_image_transform
-    from .runtime.engine import CaptionEngine, open_mesh_engine
+    from .runtime.engine import CaptionEngine, open_mesh_engine, resolve_use_native
     from .runtime.serving import DynamicBatcher
 
-    if use_native:
-        raise NotImplementedError("use_native: gitax's libjpeg loader "
-                                  "(gitax/native/dataloader.cpp) is not ported")
+    use_native = resolve_use_native(use_native)  # before any rank starts
     param = _load_param(model_name)
     tdtype = getattr(torch, dtype)
     tokenizer = _load_tokenizer()
@@ -71,6 +70,7 @@ def build_serving_stack(model_name, batch_size=32, max_wait_ms=4.0,
         dtype=tdtype,
         int8=int8,
         transform=get_image_transform(param),
+        use_native=use_native,
     )
 
     def model_fn(dev):

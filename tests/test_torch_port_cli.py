@@ -6,8 +6,9 @@ tests/test_pipeline.py's TINY as tests/test_integration_workflow.py does.
 `test_git_inference_single_tsv` writes identical TSVs (caption and VQA),
 `test_git_inference_single_image` returns identical strings (one PNG, a
 clip of 2 frames, trie classification), the converters write identical
-files, the checkpoint helpers equal gitax's, and what is not ported
-raises."""
+files, the checkpoint helpers equal gitax's, and the refusals raise
+(`use_native=True` where the native loader did not build, a launch that
+is not a multiple of the mesh)."""
 
 import base64
 import dataclasses
@@ -136,7 +137,7 @@ def test_single_tsv_matches_gitax_bytes(loop, workdir, caplog):
                                          dtype="float32", use_native=False)
     caplog.set_level(logging.INFO)
     pt_inf.test_git_inference_single_tsv("img.tsv", "TINY_CAP", q_tsv, "pt.tsv", batch_size=2,
-                                         dtype="float32", device="cpu")
+                                         dtype="float32", use_native=False, device="cpu")
     # the checkpoint was loaded, not a random init
     assert any("loading output/TINY_CAP/snapshot/model.pt" in r.getMessage()
                for r in caplog.records)
@@ -215,8 +216,11 @@ def test_checkpoint_helpers_match_gitax(tmp_path):
     want = gx_convert.align_by_suffix(expected, wrapped)
     assert sorted(got) == sorted(want) == sorted(expected)
     assert all(got[k] is want[k] for k in got)
-    with pytest.raises(NotImplementedError, match="ResNet"):
-        ckpt.infer_visual_config({"visual.conv1.weight": torch.zeros(1)})
+    # neither a ViT nor a whole ResNet: both read the ResNet's keys and miss
+    partial = {"visual.conv1.weight": torch.zeros(1)}
+    for infer in (ckpt.infer_visual_config, gx_convert.infer_visual_config):
+        with pytest.raises(KeyError, match="layer1.0.conv1.weight"):
+            infer(partial)
 
 
 def test_build_model_loads_the_checkpoint_or_falls_back(workdir, caplog):
@@ -246,12 +250,19 @@ def test_cli_runs_on_the_card_unless_told_otherwise(workdir, monkeypatch):
 
 
 def test_cli_refuses_what_is_not_ported(workdir, monkeypatch):
-    """use_native=True raises; so does mesh_shape under a launch that is
+    """use_native=True where the native loader did not build raises,
+    naming the build's reason; so does mesh_shape under a launch that is
     not a multiple of its data x model ranks (row shards over hosts take
     hosts of data x model ranks each), before any rank starts."""
-    with pytest.raises(NotImplementedError, match="libjpeg"):
-        pt_inf.test_git_inference_single_tsv("img.tsv", "TINY_CAP", None, "o.tsv",
-                                             use_native=True, device="cpu")
+    from gitax_torch import native
+
+    with monkeypatch.context() as mp:
+        mp.setattr(native, "_module", None)
+        mp.setattr(native, "_error", "RuntimeError: g++ exit 1: jpeglib.h missing")
+        with pytest.raises(RuntimeError, match="use_native=True: the native loader did not "
+                                               "build.*jpeglib.h"):
+            pt_inf.test_git_inference_single_tsv("img.tsv", "TINY_CAP", None, "o.tsv",
+                                                 use_native=True, device="cpu")
     monkeypatch.setenv("RANK", "0")
     monkeypatch.setenv("WORLD_SIZE", "3")
     with pytest.raises(ValueError, match="row shards over hosts"):

@@ -25,9 +25,13 @@ port's `check_divides` refuses that (a documented difference).
   process that spawns its rank;
 * the batcher's replies through `build_serving_stack(mesh_shape=2)` and
   /stats counting the mesh's padding;
+* sampling on [1, 2] (the repetition penalty, two return sequences),
+  by `generate` and through the engine: one process's tokens with rank
+  0's seed, whatever the other rank's caller seeded;
 * the refusals: a batch size that does not divide the data axis,
-  sampling on a tensor-parallel model; a follower that raises makes rank
-  0 raise at once, well inside the group's timeout;
+  sampling on a tensor-parallel model without a generator; a follower
+  that raises makes rank 0 raise at once, well inside the group's
+  timeout;
 * the int8 split rule against gitax's exact-leaf partition specs.
 """
 
@@ -170,7 +174,9 @@ def runs(tmp_path_factory):
             n: t.clone() for n, t in ckpt.params_from_gitax(tiny_params(), TINY,
                                                             device="cpu").state_dict().items()}},
         "video": {"cfg": video_pt, "weights": port_weights(video_pt, cli_state_dict(2))},
-        "engine_kw": dict(ENGINE_KW, beam=BeamSearchConfig(**BEAM), dtype=torch.float32),
+        # use_native=False: the PIL decode of gitax's engines below
+        "engine_kw": dict(ENGINE_KW, beam=BeamSearchConfig(**BEAM), dtype=torch.float32,
+                          use_native=False),
         "words": WORDS, "images": images(), "clips": clips(), "transforms": TRANSFORMS,
         "img_tsv": img_tsv, "q_tsv": q_tsv, "payloads": [jpeg_b64(i) for i in range(3)],
         "cli": {"dir": cli_dir(tmp_path_factory.mktemp("cli")), "words": CLI_WORDS,
@@ -416,8 +422,65 @@ def test_batch_size_must_divide_the_data_axis(runs, tmp_path):
 
 
 def test_sampling_on_a_tensor_parallel_model_raises(runs):
-    assert "sampling on a tensor-parallel model is not ported" in case(runs, 2,
-                                                                      "refusals")["sample"]
+    """Without a generator; with one it runs (the TP sampling tests)."""
+    assert "do_sample needs a torch.Generator" in case(runs, 2, "refusals")["sample"]
+
+
+# ---------------------------------------------------------------------------
+# sampling on a tensor-parallel model
+# ---------------------------------------------------------------------------
+
+
+def one_process_model(job):
+    spec = job["engine"]
+    model = PtModel(spec["cfg"], device="cpu")
+    model.load_state_dict(spec["weights"])
+    return model
+
+
+def test_tp_sampling_matches_one_process(runs):
+    """generate(do_sample) with the repetition penalty and two return
+    sequences on [1, 2]: rank 0's generator state reaches rank 1, whose
+    caller seeded another stream, so both ranks draw rank 0's noise; the
+    tokens equal one process's with rank 0's seed, the log-probabilities
+    within 1e-4 (the all-reduce sums in another order)."""
+    from torch_parallel_worker import SAMPLE_BEAM, SAMPLE_SEED, sample_images
+
+    got = case(runs, 2, "sample_1x2")
+    job = runs["job"]
+    model = one_process_model(job)
+    want = {}
+    for seed in (SAMPLE_SEED, SAMPLE_SEED + 1):
+        want[seed] = model.generate(sample_images(job), beam=BeamSearchConfig(**SAMPLE_BEAM),
+                                    num_return_sequences=2,
+                                    rng=torch.Generator().manual_seed(seed))
+    seqs, logprobs = want[SAMPLE_SEED]
+    assert got["tokens"].shape == tuple(seqs.shape) and seqs.shape[0] == 6
+    np.testing.assert_array_equal(got["tokens"], seqs.numpy())
+    np.testing.assert_allclose(got["logprobs"], logprobs.numpy(), rtol=1e-4, atol=1e-4)
+    assert got["unequal"] == 0 and got["states_unequal"] == 0
+    assert len({tuple(r) for r in seqs.tolist()}) > 1  # the draws vary between rows
+    # the draws matter: another seed gives other tokens
+    assert not torch.equal(want[SAMPLE_SEED + 1][0], seqs)
+
+
+def test_tp_sampling_through_the_engine_matches_one_process(runs):
+    """The same search by `dispatch_device_batch` on the [1, 2] engine
+    (rank 0's generator sent with the search's arguments, two sequences a
+    row gathered) and on a one-process engine."""
+    from torch_parallel_worker import SAMPLE_BEAM, SAMPLE_SEED
+
+    got = case(runs, 2, "sample_engine_1x2")
+    job = runs["job"]
+    with CaptionEngine(one_process_model(job), BertTokenizer(build_tiny_vocab(WORDS)),
+                       **job["engine_kw"]) as engine:
+        seqs = engine.dispatch_device_batch(
+            np.stack(job["images"][:3]), [[101]] * 3, beam=BeamSearchConfig(**SAMPLE_BEAM),
+            num_return_sequences=2, rng=torch.Generator().manual_seed(SAMPLE_SEED))
+        want = engine.to_host(seqs)
+    assert want.shape[0] == 6
+    np.testing.assert_array_equal(got["tokens"], want)
+    assert got["unequal"] == 0
 
 
 def test_a_failing_follower_makes_rank_0_raise(runs):

@@ -348,7 +348,9 @@ def test_port_imports_no_jax():
     # every kernel module, the vocab head's included
     assert {"gitax_torch.ops.decode_attention", "gitax_torch.ops.flash_attention",
             "gitax_torch.ops.vocab_topk", "gitax_torch.models.git",
-            "gitax_torch.runtime.serving", "gitax_torch.serve"} <= set(mods)
+            "gitax_torch.runtime.serving", "gitax_torch.serve",
+            "gitax_torch.models.resnet", "gitax_torch.models.clip",
+            "gitax_torch.ckpt.clip_archive", "gitax_torch.native"} <= set(mods)
 
 
 def test_port_sources_never_import_jax():

@@ -5,7 +5,7 @@ the hard cap, zero-valued knobs, open-loop overload); replies equal to
 gitax's batcher's on the same weights in f32, captions and questions;
 the endpoint on an ephemeral localhost port (200, 400, 413, 503,
 /healthz, /stats); `to_host`; the refusals (`mesh_shape`,
-`use_native=True`, no card); `serve_caption` resolving the card under
+`use_native=True` where the native loader did not build, no card); `serve_caption` resolving the card under
 mocked CUDA; and the copy held to gitax's: the batching policy's code and
 its knobs' arithmetic."""
 
@@ -606,13 +606,18 @@ def test_http_accepts_a_burst_of_connections():
 
 @pytest.mark.parametrize("kw,error,match", [
     (dict(mesh_shape=2, device=None), ValueError, r"mesh_shape \[2, 1\] needs 2 cards"),
-    (dict(use_native=True, device="cpu"), NotImplementedError, "use_native")])
+    (dict(use_native=True, device="cpu"), RuntimeError, "use_native")])
 def test_build_serving_stack_refuses_what_is_not_ported(kw, error, match, monkeypatch):
-    """use_native=True raises; mesh_shape on the card with more ranks than
+    """use_native=True where the native loader did not build raises,
+    naming the build's reason; mesh_shape on the card with more ranks than
     cards raises before any rank starts, unless share_card asks for one
     shared card (CUDA mocked: one card)."""
+    from gitax_torch import native
+
     for k in ("RANK", "WORLD_SIZE", "OMPI_COMM_WORLD_RANK", "OMPI_COMM_WORLD_SIZE"):
         monkeypatch.delenv(k, raising=False)
+    monkeypatch.setattr(native, "_module", None)
+    monkeypatch.setattr(native, "_error", "RuntimeError: g++ exit 1: jpeglib.h missing")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(error, match=match):

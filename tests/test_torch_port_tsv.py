@@ -111,8 +111,8 @@ _GX_ENGINES = {}
 
 
 def engines(transform_kw, gx_transform=None, pt_transform=None, batch_size=3):
-    """gitax's engine (use_native=False: exact PIL) and the port's on the
-    same f32 weights and tiny vocab.  gitax's engine is kept per transform
+    """gitax's engine and the port's (use_native=False on both: exact PIL)
+    on the same f32 weights and tiny vocab.  gitax's engine is kept per transform
     setting, with its compiled programs, across the tests of this file."""
     params = tiny_params()
     kw = dict(batch_size=batch_size, max_text_len=40)
@@ -129,7 +129,7 @@ def engines(transform_kw, gx_transform=None, pt_transform=None, batch_size=3):
                                  beam=BeamSearchConfig(num_beams=2, max_steps=40),
                                  dtype=torch.float32,
                                  transform=pt_transform or pt_tf.TestTransform(**transform_kw),
-                                 **kw)
+                                 use_native=False, **kw)
     return gx, pt
 
 

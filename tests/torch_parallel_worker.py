@@ -110,8 +110,10 @@ def refusals(job):
     try:
         from gitax_torch.decode.beam import BeamSearchConfig
 
+        # sampling on a model group of 2 runs with a generator (the mesh
+        # engine's TP sampling cases); without one it raises on every rank
         model.generate(torch.zeros(1, 32, 32, 3), beam=BeamSearchConfig(do_sample=True))
-    except NotImplementedError as e:
+    except ValueError as e:
         out["generate"] = str(e)
     return out
 
@@ -291,7 +293,7 @@ def cli_tsv(job, loop, mesh_shape):
     def run():
         inference.test_git_inference_single_tsv("img.tsv", "TINY_CAP", q_tsv, out, batch_size=2,
                                                 dtype="float32", mesh_shape=mesh_shape,
-                                                device="cpu")
+                                                use_native=False, device="cpu")
         return os.path.join(job["cli"]["dir"], out) if dist.get_rank() == 0 else None
 
     return in_cli_dir(job, run)
@@ -333,10 +335,67 @@ def served(job):
     return in_cli_dir(job, run)
 
 
+# the sampled search of test_torch_port_mesh_engine.py's TP cases: the
+# repetition penalty, top-k and two return sequences an input
+SAMPLE_BEAM = dict(num_beams=2, max_steps=12, do_sample=True, temperature=1.3, top_k=20,
+                   repetition_penalty=1.4)
+SAMPLE_SEED = 11
+
+
+def sample_images(job):
+    """The first 3 job images normalised with CLIP's constants, [3, 32, 32,
+    3] f32."""
+    import numpy as np
+
+    from gitax_torch.preprocess.transforms import CLIP_MEAN, CLIP_STD
+
+    x = np.stack(job["images"][:3]).astype(np.float32) / 255.0
+    return torch.from_numpy((x - CLIP_MEAN) / CLIP_STD)
+
+
+def sampled_1x2(job):
+    """generate(do_sample) on a model sharded over [1, 2], each rank's
+    caller seeding its generator differently (rank 0 SAMPLE_SEED): rank
+    0's tokens, the elements that differ between the ranks, and whether
+    every rank's generator ends in rank 0's state."""
+    from gitax_torch.decode.beam import BeamSearchConfig
+    from gitax_torch.parallel.mesh import shard_for_inference
+
+    spec = job["engine"]
+    mesh = make_mesh(1, 2, device="cpu")
+    model = shard_for_inference(model_from(spec["cfg"], spec["weights"]), mesh)
+    rng = torch.Generator().manual_seed(SAMPLE_SEED if dist.get_rank() == 0 else 1000 + dist.get_rank())
+    seqs, logprobs = model.generate(sample_images(job), beam=BeamSearchConfig(**SAMPLE_BEAM),
+                                    num_return_sequences=2, rng=rng)
+    unequal = comm.count_unequal(seqs, mesh.model_group, 2)
+    state = rng.get_state().to(torch.int64)
+    states_unequal = comm.count_unequal(state, mesh.model_group, 2)
+    return {"tokens": seqs.numpy(), "logprobs": logprobs.numpy(), "unequal": unequal,
+            "states_unequal": states_unequal}
+
+
+def sampled_engine_1x2(job):
+    """The same search through the [1, 2] engine's `dispatch_device_batch`
+    (rank 0's generator pickled to the follower, two sequences a row
+    gathered): the tokens on rank 0."""
+    from gitax_torch.decode.beam import BeamSearchConfig
+
+    engine = mesh_engine(job, (1, 2))
+    if engine is None:
+        return None
+    import numpy as np
+
+    with engine:
+        seqs = engine.dispatch_device_batch(
+            np.stack(job["images"][:3]), [[101]] * 3, beam=BeamSearchConfig(**SAMPLE_BEAM),
+            num_return_sequences=2, rng=torch.Generator().manual_seed(SAMPLE_SEED))
+        return {"tokens": engine.to_host(seqs), "unequal": engine.group_mismatches}
+
+
 def mesh_refusals(job):
-    """What a mesh still refuses, on every rank: sampling on a model
-    sharded over 2 model ranks, a batch size that does not split over the
-    data axis."""
+    """What a mesh still refuses, on every rank: sampling with no
+    generator on a model sharded over 2 model ranks, a batch size that
+    does not split over the data axis."""
     from gitax_torch.decode.beam import BeamSearchConfig
     from gitax_torch.parallel.mesh import shard_for_inference
     from gitax_torch.runtime.engine import CaptionEngine
@@ -347,7 +406,7 @@ def mesh_refusals(job):
                                 make_mesh(1, 2, device="cpu"))
     try:
         model.generate(torch.zeros(1, 32, 32, 3), beam=BeamSearchConfig(do_sample=True))
-    except NotImplementedError as e:
+    except ValueError as e:
         out["sample"] = str(e)
     try:
         CaptionEngine(model_from(spec["cfg"], spec["weights"]), None, batch_size=3,
@@ -370,6 +429,8 @@ INFER_SCENARIOS = {
         ("video_1x2", lambda job: mesh_tokens(job, (1, 2), case="video", items="clips",
                                               prefix=(101, 7, 9))),
         ("serving", served),
+        ("sample_1x2", sampled_1x2),
+        ("sample_engine_1x2", sampled_engine_1x2),
         ("refusals", mesh_refusals)],
     4: [("tokens_2x2", lambda job: mesh_tokens(job, (2, 2))),
         ("int8_2x2", lambda job: mesh_tokens(job, (2, 2), int8=True)),
