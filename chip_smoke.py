@@ -227,7 +227,33 @@ Phases, each of which fails the run (non-zero exit) if it fails:
  33. the native loader (g++, libjpeg): whether it built and why not; where
      it built, 16 JPEG rows through the caption TSV with use_native on and
      off.
-Phases 14-19, 21, 22, 23, 26-28, 31 and 33 write in build/gitax_torch/smoke_work, removed after.
+ 34. the device-side search (`decode.device_loop`: one step captured as a
+     CUDA graph, launched under a conditional IF node whose predicate the
+     card computes; `generate` takes it on one card, eager_loop=True the
+     eager loop): first its kernel, `set_condition` (csrc/graph_if.cu),
+     against the host's branch and timed; then (a) f32 tokens of the
+     graph, its capture and its cached replay, equal to the eager loop's
+     on the card at full width (encoders cut to 2 blocks): COCO beam,
+     beam with the repetition penalty and num_keep_best 2, greedy, trie,
+     VQA at the four grids and both question lengths, video (M = 1542)
+     with and without vocab_kernel, text context (mem_bias), and sampling
+     (generators of one seed, then one table of draws made outside the
+     graph fed to both); (b) kernel 1 replayed in a conditional graph held
+     to its plain version at check_decode_case's bounds, and no write
+     under a false predicate; on GIT_LARGE_COCO bf16 + int8, B=32: (g) the
+     first graph search's capture time and memory against the eager
+     loop's peak; (c) ms per beam step, eager and graph in turns, three
+     passes each; (d) the device's busy share and the host's launches of
+     one batch under torch.profiler; (e) dispatch_device_batch's host ms
+     against the batch's device ms, with no synchronising call inside it
+     (sync debug mode); (f) the engine's and the TSV loop's images/s and
+     the server's requests/s and p99 at 16 clients, eager against graph in
+     turns.  From phase 5 on, kernel counts include the replays' launches
+     (`settle`: the steps each graph ran on the card times the kernels
+     one captured step launches), and ms per beam step is the searches'
+     device span less encode and prefill, over the steps.
+Phases 14-19, 21, 22, 23, 26-28, 31, 33 and 34 write in build/gitax_torch/smoke_work, removed
+after.
 Each slice prints its peak device memory.
 Prints the card's name and power limit, one JSON line describing the
 kernels (launches on the main path; error, time, plain time, bound and
@@ -258,6 +284,9 @@ KERNELS = {
     # (`_int8_dynamic_matmul`, gitax/models/nn.py:53-71)
     "int8_quantize_rows": ("gitax_torch/csrc/int8_dynamic.cu", "gitax/models/nn.py:61"),
     "int8_scale_rows": ("gitax_torch/csrc/int8_dynamic.cu", "gitax/models/nn.py:69"),
+    # no Pallas kernel: the condition of gitax's search loop, `cond` of its
+    # lax.while_loop, which XLA evaluates on the device
+    "graph_if": ("gitax_torch/csrc/graph_if.cu", "gitax/decode/beam.py:283"),
 }
 # the libraries the kernels live in, one nvcc each
 LIBRARIES = list(dict.fromkeys(os.path.splitext(os.path.basename(src))[0]
@@ -440,6 +469,40 @@ class DeviceSpans(object):
         delattr(self.model, self.name)
 
 
+def settle():
+    """Add the launches that replayed search graphs made since the last
+    call to the kernels' counts and the models' decode_step_calls
+    (`decode.device_loop.settle`: a replay launches a captured step's
+    kernels without their wrappers' Python code).  Waits for the card;
+    call it before a count is zeroed and before it is read."""
+    from gitax_torch.decode import device_loop
+
+    device_loop.settle()
+
+
+class SearchSpans(object):
+    """CUDA events around every `generate`, `encode_images` and `prefill`
+    call of a model until `remove`: `loop_ms()` is the searches' device
+    span less the encoder's and the prefill's, the loop's part, which
+    per beam step is the same measure for the eager loop and the replayed
+    graph (a decode step has no span of its own inside a graph)."""
+
+    def __init__(self, model):
+        self.spans = {name: DeviceSpans(model, name)
+                      for name in ("encode_images", "prefill", "generate")}
+
+    def times(self):
+        return {name: s.ms() for name, s in self.spans.items()}
+
+    def loop_ms(self):
+        t = self.times()
+        return sum(t["generate"]) - sum(t["encode_images"]) - sum(t["prefill"])
+
+    def remove(self):
+        for s in self.spans.values():
+            s.remove()
+
+
 def phase_build(card):
     import torch  # the ctypes libraries need the CUDA runtime loaded
 
@@ -571,15 +634,18 @@ def decode_inputs(g, dtype, mem_int8, pos, m=M, bias=False, b=B, h=H):
         valid = torch.randint(CTX_IMAGE, m + 1, (B, 1), generator=g)
         mem_bias = torch.where(torch.arange(m)[None, :] < valid, 0.0, -1e18).to(dev)
     return dict(q=r(B * K, H * DH).to(dtype), kv_new=r(B * K, H * 2 * DH).to(dtype),
-                txt_kv=r(T, B * K, H * 2 * DH).to(dtype), anc=anc, pos=pos,
+                txt_kv=r(T, B * K, H * 2 * DH).to(dtype), anc=anc,
+                pos=torch.full((), pos, dtype=torch.int32, device=dev),
                 mem_kv=mem, mem_bias=mem_bias, mem_scale=scale)
 
 
-def check_decode_case(label, a, dtype, mem_int8, kw):
+def check_decode_case(label, a, dtype, mem_int8, kw, launch=None):
     """One decode-attention call on the inputs `a` against the plain
     version: the cache bit-equal; f32 within 1e-5; bf16 within 2^-7 of
     the plain version in f32 and within max|ctx|/64 of it in bf16.
-    Returns max|ctx - plain| (bf16: against the plain version in f32)."""
+    launch(**inputs) -> ctx: how the kernel is run (default: the wrapper's
+    launch; phase 34 replays it in a graph).  Returns max|ctx - plain|
+    (bf16: against the plain version in f32)."""
     import torch
 
     from gitax_torch.ops.decode_attention import decode_attention_cuda, decode_attention_reference
@@ -593,7 +659,10 @@ def check_decode_case(label, a, dtype, mem_int8, kw):
         return a
 
     ker_cache, ref_cache = a["txt_kv"].clone(), a["txt_kv"].clone()
-    ctx = decode_attention_cuda(**dict(a, txt_kv=ker_cache), **kw)
+    if launch is None:
+        ctx = decode_attention_cuda(**dict(a, txt_kv=ker_cache), **kw)
+    else:
+        ctx = launch(**dict(a, txt_kv=ker_cache))
     ref = decode_attention_reference(**dict(a, txt_kv=ref_cache), **kw)
     torch.cuda.synchronize()
     check(torch.equal(ker_cache, ref_cache), "{}: cache differs".format(label))
@@ -667,8 +736,35 @@ def check_decode_kernel():
         if name == "bf16" and m == M:
             worst_main = max(worst_main, err)
         del a
+    check_decode_pos_range(g, kw)
     torch.cuda.empty_cache()
     return worst_main
+
+
+def check_decode_pos_range(g, kw):
+    """The range check of pos, on the card since pos lives there: a launch
+    at pos -1 or T writes nothing (the cache, ctx's buffer) and sets the
+    error flag; a launch at pos T-1 after it leaves the flag as it was."""
+    import torch
+
+    from gitax_torch.ops.decode_attention import decode_attention_cuda, error_flag
+
+    flag = error_flag("cuda")
+    flag.zero_()
+    for bad in (-1, T):
+        a = decode_inputs(g, torch.bfloat16, False, T - 1)
+        a["pos"].fill_(bad)
+        cache = a["txt_kv"].clone()
+        decode_attention_cuda(**dict(a, txt_kv=cache), **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(cache, a["txt_kv"]), "decode kernel: pos {} wrote the cache".format(bad))
+        check(int(flag[0]) == 1, "decode kernel: pos {} did not set the error flag".format(bad))
+        flag.zero_()
+    a = decode_inputs(g, torch.bfloat16, False, T - 1)
+    decode_attention_cuda(**a, **kw)
+    check(int(flag[0]) == 0, "decode kernel: pos {} set the error flag".format(T - 1))
+    log("decode kernel: pos -1 and {} launch nothing and set the error flag; pos {} leaves it "
+        "clear".format(T, T - 1))
 
 
 def time_decode(card, g, m, bias=False, b=B, h=H):
@@ -969,7 +1065,8 @@ def phase_coco_slice(card, cpu_model, tok, trace_dir):
     engine.generate_batch(images[:32], prefixes[:32])  # warm-up: cuBLAS, allocator
     torch.cuda.synchronize()
 
-    steps_t = DeviceSpans(model, "decode_step")  # 6 layers + head each
+    spans = SearchSpans(model)
+    settle()
     decode_attention.launches = 0
     fa.launches = 0
     model.decode_step_calls = 0
@@ -978,8 +1075,10 @@ def phase_coco_slice(card, cpu_model, tok, trace_dir):
     captions = engine.resolve(handle)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    settle()
     launches, flash_launches, steps = decode_attention.launches, fa.launches, model.decode_step_calls
-    steps_t.remove()
+    loop_ms = spans.loop_ms()
+    spans.remove()
 
     seqs = torch.cat([s.cpu() for _, bucket in handle[1] for s in bucket])
     # T_max 41 = [CLS] + max_text_len 40; the [CLS] prefix is stripped
@@ -992,13 +1091,13 @@ def phase_coco_slice(card, cpu_model, tok, trace_dir):
           "decode_attention launches {} != {} layers x {} steps".format(launches, n_layers, steps))
     # S=257 < 640: the fused attention's gate leaves the 224 px path alone
     check(flash_launches == 0, "flash_attention launched {} times at S=257".format(flash_launches))
-    step_ms = sum(steps_t.ms()) / len(steps_t.events)
+    step_ms = loop_ms / steps
     log("coco slice: 3 batches x 32 GIT_LARGE_COCO captions, {} beam steps, decode_attention "
         "launches {} = {} x {}, flash_attention launches 0 (S=257)".format(
             steps, launches, n_layers, steps))
     log("coco slice: {:.2f} images/s, mean decode length {:.2f} tokens, {:.3f} ms per beam "
-        "step (device, 6 layers + head) [{}]".format(96 / seconds, lengths.mean().item(),
-                                                     step_ms, card))
+        "step (device events: the searches less encode and prefill, over the steps) "
+        "[{}]".format(96 / seconds, lengths.mean().item(), step_ms, card))
     log("coco slice: sample captions: {}".format(captions[:2]))
     peak_memory("coco slice", card)
     from gitax_torch.runtime import profiling
@@ -1046,8 +1145,10 @@ def phase_coco_f32_parity(cpu_model, images):
     beam = BeamSearchConfig(num_beams=4, max_steps=24)
     out, steps = {}, {}
     for kernel in (True, False):
+        settle()
         model.decode_step_calls = 0
         out[kernel] = model.generate(x, beam=beam, decode_kernel=kernel)
+        settle()
         steps[kernel] = model.decode_step_calls
     (seq_k, lp_k), (seq_p, lp_p) = out[True], out[False]
     check(seq_k.shape == (16, 24) and torch.isfinite(lp_k).all().item(),
@@ -1117,7 +1218,8 @@ def phase_vqa_slice(card, cpu_model, tok):
     run_vqa(engine, pairs)  # warm-up at every grid: cuBLAS, allocator
     torch.cuda.synchronize()
 
-    spans = {name: DeviceSpans(model, name) for name in ("encode_images", "prefill", "decode_step")}
+    spans = SearchSpans(model)
+    settle()
     decode_attention.launches = 0
     fa.launches = 0
     model.decode_step_calls = 0
@@ -1125,10 +1227,10 @@ def phase_vqa_slice(card, cpu_model, tok):
     answers, handles = run_vqa(engine, pairs)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    settle()
     d_launches, f_launches, steps = decode_attention.launches, fa.launches, model.decode_step_calls
-    times = {name: s.ms() for name, s in spans.items()}
-    for s in spans.values():
-        s.remove()
+    times, loop_ms = spans.times(), spans.loop_ms()
+    spans.remove()
 
     n_enc, n_pre = len(times["encode_images"]), len(times["prefill"])
     check(n_enc == n_pre == 4, "{} encoder and {} prefill batches, not 4".format(n_enc, n_pre))
@@ -1157,8 +1259,7 @@ def phase_vqa_slice(card, cpu_model, tok):
     log("vqa slice: {:.2f} pairs/s, encode {:.2f} ms and prefill {:.2f} ms per batch of 32, "
         "{:.3f} ms per beam step (device events), mean answer length {:.2f} tokens [{}]".format(
             len(pairs) / seconds, sum(times["encode_images"]) / n_enc,
-            sum(times["prefill"]) / n_pre, sum(times["decode_step"]) / len(times["decode_step"]),
-            lengths.mean().item(), card))
+            sum(times["prefill"]) / n_pre, loop_ms / steps, lengths.mean().item(), card))
     log("vqa slice: encode ms per batch {}, prefill ms per batch {}".format(
         ["%.2f" % x for x in times["encode_images"]], ["%.2f" % x for x in times["prefill"]]))
     log("vqa slice: sample answers: {}".format([answers[0], answers[-1]]))
@@ -1532,7 +1633,8 @@ def phase_video_slice(card, cpu_model, tok):
     engine.generate_batch(clips[:VIDEO_BATCH], prefixes[:VIDEO_BATCH])  # warm-up: cuBLAS, allocator
     torch.cuda.synchronize()
 
-    spans = {name: DeviceSpans(model, name) for name in ("encode_images", "prefill", "decode_step")}
+    spans = SearchSpans(model)
+    settle()
     decode_attention.launches = 0
     fa.launches = 0
     vt.launches = 0
@@ -1542,11 +1644,11 @@ def phase_video_slice(card, cpu_model, tok):
     captions = engine.resolve(handle)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    settle()
     d_launches, f_launches, steps = decode_attention.launches, fa.launches, model.decode_step_calls
     v_launches = vt.launches
-    times = {name: s.ms() for name, s in spans.items()}
-    for s in spans.values():
-        s.remove()
+    times, loop_ms = spans.times(), spans.loop_ms()
+    spans.remove()
 
     n_enc, n_pre = len(times["encode_images"]), len(times["prefill"])
     check(n_enc == n_pre == CLIPS // VIDEO_BATCH, "{} encoder and {} prefill batches".format(
@@ -1570,10 +1672,10 @@ def phase_video_slice(card, cpu_model, tok):
             CLIPS, FRAMES, FRAMES * cfg.encoder.num_tokens, n_enc, VIDEO_BATCH, steps, f_launches,
             cfg.num_layers, n_pre, d_launches, cfg.num_layers, steps))
     log("video slice: {:.2f} clips/s, encode {:.2f} ms and prefill {:.2f} ms per batch of {}, "
-        "{:.3f} ms per beam step (device events, 6 layers + head), mean decode length {:.2f} "
+        "{:.3f} ms per beam step (device events: the searches less encode and prefill), mean "
+        "decode length {:.2f} "
         "tokens [{}]".format(CLIPS / seconds, sum(times["encode_images"]) / n_enc,
-                             sum(times["prefill"]) / n_pre, VIDEO_BATCH,
-                             sum(times["decode_step"]) / len(times["decode_step"]),
+                             sum(times["prefill"]) / n_pre, VIDEO_BATCH, loop_ms / steps,
                              lengths.mean().item(), card))
     log("video slice: {} distinct captions among {}; samples: {}".format(
         len(set(captions)), CLIPS, captions[:2]))
@@ -1605,37 +1707,51 @@ def phase_vocab_path(card, model, engine, clips):
     batches = [clips[i:i + VIDEO_BATCH] for i in range(0, len(clips), VIDEO_BATCH)]
     torch.cuda.reset_peak_memory_stats()  # the model's weights stay allocated
 
-    def run(vocab_kernel):
-        spans = {name: DeviceSpans(model, name) for name in ("encode_images", "prefill", "generate")}
+    def run(vocab_kernel, eager_loop=False):
+        spans = SearchSpans(model)
+        settle()
         model.decode_step_calls = 0
         out = []
         for batch in batches:
             x = normalized(batch, torch.bfloat16)
             out.append(model.generate(x, cls_prefix(x), beam=beam, dtype=torch.bfloat16,
                                       fast_prefill=True, decode_kernel=True,
-                                      vocab_kernel=vocab_kernel)[0])
+                                      vocab_kernel=vocab_kernel, eager_loop=eager_loop)[0])
         torch.cuda.synchronize()
-        times = {name: sum(s.ms()) for name, s in spans.items()}
-        for s in spans.values():
-            s.remove()
+        loop = spans.loop_ms()
+        spans.remove()
+        settle()
         steps = model.decode_step_calls
-        loop = times["generate"] - times["encode_images"] - times["prefill"]
         return torch.cat(out).cpu(), steps, loop / steps
 
     # warm-up of the kernel path's device work; the first 4 head calls of
     # its first batch (beam steps 1-4; step 0 reads the prefill's plain
-    # head) are held against the plain head on the hidden states the
-    # search gave them
+    # head), on the eager loop, are held against the plain head on the
+    # hidden states the search gave them; then, on the graph path, the
+    # warm-up step's call and the captured call, whose clones hold what
+    # the last replayed step that ran gave it and computed
     calls = VocabCalls(4)
     try:
-        run(True)
+        run(True, eager_loop=True)
     finally:
         calls.remove()
     check(len(calls.calls) == 4, "{} vocab head calls recorded".format(len(calls.calls)))
     for i, c in enumerate(calls.calls):
         check_vocab_call("vocab path, on the path: bf16 beam step {} of batch 1, R={}".format(
             i + 1, c[0].shape[0]), *c)
+    calls = VocabCalls(2)
+    try:
+        run(True)
+    finally:
+        calls.remove()
+    check(len(calls.calls) == 2, "{} vocab head calls recorded in the graph's first search".format(
+        len(calls.calls)))
+    for c, where in zip(calls.calls, ("the warm-up step", "inside the replayed graph, the last "
+                                      "step run of batch 2")):
+        check_vocab_call("vocab path, on the graph path: {}, R={}".format(where, c[0].shape[0]),
+                         *c)
     del calls
+    settle()
     vt.launches = 0
     seqs_on, steps_on, ms_on = run(True)
     launches = vt.launches
@@ -1680,16 +1796,22 @@ def phase_vocab_path(card, model, engine, clips):
     if PROFILE:
         runs.append((False, "off, full-vocab sort"))
     for vocab_kernel, label in runs:
+        settle()
         model.decode_step_calls = 0
         torch.cuda.synchronize()
         beam_mod._top_k_blocked = full_sort if "sort" in label else blocked
         try:
+            # the eager loop: the same device work as the graph's, and
+            # key_averages groups each kernel it launches by name (a
+            # graph's kernels land under its launch)
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 model.generate(x, cls_prefix(x), beam=beam, dtype=torch.bfloat16,
-                               fast_prefill=True, decode_kernel=True, vocab_kernel=vocab_kernel)
+                               fast_prefill=True, decode_kernel=True, vocab_kernel=vocab_kernel,
+                               eager_loop=True)
                 torch.cuda.synchronize()
         finally:
             beam_mod._top_k_blocked = blocked
+        settle()
         steps = model.decode_step_calls
         kernels = [e for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
         total = sum(dev_us(e) for e in kernels) / 1e3
@@ -1724,6 +1846,7 @@ def phase_video_f32_parity(cpu_model, clips, beam):
     model = quantize_git_model_(build_model("cuda", torch.float32, cpu_model))
     x = normalized(clips[:4], torch.float32)
     out, steps = {}, {}
+    settle()
     vt.launches = 0
     calls = VocabCalls(2)
     try:
@@ -1731,13 +1854,16 @@ def phase_video_f32_parity(cpu_model, clips, beam):
             model.decode_step_calls = 0
             out[vocab] = model.generate(x, cls_prefix(x), beam=beam, decode_kernel=True,
                                         vocab_kernel=vocab)
+            settle()
             steps[vocab] = model.decode_step_calls
     finally:
         calls.remove()
+    # the graph's first search: the warm-up step's head call, then the
+    # captured one, whose clones hold the last step that ran
     check(len(calls.calls) == 2, "{} f32 vocab head calls recorded".format(len(calls.calls)))
-    for i, c in enumerate(calls.calls):
-        check_vocab_call("video f32 parity, on the path: beam step {}, R={}".format(
-            i + 1, c[0].shape[0]), *c)
+    for c, where in zip(calls.calls, ("the warm-up step", "inside the replayed graph")):
+        check_vocab_call("video f32 parity, on the path: {}, R={}".format(where, c[0].shape[0]),
+                         *c)
     check(vt.launches == steps[True], "f32 vocab_topk launches {} != {} steps".format(
         vt.launches, steps[True]))
     (seq_k, lp_k), (seq_p, lp_p) = out[True], out[False]
@@ -1940,6 +2066,7 @@ def phase_coco_tsv(card, cpu_model, images, work, engine_rate):
     via = "-p" if have_yaml() else "a direct call (no PyYAML to parse -p)"
     cwd = os.getcwd()
     os.chdir(work)
+    settle()
     decode_attention.launches = 0
     fa.launches = 0
     try:
@@ -1954,6 +2081,7 @@ def phase_coco_tsv(card, cpu_model, images, work, engine_rate):
         build.remove()
         loop.remove()
         decodes.remove()
+    settle()
     launches, flash_launches = decode_attention.launches, fa.launches
     model = build.results[0]
     steps = model.decode_step_calls
@@ -2051,6 +2179,7 @@ def phase_vqa_tsv(card, cpu_model, tok, work, engine_rate):
     tsv_writer(([k, json_dump([{"question": VQA_QUESTIONS[j], "question_id": 2 * i + j}
                                for j in (0, 1)])] for i, k in enumerate(keys)), q_tsv)
 
+    settle()
     decode_attention.launches = 0
     fa.launches = 0
     model.decode_step_calls = 0
@@ -2058,6 +2187,7 @@ def phase_vqa_tsv(card, cpu_model, tok, work, engine_rate):
     with engine:
         engine.run_vqa_tsv(img_tsv, q_tsv, os.path.join(work, "vqa.out.tsv"))
     seconds = time.perf_counter() - t0
+    settle()
     d_launches, f_launches, steps = decode_attention.launches, fa.launches, model.decode_step_calls
     rows = [json.loads(r[0]) for r in TSVFile(os.path.join(work, "vqa.out.tsv"))]
     n = 2 * VQA_TSV_IMAGES
@@ -2555,9 +2685,11 @@ def phase_serving(card, cpu_model, images, work, coco_step_ms):
     sharpen_(engine.model, attention=SHARPEN_17, projection=1)
     try:
         with Served(batcher) as srv:
+            settle()
             decode_attention.launches = fa.launches = engine.model.decode_step_calls = 0
             got, refs, sizes, differ = served_against_direct(
                 "serving f32", engine, batcher, srv.base, payloads, questions)
+            settle()
             launches += decode_attention.launches
             steps += engine.model.decode_step_calls
             check(fa.launches == 0, "flash_attention launched at S=257")
@@ -2595,7 +2727,8 @@ def phase_serving(card, cpu_model, images, work, coco_step_ms):
                   for p in payloads]
         alone = {}
         for bs in (16, 32):
-            spans = DeviceSpans(model, "decode_step")
+            spans = SearchSpans(model)
+            settle()
             model.decode_step_calls = 0
             engine.batch_size = bs
             t0 = time.perf_counter()
@@ -2604,12 +2737,15 @@ def phase_serving(card, cpu_model, images, work, coco_step_ms):
                 torch.cuda.synchronize()
             finally:
                 engine.batch_size = 32
-            alone[bs] = (sum(spans.ms()) / len(spans.events),
-                         (time.perf_counter() - t0) / model.decode_step_calls * 1e3)
+            wall = time.perf_counter() - t0
+            settle()
+            alone[bs] = (spans.loop_ms() / model.decode_step_calls,
+                         wall / model.decode_step_calls * 1e3)
             spans.remove()
         with Served(batcher) as srv:
             check(http_get(srv.base, "/healthz") == (200, {"ok": True, "model": "GIT_LARGE_COCO"}),
                   "/healthz")
+            settle()
             decode_attention.launches = fa.launches = model.decode_step_calls = 0
             got, refs, sizes, differ = served_against_direct(
                 "serving bf16", engine, batcher, srv.base, payloads, questions)
@@ -2617,17 +2753,17 @@ def phase_serving(card, cpu_model, images, work, coco_step_ms):
 
             # load: closed-loop clients, each sending its next request when
             # its reply comes
-            spans = DeviceSpans(model, "decode_step")
-            # per bucket: the dispatches' wall seconds (the search, encode
-            # and prefill included, as alone) and their beam steps
-            per_bucket = collections.defaultdict(lambda: [0.0, 0])
+            settle()
+            spans = SearchSpans(model)
+            # per bucket: the dispatches' host milliseconds (the upload and
+            # the search enqueued; the search itself runs after)
+            per_bucket = collections.defaultdict(list)
             dispatch = engine.dispatch_device_batch
 
             def timed(imgs, pref):
-                s0, t = model.decode_step_calls, time.perf_counter()
+                t = time.perf_counter()
                 out = dispatch(imgs, pref)
-                per_bucket[len(imgs)][0] += time.perf_counter() - t
-                per_bucket[len(imgs)][1] += model.decode_step_calls - s0
+                per_bucket[len(imgs)].append((time.perf_counter() - t) * 1e3)
                 return out
 
             engine.dispatch_device_batch = timed
@@ -2636,9 +2772,10 @@ def phase_serving(card, cpu_model, images, work, coco_step_ms):
             lat, bad, sent, load_s = closed_loop(srv.base, bodies, LOAD_SECONDS)
             torch.cuda.synchronize()
             del engine.dispatch_device_batch
+            settle()
             load_steps = model.decode_step_calls - steps0
-            load_dev = sum(spans.ms()) / max(1, len(spans.events))
-            load_wall = {b: sec / st * 1e3 for b, (sec, st) in sorted(per_bucket.items()) if st}
+            load_dev = spans.loop_ms() / max(1, load_steps)
+            load_wall = {b: sum(ms) / len(ms) for b, ms in sorted(per_bucket.items())}
             spans.remove()
             launches += decode_attention.launches
             steps += model.decode_step_calls
@@ -2680,11 +2817,11 @@ def phase_serving(card, cpu_model, images, work, coco_step_ms):
                       np.percentile(lat, 99), stats["batches"],
                       dict(sorted((int(k), v) for k, v in stats["batch_size_hist"].items())),
                       stats["padded_slots"], stats["errors"], stats["rejected"], card))
-    log("serving: ms per beam step (6 layers + head): with the clients {:.3f} device (events, "
-        "all {} steps), wall per bucket {} (a dispatch's seconds over its steps, encode and "
-        "prefill included); alone, one batch of 16 {:.3f} device {:.3f} wall, of 32 {:.3f} device "
-        "{:.3f} wall; phase 5's engine (32) {:.3f} device; decode_attention launches {} = {} x {} "
-        "steps, flash_attention 0 [{}]".format(
+    log("serving: ms per beam step (device events: the searches less encode and prefill): "
+        "with the clients {:.3f} over all {} steps; dispatch host ms per bucket {} (the upload "
+        "and the search enqueued); alone, one batch of 16 {:.3f} device {:.3f} wall, of 32 "
+        "{:.3f} device {:.3f} wall; phase 5's engine (32) {:.3f} device; decode_attention "
+        "launches {} = {} x {} steps, flash_attention 0 [{}]".format(
             load_dev, load_steps, {b: round(w, 3) for b, w in load_wall.items()}, *alone[16],
             *alone[32], coco_step_ms, launches, model.cfg.num_layers, steps, card))
     peak_memory("serving", card)
@@ -2868,15 +3005,18 @@ def phase_sampling(card, cpu_model, images, seed):
 
     run(seed)  # warm-up
     torch.cuda.synchronize()
-    spans = DeviceSpans(model, "decode_step")
+    spans = SearchSpans(model)
+    settle()
     vt.launches = decode_attention.launches = model.decode_step_calls = 0
     t0 = time.perf_counter()
     a = run(seed)
     wall = time.perf_counter() - t0
+    settle()
     steps, launches = model.decode_step_calls, decode_attention.launches
-    step_ms = sum(spans.ms()) / len(spans.events)
+    step_ms = spans.loop_ms() / steps
     spans.remove()
     b, c = run(seed), run(seed + 1)
+    settle()
     check(vt.launches == 0, "vocab_topk launched {} times under sampling".format(vt.launches))
     check(launches == model.cfg.num_layers * steps, "decode_attention launches {} != {} x {} "
           "steps".format(launches, model.cfg.num_layers, steps))
@@ -2887,7 +3027,8 @@ def phase_sampling(card, cpu_model, images, seed):
                  for i in range(SAMPLE_B)]
     log("sampling bf16+int8: B={} x R={} (beam 4, temperature 0.7, top-k 50, top-p 0.9, "
         "repetition penalty 1.2, torch.Generator('cuda') seed {}): {} beam steps, {:.3f} ms per "
-        "beam step (device, events), {:.1f} ms per step wall; same seed identical, seed {} "
+        "beam step (device events: the search less encode and prefill), {:.1f} ms per step wall; "
+        "same seed identical, seed {} "
         "differs; distinct outputs per input {} (of {}), {} distinct in all; vocab_topk launches "
         "0 (vocab_kernel asked for, gated off), decode_attention {} = {} x {} [{}]".format(
             SAMPLE_B, SAMPLE_R, seed, steps, step_ms, wall / steps * 1e3, seed + 1,
@@ -2908,11 +3049,14 @@ def phase_sampling(card, cpu_model, images, seed):
         for where, m, xx in (("card", model, x32), ("cpu", cpu_model, x32.cpu())):
             beam_mod.gumbel_noise = replayed(table)
             logs[where] = StepLog(m)
+            settle()
             decode_attention.launches = m.decode_step_calls = 0
             try:
+                # the eager loop: StepLog reads each step on the host
                 out[where] = m.generate(xx, cls_prefix(xx), beam=beam, decode_kernel=True,
                                         vocab_kernel=True, num_return_sequences=SAMPLE_R,
-                                        rng=torch.Generator(xx.device.type))[0].cpu()
+                                        rng=torch.Generator(xx.device.type),
+                                        eager_loop=True)[0].cpu()
             finally:
                 logs[where].remove()
             if where == "card":
@@ -2985,12 +3129,14 @@ def phase_context(card, seed):
         check(valid.shape == (32, CTX_M) and not valid.all(), "memory_valid {}".format(
             tuple(valid.shape)))
         for kernel in (True, False):
+            settle()
             decode_attention.launches = fa.launches = model.decode_step_calls = 0
             t0 = time.perf_counter()
             seqs, lp = model.generate(x, cls_prefix(x), beam=beam, dtype=dtype,
                                       decode_kernel=kernel, context_tokens=ct, context_lengths=cl)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
+            settle()
             check(seqs.shape == (32, 40) and torch.isfinite(lp.float()).all().item(),
                   "context {}: shape {}".format(dtype, tuple(seqs.shape)))
             check(fa.launches == 0, "flash_attention launched on a padded memory")
@@ -3050,6 +3196,7 @@ def kernel_launches():
     from gitax_torch.ops import vocab_topk as vt
     from gitax_torch.ops.decode_attention import decode_attention
 
+    settle()
     return decode_attention.launches, fa.launches, vt.launches
 
 
@@ -3351,7 +3498,8 @@ def train_refusals(card):
             torch.randn(2, 64, 3 * 1024, requires_grad=True, **bf), 16),
         "decode_attention_cuda": lambda: da.decode_attention_cuda(
             qd, torch.zeros(8, 2 * H * DH, **bf), torch.zeros(T, 8, 2 * H * DH, **bf),
-            torch.zeros(8, T, dtype=torch.int32, device="cuda"), 0,
+            torch.zeros(8, T, dtype=torch.int32, device="cuda"),
+            torch.zeros((), dtype=torch.int32, device="cuda"),
             torch.zeros(2, H, M, 2 * DH, **bf), beams=4, num_heads=H, head_dim=DH),
         "vocab_logits_topk_cuda": lambda: vt.vocab_logits_topk_cuda(
             h, torch.zeros(768, 1024, dtype=torch.int8, device="cuda"),
@@ -5288,6 +5436,520 @@ def phase_native(card, cpu_model, work):
             NATIVE_ROWS, same, time.perf_counter() - t0, card))
 
 
+# -- the device-side search (phase 34) ---------------------------------------
+
+P34_ROWS = 4  # (a): rows of each f32 comparison
+P34_PASSES = 3  # (c), (f): passes each, eager and graph in turns
+P34_LOAD_SECONDS = 5.0  # (f): each serving turn
+P34_GRIDS = ((22, 40), (30, 30), (30, 40), (40, 30))  # phase 7's VQA grids
+
+
+def cut_model(name, seed, gate, layers=2, attention=SHARPEN_17):
+    """A zoo config at full width with its encoder cut to `layers` blocks
+    (the search reads the decoder only: its depth and widths stay), random
+    EOS-gated weights, the decoder's attention x `attention` (phase 17's
+    x5 makes outputs depend on the input; x1 keeps the EOS gate's
+    lengths, which x5 cuts short on the VQA and text-context configs)."""
+    import dataclasses
+
+    import torch
+
+    from gitax_torch.models.config import config_from_param, get_model_param
+    from gitax_torch.models.git import GitModel, eos_gate_
+
+    cfg = config_from_param(get_model_param(name))
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, layers=layers))
+    model = GitModel(cfg, device="cpu").init_params(torch.Generator().manual_seed(seed))
+    eos_gate_(model, gate=gate)
+    return sharpen_(model, attention=attention, projection=1)
+
+
+def graph_against_eager(label, model, x, prefix=None, **kw):
+    """`generate` on the graph path against the eager loop: its first call
+    (the capture) on the inputs, then the cached graph on the rows in
+    reverse order (its static buffers then hold the first batch's
+    state), each against the eager loop on the same rows: tokens equal,
+    logprobs within 1e-6.  Returns the graph's sequences."""
+    import torch
+
+    def rows(flip):
+        def f(t):
+            return t.flip(0) if flip and torch.is_tensor(t) else t
+
+        return f(x), f(prefix), {k: [f(t) for t in v] if isinstance(v, list) else f(v)
+                                 for k, v in kw.items()}
+
+    for name, flip in (("capture", False), ("cached, rows reversed", True)):
+        xs, ps, kws = rows(flip)
+        eager = model.generate(xs, ps, eager_loop=True, **kws)
+        got = model.generate(xs, ps, **kws)
+        check(torch.equal(got[0], eager[0]), "{}: the graph's tokens ({}) differ from the eager "
+              "loop's".format(label, name))
+        err = (got[1].float() - eager[1].float()).abs().max().item()
+        check(err <= 1e-6, "{}: logprobs ({}) differ by {}".format(label, name, err))
+    seqs = got[0].reshape(-1, got[0].shape[-1])
+    log("device loop (a) f32 {}: graph = eager loop (capture, and cached on the rows reversed), "
+        "{} rows, {} distinct, "
+        "mean length {:.2f}".format(label, seqs.shape[0], len({tuple(r) for r in seqs.tolist()}),
+                                    (seqs != 102).sum(1).float().mean().item()))
+    return got[0]
+
+
+def device_table_noise(table):
+    """A stand-in for `gumbel_noise` whose i-th draw since `reset` is
+    table[i], counted on the card: a captured draw reads the count at each
+    replay (the host-counted `replayed` is read once, at capture)."""
+    import torch
+
+    i = torch.zeros((), dtype=torch.long, device=table.device)
+
+    def noise(shape, generator):
+        check(tuple(shape) == tuple(table.shape[1:]), "noise asked for {}".format(tuple(shape)))
+        out = table.index_select(0, i.reshape(1))[0]
+        i.add_(1)
+        return out
+
+    noise.reset = i.zero_
+    return noise
+
+
+def p34_parity(images, seed):
+    """(a) f32: the graph path's tokens equal the eager loop's on the card."""
+    import torch
+
+    from gitax_torch.decode import beam as beam_mod
+    from gitax_torch.decode import device_loop
+    from gitax_torch.decode.beam import BeamSearchConfig
+    from gitax_torch.decode.trie import build_vocab_trie
+    from gitax_torch.ops.quant import quantize_git_model_
+    from gitax_torch.tokenization import BertTokenizer, build_tiny_vocab, encode_prefix
+
+    f32 = torch.float32
+    beam = BeamSearchConfig(num_beams=4, max_steps=41, norm_max_length=1024)
+    model = build_model("cuda", f32, cut_model("GIT_LARGE_COCO", seed, 12))
+    x = normalized(images[:P34_ROWS], f32)
+    graph_against_eager("COCO beam", model, x, beam=beam, decode_kernel=True)
+    graph_against_eager("COCO beam, repetition penalty 1.3, num_keep_best 2", model, x,
+                        beam=dataclasses_replace(beam, repetition_penalty=1.3, num_keep_best=2),
+                        decode_kernel=True)
+    graph_against_eager("greedy", model, x, mode="greedy")
+    trie = build_vocab_trie(BertTokenizer(build_tiny_vocab(TRIE_WORDS)), TRIE_CLASSES)
+    graph_against_eager("trie", model, x, mode="trie", trie=trie)
+    # sampling: fresh generators of one seed on both sides (the graph's draw
+    # is the eager loop's), then one table of draws made outside the graph
+    # fed to both
+    sb = dataclasses_replace(beam, do_sample=True, temperature=0.7, top_k=50, top_p=0.9,
+                             repetition_penalty=1.2)
+    for s in (seed, seed + 1):
+        eager = model.generate(x, beam=sb, decode_kernel=True, eager_loop=True,
+                               rng=torch.Generator("cuda").manual_seed(s))
+        graph = model.generate(x, beam=sb, decode_kernel=True,
+                               rng=torch.Generator("cuda").manual_seed(s))
+        check(torch.equal(graph[0], eager[0]), "sampling f32: the graph's tokens differ from the "
+              "eager loop's with generators of seed {}".format(s))
+    device_loop.release(model)
+    table = torch.empty((sb.max_steps - 1, P34_ROWS * 4, model.cfg.vocab_size), device="cuda")
+    table = -table.exponential_(generator=torch.Generator("cuda").manual_seed(seed)).log()
+    noise, orig = device_table_noise(table), beam_mod.gumbel_noise
+    beam_mod.gumbel_noise = noise
+    try:
+        outs = []
+        for eager_loop in (True, False, False, True):
+            noise.reset()
+            outs.append(model.generate(x, beam=sb, decode_kernel=True, eager_loop=eager_loop,
+                                       rng=torch.Generator("cuda")))
+    finally:
+        beam_mod.gumbel_noise = orig
+    for got, want, name in ((outs[1], outs[0], "capture"), (outs[2], outs[3], "cached")):
+        check(torch.equal(got[0], want[0]), "sampling f32 on one noise table: the graph's tokens "
+              "({}) differ from the eager loop's".format(name))
+    log("device loop (a) f32 sampling (temperature 0.7, top-k 50, top-p 0.9, penalty 1.2): graph "
+        "= eager loop with generators of seeds {} and {} (the graph's draw registered), and on "
+        "one table of draws made outside the graph (capture and cached); {} distinct "
+        "rows".format(seed, seed + 1, len({tuple(r) for r in outs[1][0].tolist()})))
+    del model
+    device_loop.settle()
+
+    # VQA: the four grids and both question lengths (a key each)
+    vqa = build_model("cuda", f32, cut_model("GIT_LARGE_VQAv2", seed + 1, 16, attention=1))
+    tok = BertTokenizer(build_tiny_vocab(VQA_WORDS))
+    g = torch.Generator().manual_seed(seed)
+    p = vqa.cfg.encoder.patch_size
+    for gh, gw in P34_GRIDS:
+        xv = torch.randn(P34_ROWS, gh * p, gw * p, 3, generator=g).cuda()
+        for q in VQA_QUESTIONS:
+            pref = torch.tensor([encode_prefix(tok, q, 40)] * P34_ROWS, device="cuda")
+            graph_against_eager("VQA {}x{}, prefix {}".format(gh, gw, pref.shape[1]), vqa, xv, pref,
+                                beam=dataclasses_replace(beam, max_steps=pref.shape[1] + 40),
+                                decode_kernel=True)
+    del vqa
+
+    # video, int8 decoder and head, with and without the vocab kernel
+    video = quantize_git_model_(build_model("cuda", f32, cut_model("GIT_LARGE_VATEX", seed + 2, 12)))
+    clips = torch.randn(P34_ROWS, FRAMES, 224, 224, 3, generator=g).cuda()
+    for vocab_kernel in (True, False):
+        graph_against_eager("video (M = {}), vocab_kernel={}".format(FRAMES * 257, vocab_kernel),
+                            video, clips, cls_prefix(clips), beam=beam, decode_kernel=True,
+                            vocab_kernel=vocab_kernel)
+    del video
+
+    # text context: kernel 1 with mem_bias
+    ctx = build_model("cuda", f32, cut_model("GIT_BASE_COCO", seed + 3, 12, attention=1))
+    imgs, toks, lens = context_inputs(P34_ROWS, seed)
+    xc = normalized(imgs, f32)
+    graph_against_eager("text context (M = {}, mem_bias)".format(CTX_M), ctx, xc, cls_prefix(xc),
+                        beam=beam, decode_kernel=True, context_tokens=[t.cuda() for t in toks],
+                        context_lengths=[t.cuda() for t in lens])
+    del ctx
+    device_loop.settle()
+    torch.cuda.empty_cache()
+
+
+def dataclasses_replace(obj, **kw):
+    import dataclasses
+
+    return dataclasses.replace(obj, **kw)
+
+
+def if_graph_of(fn, side=None):
+    """fn() captured into a CUDAGraph (keep_graph) and wrapped in
+    `device_loop.IfGraph` under a predicate of its own; (IfGraph, pred,
+    fn's output)."""
+    import torch
+
+    from gitax_torch.decode.device_loop import IfGraph
+
+    side = side or torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    body = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(body, stream=side):
+        out = fn()
+    pred = torch.ones((), dtype=torch.bool, device="cuda")
+    return IfGraph(body, pred), pred, out
+
+
+def check_decode_in_graph():
+    """(b) kernel 1 inside a replayed conditional graph: a captured call on
+    static COCO-shaped buffers, replayed at pos 0, 12 and T-1 with new
+    inputs copied in, held to the plain version as `check_decode_case`
+    holds the eager launch (bf16, bf16 with int8 memory, f32); a launch
+    with the predicate false writes nothing."""
+    import torch
+
+    from gitax_torch.decode import device_loop
+    from gitax_torch.ops.decode_attention import decode_attention_cuda
+
+    from gitax_torch.ops.decode_attention import decode_attention
+
+    g = torch.Generator().manual_seed(34)
+    kw = dict(beams=K, num_heads=H, head_dim=DH)
+    launches, kernel1 = device_loop.launches, decode_attention.launches
+    worst = 0.0
+    for name, dtype, mem_int8 in (("f32", torch.float32, False), ("bf16", torch.bfloat16, False),
+                                  ("bf16+int8mem", torch.bfloat16, True)):
+        static = decode_inputs(g, dtype, mem_int8, 0)
+        cond, pred, out = if_graph_of(lambda: decode_attention_cuda(**static, **kw))
+        for pos in (0, 12, T - 1):
+            a = decode_inputs(g, dtype, mem_int8, pos)
+
+            def replayed(**b):
+                for key, t in b.items():
+                    if torch.is_tensor(t) and key not in ("txt_kv",):
+                        static[key].copy_(t)
+                static["txt_kv"].copy_(b["txt_kv"])
+                cond.launch()
+                b["txt_kv"].copy_(static["txt_kv"])
+                return out.clone()
+
+            err = check_decode_case("{:12s} pos={:2d}, replayed in a graph".format(name, pos), a,
+                                    dtype, mem_int8, kw, launch=replayed)
+            worst = max(worst, err) if name == "bf16" else worst
+        before, cache = out.clone(), static["txt_kv"].clone()
+        static["pos"].fill_(5)
+        pred.fill_(False)
+        cond.launch()
+        torch.cuda.synchronize()
+        check(torch.equal(out, before) and torch.equal(static["txt_kv"], cache),
+              "decode kernel in a graph: a launch under a false predicate wrote")
+    # comparisons, not the path's launches
+    device_loop.launches, decode_attention.launches = launches, kernel1
+    log("device loop (b): kernel 1 inside a replayed conditional graph within check_decode_case's "
+        "bounds at pos 0, 12, {} (f32, bf16, bf16 + int8 memory); a launch under a false "
+        "predicate writes nothing".format(T - 1))
+    return worst
+
+
+def phase_graph_kernel(card):
+    """The conditional graph's own kernel (`set_condition`, csrc/graph_if.cu):
+    a launch under a false predicate skips its body, under a true one
+    runs it, as the eager loop's host branch does (the difference of the
+    two counts is max_abs_err); its device time per launch (profiler),
+    the host's read of a predicate (`bool(pred)`, the eager loop's per
+    step: plain_ms) and its bound (one byte read)."""
+    import torch
+
+    from gitax_torch.decode import device_loop
+
+    launches = device_loop.launches
+    count = torch.zeros((), dtype=torch.int64, device="cuda")
+    cond, pred, _ = if_graph_of(lambda: count.add_(1))
+    count.zero_()  # the warm-up's
+    want = 0
+    for flag in (True, False, True, True, False):
+        pred.fill_(flag)
+        cond.launch()
+        want += int(flag)
+    err = abs(int(count) - want)
+    check(err == 0, "set_condition: {} bodies ran, {} predicates were true".format(int(count), want))
+    pred.fill_(False)
+    ker_ms = device_ms(cond.launch, 200, "set_condition")
+    call_ms = cuda_time_ms(cond.launch, 1000)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        bool(pred)
+    plain_ms = (time.perf_counter() - t0) / 200 * 1e3
+    bound_ms, bound_by = bound(1, 0, F32_FLOPS)
+    device_loop.launches = launches  # comparisons, not the path's launches
+    log("graph_if: set_condition {:.4f} ms on the device (profiler), a skipped launch {:.4f} ms "
+        "back to back (events, the host's enqueue included); the eager loop's host read of the "
+        "predicate {:.4f} ms; bound {:.2e} ms ({}: 1 byte) [{}]".format(
+            ker_ms, call_ms, plain_ms, bound_ms, bound_by, card))
+    return dict(max_abs_err=float(err), ms=ker_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def busy_profile(fn):
+    """fn() then a synchronize under torch.profiler: (the device's busy
+    share of the span from its first activity to its last, device busy ms,
+    span ms, the host's kernel and graph launches)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start)
+    check(spans, "the profile shows no device activity")
+    busy, end = 0.0, None
+    for s, e in spans:
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    span = spans[-1][1] - spans[0][0]
+    host = collections.Counter(e.name for e in events if e.device_type == DeviceType.CPU
+                               and e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                                              "cudaLaunchKernelEx", "cudaGraphLaunch"))
+    return busy / span, busy / 1e3, span / 1e3, dict(host)
+
+
+def p34_coco(card, cpu_model, images, work):
+    """(c)-(g) on GIT_LARGE_COCO at full size, bf16 + int8, B=32, the
+    engine's search settings."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from gitax_torch.decode import device_loop
+    from gitax_torch.decode.beam import BeamSearchConfig
+    from gitax_torch.models.git import GitModel
+    from gitax_torch.runtime.engine import CaptionEngine
+    from gitax_torch.tokenization import BertTokenizer, build_tiny_vocab
+
+    tok = BertTokenizer(build_tiny_vocab())
+    model = build_model("cuda", torch.bfloat16, cpu_model)
+    from gitax_torch.preprocess.transforms import TestTransform
+
+    engine = CaptionEngine(model, tok, batch_size=32,
+                           beam=BeamSearchConfig(num_beams=4, max_steps=40), dtype=torch.bfloat16,
+                           int8=True, fast_prefill=True, decode_kernel=True,
+                           transform=TestTransform(crop_size=224), use_native=False)
+    beam = engine.beam_for(1)
+    x = normalized(images[:32], torch.bfloat16)
+    kw = dict(beam=beam, dtype=torch.bfloat16, fast_prefill=True, decode_kernel=True)
+
+    # (g) the first graph search of the key: capture time, memory beyond
+    # the eager loop's peak, and what the graph keeps
+    model.generate(x, eager_loop=True, **kw)  # cuBLAS, allocator
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model.generate(x, eager_loop=True, **kw)
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model.generate(x, **kw)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    graph_peak = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated() - base
+    loop = device_loop.graphs(model)[-1]
+    log("device loop (g) COCO B=32 bf16+int8: the first graph search {:.3f} s, its capture {:.3f} s "
+        "(the warm-up step excluded); peak memory above the weights {:.1f} MiB against the eager "
+        "loop's {:.1f} MiB (+{:.1f} MiB); the graph keeps {:.1f} MiB (its static state and pool) "
+        "[{}]".format(first_s, loop.capture_s, graph_peak / 2**20, eager_peak / 2**20,
+                      (graph_peak - eager_peak) / 2**20, held / 2**20, card))
+
+    # (c) ms per beam step, eager and graph in turns
+    readings = {True: [], False: []}
+    for eager_loop in [True, False, False, True, True, False][:2 * P34_PASSES]:
+        spans = SearchSpans(model)
+        device_loop.settle()
+        model.decode_step_calls = 0
+        model.generate(x, eager_loop=eager_loop, **kw)
+        torch.cuda.synchronize()
+        device_loop.settle()
+        readings[eager_loop].append(spans.loop_ms() / model.decode_step_calls)
+        steps = model.decode_step_calls
+        spans.remove()
+    med = {k: sorted(v)[len(v) // 2] for k, v in readings.items()}
+    log("device loop (c) COCO B=32 bf16+int8, {} beam steps a search: ms per beam step (device "
+        "events: the search less encode and prefill) eager {} (median {:.3f}, spread {:.3f}), "
+        "graph {} (median {:.3f}, spread {:.3f}); eager / graph {:.2f}x [{}]".format(
+            steps, ["%.3f" % v for v in readings[True]], med[True],
+            max(readings[True]) - min(readings[True]), ["%.3f" % v for v in readings[False]],
+            med[False], max(readings[False]) - min(readings[False]), med[True] / med[False], card))
+
+    # (d) launches from the host and the device's busy share, one batch
+    rows = {}
+    for eager_loop in (True, False):
+        replays = loop.replays
+        share, busy, span, host = busy_profile(
+            lambda: model.generate(x, eager_loop=eager_loop, **kw))
+        rows[eager_loop] = (share, busy, span, host, loop.replays - replays)
+    for eager_loop, (share, busy, span, host, replays) in rows.items():
+        log("device loop (d) COCO B=32, {}: device busy {:.1%} of {:.2f} ms ({:.2f} ms busy); host "
+            "launches {}{} [{}]".format(
+                "eager loop" if eager_loop else "graph", share, span, busy, host,
+                "" if eager_loop else ", {} of them the search's graph launches".format(replays),
+                card))
+
+    # (e) dispatch returns before the search ends: host ms against device
+    # ms, and no synchronising call on the way (sync debug mode)
+    arr = np.stack(images[:32])
+    pref = np.full((32, 1), tok.cls_token_id, np.int64)
+    engine.to_host(engine.dispatch_device_batch(arr, pref))
+    torch.cuda.synchronize()
+    host, dev = [], []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            seqs = engine.dispatch_device_batch(arr, pref)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        engine.to_host(seqs)
+        dev.append(start.elapsed_time(end))
+    check(max(host) < min(dev), "dispatch's host ms {} not below the search's device ms {}".format(
+        host, dev))
+    log("device loop (e) COCO B=32: dispatch_device_batch returns after {} host ms, the batch's "
+        "device work takes {} ms; no synchronising call inside dispatch (sync debug mode 'error') "
+        "[{}]".format(["%.2f" % h for h in host], ["%.2f" % d for d in dev], card))
+
+    # (f) the engine, the TSV loop and the server, eager against graph in turns
+    def eager_on(m, on):
+        if on:
+            m.generate = functools.partial(GitModel.generate, m, eager_loop=True)
+        elif "generate" in m.__dict__:
+            del m.generate
+
+    rates = collections.defaultdict(list)
+    prefixes = [[tok.cls_token_id]] * 96
+    engine.generate_batch(images[:96], prefixes)
+    tsv_in = os.path.join(work, "coco.img.tsv")
+    order = [True, False, False, True, True, False][:2 * P34_PASSES]
+    for eager_loop in order:
+        eager_on(model, eager_loop)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.resolve(engine.dispatch(images[:96], prefixes))
+            rates["engine", eager_loop].append(96 / (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            engine.run_caption_tsv(tsv_in, os.path.join(work, "p34.out.tsv"))
+            rates["tsv", eager_loop].append(COCO_TSV_ROWS / (time.perf_counter() - t0))
+        finally:
+            eager_on(model, False)
+    engine.close()
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    stack_engine, batcher = serving_stack(work, "bfloat16", int8=True)
+    payloads = [base64_png(a) for a in images[:32]]
+    bodies = [json.dumps({"image": p}).encode() for p in payloads]
+    try:
+        batcher.warm(prefix_lens=(1,))
+        with Served(batcher) as srv:
+            for eager_loop in order[:4]:
+                eager_on(stack_engine.model, eager_loop)
+                try:
+                    lat, bad, sent, load_s = closed_loop(srv.base, bodies, P34_LOAD_SECONDS)
+                finally:
+                    eager_on(stack_engine.model, False)
+                check(not bad, "serving errors: {}".format(sorted(set(bad))))
+                rates["serving", eager_loop].append(
+                    (sent / load_s, float(np.percentile(np.asarray(lat) * 1e3, 99))))
+    finally:
+        batcher.close()
+        stack_engine.close()
+    for what, unit in (("engine", "images/s"), ("tsv", "images/s")):
+        log("device loop (f) COCO {} {}: eager {} graph {} (in turns {}) [{}]".format(
+            what, unit, ["%.2f" % r for r in rates[what, True]],
+            ["%.2f" % r for r in rates[what, False]],
+            ["eager" if e else "graph" for e in order], card))
+    log("device loop (f) serving, {} closed-loop clients for {:.0f} s a turn: eager {} graph {} "
+        "(requests/s, p99 ms; in turns {}) [{}]".format(
+            LOAD_CLIENTS, P34_LOAD_SECONDS,
+            [("%.2f" % r, "%.1f" % p) for r, p in rates["serving", True]],
+            [("%.2f" % r, "%.1f" % p) for r, p in rates["serving", False]],
+            ["eager" if e else "graph" for e in order[:4]], card))
+    del stack_engine, batcher
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def base64_png(img):
+    import base64
+
+    return base64.b64encode(png_bytes(img)).decode()
+
+
+def phase_device_loop(card, cpu_model, images, work, seed):
+    """34. The device-side search: (a) f32 tokens of the graph path against
+    the eager loop; (b) kernel 1 inside a replayed graph against its
+    plain version; (c)-(g) on GIT_LARGE_COCO bf16 + int8: ms per beam step
+    eager and graph in turns, launches and the device's busy share,
+    dispatch's host ms against the search's device ms, the engine, TSV and
+    serving rates in turns, capture time and memory.  Returns kernel 1's
+    launches (the eager loop's and the replays')."""
+    from gitax_torch.ops.decode_attention import decode_attention
+
+    t0 = time.perf_counter()
+    settle()
+    d0 = decode_attention.launches
+    p34_parity(images, seed)
+    check_decode_in_graph()
+    p34_coco(card, cpu_model, images, work)
+    settle()
+    log("phase 34 (the device-side search) {:.1f} s".format(time.perf_counter() - t0))
+    return decode_attention.launches - d0
+
+
 def main(argv):
     import torch
 
@@ -5319,6 +5981,7 @@ def main(argv):
              "flash_attention": phase_flash_kernel(card),  # 4
              "vocab_topk": phase_vocab_kernel(card)}  # 9
     stats.update(phase_int8_kernels(card))  # 25
+    stats["graph_if"] = phase_graph_kernel(card)  # 34's kernel
 
     # 13: the decoders; the TSVs and the checkpoint go in the checkout's
     # build tree, removed at the end
@@ -5327,7 +5990,11 @@ def main(argv):
     os.makedirs(work)
     phase_decoders(work)
 
-    # 5, 6, 14, 16, 17: the COCO path
+    # 5, 6, 14, 16, 17: the COCO path; from here on every launch of a
+    # search's conditional graph counts (its set_condition kernel)
+    from gitax_torch.decode import device_loop
+
+    device_loop.launches = 0
     coco = random_model("GIT_LARGE_COCO", seed=0, gate=12)
     coco_launches, images, coco_rate, coco_step_ms = phase_coco_slice(
         card, coco, BertTokenizer(build_tiny_vocab()), os.path.join(work, "trace"))  # and 29
@@ -5342,6 +6009,7 @@ def main(argv):
     sample_d = phase_sampling(card, coco, images, seed)  # 19
     log("phase 18 (serving) {:.1f} s, phase 19 (sampling) {:.1f} s".format(
         t1 - t0, time.perf_counter() - t1))
+    p34_d = phase_device_loop(card, coco, images, work, seed)  # 34, on phase 14's TSV
 
     # 7, 8, 15: the VQA path
     # past the 14-token question prefix: answers of ~2 and ~9 tokens
@@ -5394,27 +6062,33 @@ def main(argv):
     phase_mesh(card, work, seed, train_rate)
     shutil.rmtree(work)
 
+    settle()
     launches = {"decode_attention": coco_launches + vqa_d + video_d + tsv_d + vqa_tsv_d
-                + serve_d + sample_d + context_d + mesh_d[0],
+                + serve_d + sample_d + context_d + mesh_d[0] + p34_d,
                 "flash_attention": vqa_f + video_f + vqa_tsv_f + mesh_d[1] + clip_f,
                 "vocab_topk": vocab_launches + mesh_d[2],
                 "int8_quantize_rows": w8a8_launches[0] + mesh_int8[0],
-                "int8_scale_rows": w8a8_launches[1] + mesh_int8[1]}
+                "int8_scale_rows": w8a8_launches[1] + mesh_int8[1],
+                "graph_if": device_loop.launches}
     stats["decode_attention"]["launches_with_mem_bias"] = context_d
     check(all(n > 0 for n in launches.values()), "a kernel of the path was not launched: "
           "{}".format(launches))
     log("main-path launches: decode_attention {} (COCO {} + VQA {} + video {} + COCO TSV {} + VQA "
-        "TSV {} + serving {} + sampling {} + text context {}, the last with mem_bias, + mesh {}), "
+        "TSV {} + serving {} + sampling {} + text context {}, the last with mem_bias, + mesh {} + "
+        "the device-side search {}), "
         "flash_attention {} (VQA {} + video {} + VQA TSV {} + mesh {} + CLIP encoder {}), "
         "vocab_topk {} (video, "
         "vocab_kernel on, {} + mesh {}; 0 under sampling); the mesh's counted over every rank; "
         "int8_quantize_rows {} and int8_scale_rows {} (the w8a8 encoder, {} and {} + the mesh's "
-        "rank 0 {} and {}); all phases {:.1f} s".format(
+        "rank 0 {} and {}); graph_if {} (the searches' graph launches on one card, every phase); "
+        "all phases {:.1f} s".format(
             launches["decode_attention"], coco_launches, vqa_d, video_d, tsv_d, vqa_tsv_d, serve_d,
-            sample_d, context_d, mesh_d[0], launches["flash_attention"], vqa_f, video_f, vqa_tsv_f,
+            sample_d, context_d, mesh_d[0], p34_d, launches["flash_attention"], vqa_f, video_f,
+            vqa_tsv_f,
             mesh_d[1], clip_f, launches["vocab_topk"], vocab_launches, mesh_d[2],
             launches["int8_quantize_rows"], launches["int8_scale_rows"], w8a8_launches[0],
-            w8a8_launches[1], mesh_int8[0], mesh_int8[1], time.perf_counter() - t_start))
+            w8a8_launches[1], mesh_int8[0], mesh_int8[1], launches["graph_if"],
+            time.perf_counter() - t_start))
     for name, rows in mesh_rows.items():
         log("{} at a mesh rank's shapes: {}".format(name, json.dumps(rows)))
     log(card)

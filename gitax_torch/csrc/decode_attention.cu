@@ -7,7 +7,11 @@
 // Replaces the TPU kernel gitax/ops/decode_attention.py::_kernel.  It
 // computes the same function, not a block-by-block copy:
 //   * writes each beam's new k|v row into the time-major text cache
-//     txt_kv [T, B*K, H*2Dh] at `pos`, in place;
+//     txt_kv [T, B*K, H*2Dh] at `pos`, in place.  `pos` is an int in
+//     device memory that each CTA reads once, so a captured CUDA graph
+//     replays the launch at every step of the search (the launch shape
+//     does not depend on it); a `pos` outside [0, T) launches nothing
+//     but sets the error flag `err`, which the host reads when it likes;
 //   * scores the pre-scaled query q [B*K, H*Dh] against the memory keys
 //     mem_kv [B, H, M, 2Dh] (shared by the K beams of a batch element;
 //     bf16/f32, or int8 with per-(batch, head) k and v scales) plus an
@@ -208,7 +212,16 @@ decode_attention_kernel(const T* __restrict__ q,          // [BK, H*Dh]
                         const float* __restrict__ mem_bias,   // [B, M] or null
                         const float* __restrict__ mem_scale,  // [B, H, 2] or null
                         T* __restrict__ ctx,              // [BK, H*Dh]
-                        int K, int H, int M, int Tmax, int pos, int chunk) {
+                        const int* __restrict__ pos_ptr,  // the text position
+                        int* __restrict__ err,            // set to 1 on a bad pos
+                        int K, int H, int M, int Tmax, int chunk) {
+  // the step's position, read once; out of range, every CTA of every
+  // cluster leaves before its first barrier and the launch writes nothing
+  const int pos = *pos_ptr;
+  if (pos < 0 || pos >= Tmax) {
+    if (threadIdx.x == 0) atomicExch(err, 1);
+    return;
+  }
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int C = (int)cluster.num_blocks();
@@ -445,8 +458,8 @@ decode_attention_kernel(const T* __restrict__ q,          // [BK, H*Dh]
 
 template <typename T, typename MT>
 int launch(const void* q, const void* kv_new, void* txt_kv, const void* anc, const void* mem_kv,
-           const void* mem_bias, const void* mem_scale, void* ctx, int B, int K, int H, int M,
-           int Tmax, int pos, int cluster, int chunk, cudaStream_t stream) {
+           const void* mem_bias, const void* mem_scale, void* ctx, const int* pos, int* err,
+           int B, int K, int H, int M, int Tmax, int cluster, int chunk, cudaStream_t stream) {
   auto kern = decode_attention_kernel<T, MT>;
   const size_t smem = Layout(K, chunk, Tmax, sizeof(MT), cluster).total;
   static size_t allowed = 48 * 1024;  // the instantiation's dynamic smem limit so far
@@ -471,8 +484,8 @@ int launch(const void* q, const void* kv_new, void* txt_kv, const void* anc, con
   e = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(q), static_cast<const T*>(kv_new),
                          static_cast<T*>(txt_kv), static_cast<const int32_t*>(anc),
                          static_cast<const MT*>(mem_kv), static_cast<const float*>(mem_bias),
-                         static_cast<const float*>(mem_scale), static_cast<T*>(ctx), K, H, M,
-                         Tmax, pos, chunk);
+                         static_cast<const float*>(mem_scale), static_cast<T*>(ctx), pos, err,
+                         K, H, M, Tmax, chunk);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -494,29 +507,35 @@ int gitax_decode_attention_head_dim() { return kDh; }
 
 // act_bf16: activations (q, kv_new, txt_kv, ctx) are bf16, else f32.
 // mem_int8: mem_kv is int8 with mem_scale [B, H, 2], else the activation
-// type.  cluster, chunk: the wrapper's plan (CTAs per (b, h), memory rows
-// per CTA).  Returns cudaGetLastError() after the launch (0 = launched).
+// type.  pos: one int in device memory, the text position, read by the
+// kernel (0 <= pos < Tmax, else the kernel writes nothing and sets *err to
+// 1; err: one int in device memory).  cluster, chunk: the wrapper's plan
+// (CTAs per (b, h), memory rows per CTA).  Returns cudaGetLastError()
+// after the launch (0 = launched).
 int gitax_decode_attention(const void* q, const void* kv_new, void* txt_kv, const void* anc,
                            const void* mem_kv, const void* mem_bias, const void* mem_scale,
-                           void* ctx, int B, int K, int H, int Dh, int M, int Tmax, int pos,
-                           int act_bf16, int mem_int8, int cluster, int chunk, void* stream) {
-  if (Dh != kDh || K < 1 || K > kMaxBeams || pos < 0 || pos >= Tmax || cluster < 1 ||
+                           void* ctx, const void* pos, void* err, int B, int K, int H, int Dh,
+                           int M, int Tmax, int act_bf16, int mem_int8, int cluster, int chunk,
+                           void* stream) {
+  if (Dh != kDh || K < 1 || K > kMaxBeams || pos == nullptr || err == nullptr || cluster < 1 ||
       cluster > kMaxCluster || chunk < 0 || (long long)cluster * chunk < M)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* p = static_cast<const int*>(pos);
+  int* e = static_cast<int*>(err);
   if (act_bf16) {
     if (mem_int8)
       return launch<__nv_bfloat16, int8_t>(q, kv_new, txt_kv, anc, mem_kv, mem_bias, mem_scale,
-                                           ctx, B, K, H, M, Tmax, pos, cluster, chunk, s);
+                                           ctx, p, e, B, K, H, M, Tmax, cluster, chunk, s);
     return launch<__nv_bfloat16, __nv_bfloat16>(q, kv_new, txt_kv, anc, mem_kv, mem_bias,
-                                                mem_scale, ctx, B, K, H, M, Tmax, pos, cluster,
+                                                mem_scale, ctx, p, e, B, K, H, M, Tmax, cluster,
                                                 chunk, s);
   }
   if (mem_int8)
-    return launch<float, int8_t>(q, kv_new, txt_kv, anc, mem_kv, mem_bias, mem_scale, ctx, B, K,
-                                 H, M, Tmax, pos, cluster, chunk, s);
-  return launch<float, float>(q, kv_new, txt_kv, anc, mem_kv, mem_bias, mem_scale, ctx, B, K, H,
-                              M, Tmax, pos, cluster, chunk, s);
+    return launch<float, int8_t>(q, kv_new, txt_kv, anc, mem_kv, mem_bias, mem_scale, ctx, p, e,
+                                 B, K, H, M, Tmax, cluster, chunk, s);
+  return launch<float, float>(q, kv_new, txt_kv, anc, mem_kv, mem_bias, mem_scale, ctx, p, e, B,
+                              K, H, M, Tmax, cluster, chunk, s);
 }
 
 }  // extern "C"

@@ -129,7 +129,8 @@ def _kernel_cases():
 
     b, k, h, dh, m, t = 2, 4, 2, 64, 40, 8
     dec = dict(q=randn(b * k, h * dh), kv_new=randn(b * k, h * 2 * dh),
-               txt_kv=randn(t, b * k, h * 2 * dh), pos=3, mem_kv=randn(b, h, m, 2 * dh),
+               txt_kv=randn(t, b * k, h * 2 * dh),
+               pos=torch.full((), 3, dtype=torch.int32, device="cuda"), mem_kv=randn(b, h, m, 2 * dh),
                anc=torch.randint(0, k, (b * k, t), generator=g, device="cuda",
                                  dtype=torch.int32))
     kw = dict(beams=k, num_heads=h, head_dim=dh)

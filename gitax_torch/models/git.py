@@ -33,6 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..decode import device_loop
 from ..decode.beam import BeamSearchConfig, beam_search
 from ..decode.greedy import greedy_search
 from ..decode.trie import trie_greedy_search
@@ -238,7 +239,7 @@ class GitModel(nn.Module):
                  memory_valid=None, dtype=torch.float32, sos_id=101, mode="beam",
                  max_steps=None, num_return_sequences=1, rng=None, trie=None,
                  context_tokens=None, context_lengths=None, fast_prefill=False,
-                 decode_kernel=False, flash=None, vocab_kernel=False):
+                 decode_kernel=False, flash=None, vocab_kernel=False, eager_loop=False):
         """Caption generation (reference decoder.py:977-1011) by beam
         search, greedy search (mode='greedy') or trie-constrained greedy
         search (mode='trie', over `trie`, a `decode.trie.TokenTrie`).
@@ -272,7 +273,19 @@ class GitModel(nn.Module):
         of the group calls this with the same inputs; a sampled search
         there first sets every rank's `rng` to the state of the group's
         rank 0 (one broadcast a call, `share_generator`), so that the
-        ranks draw the same noise whatever their callers seeded."""
+        ranks draw the same noise whatever their callers seeded.
+
+        The search's loop, gitax's device-side `while_loop`: on a CUDA
+        device with m = 1 every mode runs one captured step replayed
+        under a predicate the card computes (`decode.device_loop`), so
+        this returns once the work is enqueued, before the search ends;
+        the sequences come back as new tensors (the graph's buffers are
+        not handed out).  The encoder and the prefill stay eager.  The
+        eager loop, one host read a step, runs CPU tensors and model
+        groups of m > 1 (their step all-reduces over a group that cannot
+        be captured); eager_loop=True runs it on the card too, the
+        reference the graph is held against (tests and chip_smoke.py
+        pass it; the CLI, the engine and the server do not)."""
         if mode not in ("beam", "greedy", "trie"):
             raise ValueError("generate mode {!r}: 'beam', 'greedy' or 'trie'".format(mode))
         if mode == "beam" and beam is not None and beam.do_sample and rng is not None \
@@ -310,11 +323,13 @@ class GitModel(nn.Module):
             def plain_step(tokens, cache):
                 return self.decode_step(tokens, cache, dtype)
 
+            run = self._search_run(visual, eager_loop, (mode, max_steps, dtype))
             if mode == "greedy":
-                seqs, logprobs = greedy_search(plain_step, logits, cache, prefix_tokens, max_steps)
+                seqs, logprobs = greedy_search(plain_step, logits, cache, prefix_tokens, max_steps,
+                                               run=run)
             else:
                 seqs, logprobs = trie_greedy_search(plain_step, logits, cache, prefix_tokens,
-                                                    trie, max_steps)
+                                                    trie, max_steps, run=run)
             return seqs[:, tp:], logprobs
         beam = beam or BeamSearchConfig()
         logits, cache = self.prefill(visual, prefix_tokens, beam.max_steps,
@@ -327,12 +342,27 @@ class GitModel(nn.Module):
             return self.decode_step(tokens, cache, dtype, kernel=bool(decode_kernel),
                                     vocab_kernel=vocab_kernel)
 
+        run = self._search_run(visual, eager_loop, ("beam", beam, dtype, decode_kernel,
+                                                    vocab_kernel))
         decoded, logprobs = beam_search(step, logits, cache, prefix_tokens, beam, rng=rng,
-                                        vocab_stats=vocab_kernel)
+                                        vocab_stats=vocab_kernel, run=run)
         decoded = decoded[:, :, tp:]
         if beam.num_keep_best == 1:
             decoded, logprobs = decoded[:, 0], logprobs[:, 0]
         return decoded, logprobs
+
+    def _search_run(self, visual, eager_loop, key):
+        """The search's loop: None, the eager loop, for CPU tensors, a
+        model group of m > 1 or eager_loop=True; else `device_loop.run`
+        with this model as the owner of its graphs and `key` (what fixes
+        the step's code beside the state's shapes)."""
+        if eager_loop or not visual.is_cuda or self.textual.tp_group is not None:
+            return None
+
+        def run(state, step, running, result, replays, draw=None, rng=None):
+            return device_loop.run(self, key, state, step, running, result, replays, draw, rng)
+
+        return run
 
 
 def share_generator(rng: torch.Generator, mesh):

@@ -169,7 +169,9 @@ def project_visual(tx: TextualHead, feats, cfg: GitConfig):
 
 
 def embed_captions(tx: TextualHead, tokens, cfg: GitConfig, position_offset=0):
-    """Word + positional embedding with LN(eps 1e-8); tokens [B, T]."""
+    """Word + positional embedding with LN(eps 1e-8); tokens [B, T].
+    position_offset: an int or a 0-dim integer tensor on the tokens'
+    device (a decode step's cache position, never read on the host)."""
     e = tx.embedding
     t = tokens.shape[-1]
     word = e.words.weight[tokens]
@@ -308,7 +310,10 @@ class KVCache:
       Both decode paths read this one layout.
     txt_kv: per-layer [T_max, B*beams, H*2Dh] text k|v, time-major,
       updated in place one row per step.
-    length: number of text positions already cached (the next position).
+    length: number of text positions already cached (the next position),
+      a 0-dim int32 tensor on the cache's device: the decode step and
+      kernel 1 read it there, so no step reads the host and a captured
+      step replays at any position (`decode.device_loop`).
     mem_bias: [B, M] f32 additive memory bias (0 valid / NEG_INF padded),
       built once at prefill from memory_valid; None when all are valid.
     anc: [B*beams, T_max] int32 beam ancestry, or None: slot t of beam k
@@ -318,7 +323,7 @@ class KVCache:
 
     mem_kv: list
     txt_kv: list
-    length: int
+    length: torch.Tensor
     mem_bias: Optional[torch.Tensor] = None
     mem_scale: Optional[list] = None
     anc: Optional[torch.Tensor] = None
@@ -386,7 +391,8 @@ def prefill(tx: TextualHead, visual_features, prefix_tokens, cfg: GitConfig,
     if memory_valid is not None:
         mem_bias = torch.where(memory_valid, 0.0, NEG_INF).float()
     cache = KVCache(
-        mem_kv=mem_kv, txt_kv=txt_kv, length=tp, mem_bias=mem_bias, mem_scale=mem_scale if kernel_memory == "int8" else None,
+        mem_kv=mem_kv, txt_kv=txt_kv, length=torch.full((), tp, dtype=torch.int32, device=x.device),
+        mem_bias=mem_bias, mem_scale=mem_scale if kernel_memory == "int8" else None,
     )
     return logits, cache
 
@@ -395,7 +401,10 @@ def decode_step(tx: TextualHead, tokens, cache: KVCache, cfg: GitConfig,
                 dtype=torch.float32, kernel=False, vocab_kernel=False):
     """One incremental step: tokens [B*beams] at text position
     cache.length.  Returns (f32 logits [B*beams, vocab], the cache with
-    length+1); the text cache is updated in place.
+    length+1, a new 0-dim tensor); the text cache is updated in place.
+    The position stays on the device: nothing here reads the host, so the
+    step can be captured in a CUDA graph (an int length, as a hand-built
+    cache may hold, is made a tensor first).
 
     vocab_kernel=True routes the int8 tied head through
     `ops.vocab_topk.vocab_logits_topk` (the CUDA kernel for CUDA tensors,
@@ -419,7 +428,7 @@ def decode_step(tx: TextualHead, tokens, cache: KVCache, cfg: GitConfig,
     beams = bk // b
     if beams * b != bk:
         raise ValueError("{} tokens for a batch of {}".format(bk, b))
-    pos = cache.length
+    pos = torch.as_tensor(cache.length, dtype=torch.int32, device=tokens.device)
     x = embed_captions(tx, tokens[:, None], cfg, position_offset=pos).to(dtype)
     dh = cfg.head_dim
     t_max = cache.max_text_len
@@ -451,6 +460,7 @@ def decode_step(tx: TextualHead, tokens, cache: KVCache, cfg: GitConfig,
         txt_bias = torch.where(
             torch.arange(t_max, device=x.device) <= pos, 0.0, NEG_INF
         ).float()
+        pos_row = pos.long().reshape(1)  # the cache row this step writes
         anc_onehot = None
         if cache.anc is not None:
             anc_onehot = nn.functional.one_hot(
@@ -461,7 +471,7 @@ def decode_step(tx: TextualHead, tokens, cache: KVCache, cfg: GitConfig,
             h = local_heads(layer, cfg)
             q, k_new, v_new = qkv_project(xcur, layer.attention.qkv, h)
             new_row = torch.cat([k_new, v_new], -1).permute(2, 0, 1, 3)
-            txt_kv[pos] = new_row.reshape(bk, h * 2 * dh)
+            txt_kv.index_copy_(0, pos_row, new_row.reshape(1, bk, h * 2 * dh))
             qb = (q[:, :, 0] * scale).reshape(b, beams, h, dh).to(acc)
             m = mem_kv.shape[2]
             mem_scores = torch.einsum("bkhd,bhmd->bkhm", qb, mem_kv[..., :dh].to(acc))

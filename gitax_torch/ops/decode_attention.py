@@ -8,7 +8,9 @@ is the plain PyTorch version of the same function.
 
 `decode_attention` is the public entry: for CPU tensors it runs the plain
 version; for CUDA tensors it launches the kernel or raises.  There is no
-fallback.  `decode_attention.launches` counts kernel launches.
+fallback.  `decode_attention.launches` counts kernel launches made by the
+wrapper; a CUDA graph that captured the call launches the kernel at each
+replay without the wrapper (`decode.device_loop` adds those to the count).
 
 Layouts are gitax's at the public function:
   q        [BK, H*Dh]      pre-scaled queries (no zero extension)
@@ -16,6 +18,10 @@ Layouts are gitax's at the public function:
   txt_kv   [T, BK, H*2Dh]  time-major text cache, updated IN PLACE at pos
   anc      [BK, T] int32   beam ancestry: slot t of beam k reads row
                            b*K + anc[b*K+k, t]
+  pos      [] int32        the text position, a 0-dim tensor on the
+                           device of txt_kv (the kernel reads it from
+                           device memory, so the launch does not depend on
+                           it); the plain version also takes an int
   mem_kv   [B, H, M, 2Dh]  memory k|v shared by a batch element's beams;
                            the activation dtype, or int8 with
   mem_scale [B, H, 2] f32  per-(batch, head) k and v scales
@@ -53,11 +59,14 @@ def decode_attention_reference(q, kv_new, txt_kv, anc, pos, mem_kv,
     """Plain PyTorch version with the kernel's numerics: f32 scores, one
     f32 softmax over [memory ; live text], probabilities rounded to the
     activation dtype, both contexts summed in f32 and cast once.  Writes
-    kv_new into txt_kv[pos] in place."""
+    kv_new into txt_kv[pos] in place.  pos: a 0-dim integer tensor or an
+    int, never read on the host."""
     t_max, bk, _ = txt_kv.shape
     b, k, h, dh = bk // beams, beams, num_heads, head_dim
     dt = q.dtype
-    txt_kv[pos] = kv_new
+    dev = txt_kv.device
+    pos = torch.as_tensor(pos, device=dev).long()
+    txt_kv.index_copy_(0, pos.reshape(1), kv_new[None])
     qf = q.float().reshape(b, k, h, dh)
     if mem_kv.dtype == torch.int8:
         scale = mem_scale.to(dt)  # [B, H, 2]
@@ -72,7 +81,6 @@ def decode_attention_reference(q, kv_new, txt_kv, anc, pos, mem_kv,
     if mem_bias is not None:
         mem_s = mem_s + mem_bias.float()[:, None, None, :]
     # the ancestry-selected text rows: sel[b, k, t] = cache[t, b*K + anc]
-    dev = txt_kv.device
     rows = (torch.arange(b, device=dev)[:, None, None] * k
             + anc.long().reshape(b, k, t_max))
     sel = txt_kv[torch.arange(t_max, device=dev)[None, None, :], rows]
@@ -126,6 +134,9 @@ def cluster_plan(mem_len, beams, head_dim, t_max, mem_bytes):
 
 # (launch function, the head dim the kernel takes), bound at the first launch
 _KERNEL = None
+# device -> the kernel's error flag: one int32 the kernel sets to 1 when a
+# launch's pos lies outside [0, T)
+_ERRORS = {}
 
 
 def _bind():
@@ -133,11 +144,28 @@ def _bind():
     if _KERNEL is None:
         lib = cuda_build.load("decode_attention")
         fn = lib.gitax_decode_attention
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.gitax_decode_attention_head_dim.restype = ctypes.c_int
         _KERNEL = (fn, lib.gitax_decode_attention_head_dim())
     return _KERNEL
+
+
+def error_flag(device) -> torch.Tensor:
+    """The kernel's error flag on a CUDA device: a [1] int32 tensor that
+    any launch whose pos lies outside [0, T) sets to 1 (and then writes
+    nothing).  The range check moved onto the card with pos: read the flag
+    where a host wait is acceptable (`int(error_flag(dev)[0])`, as
+    chip_smoke.py does) and zero it with `.zero_()`.  Allocated at the
+    first launch on the device, which is eager (a graph's capture follows
+    a warm-up step)."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _ERRORS:
+        with torch.inference_mode(False):  # a normal tensor: zero_() works anywhere
+            _ERRORS[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _ERRORS[device]
 
 
 def _check(cond, msg):
@@ -184,7 +212,12 @@ def decode_attention_cuda(q, kv_new, txt_kv, anc, pos, mem_kv, mem_bias=None,
     if mem_bias is not None:
         _check(mem_bias.dtype == torch.float32 and mem_bias.shape == (b, m),
                "mem_bias must be f32 [B, M]")
-    _check(0 <= pos < t_max, "pos {} outside [0, {})".format(pos, t_max))
+    if not (torch.is_tensor(pos) and pos.dim() == 0 and pos.dtype == torch.int32
+            and pos.device == dev):
+        # the message names pos's kind, never its value (a read of the card)
+        _check(False, "pos must be a 0-dim int32 tensor on the device of txt_kv, got {}".format(
+            "a tensor {} {} on {}".format(tuple(pos.shape), pos.dtype, pos.device)
+            if torch.is_tensor(pos) else type(pos).__name__))
     _check(1 <= k <= _MAX_BEAMS, "beams={}: the kernel takes 1 to {}".format(k, _MAX_BEAMS))
     _check(m >= 1, "no memory rows")
     # the memory rows arrive by bulk copies and the text rows by 16-byte loads
@@ -200,7 +233,8 @@ def decode_attention_cuda(q, kv_new, txt_kv, anc, pos, mem_kv, mem_bias=None,
         q.data_ptr(), kv_new.data_ptr(), txt_kv.data_ptr(), anc.data_ptr(), mem_kv.data_ptr(),
         None if mem_bias is None else mem_bias.data_ptr(),
         None if mem_scale is None else mem_scale.data_ptr(), ctx.data_ptr(),
-        b, k, h, dh, m, t_max, int(pos), int(dt == torch.bfloat16), int(mem_int8), cluster, chunk,
+        pos.data_ptr(), error_flag(dev).data_ptr(),
+        b, k, h, dh, m, t_max, int(dt == torch.bfloat16), int(mem_int8), cluster, chunk,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:

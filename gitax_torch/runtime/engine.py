@@ -35,10 +35,13 @@ switch for the native loader (`gitax_torch.native`: libjpeg decode,
 resize and crop in C++, uint8 out): None uses it where it built, True
 requires it (raising with the build's reason where it did not build),
 False decodes with PIL.  On a machine without `jpeglib.h` (the H100's)
-None decodes with PIL, as gitax does there.  The beam loop reads the
-host once per step, so `dispatch` returns when the device is nearly
-done: the decode pool overlaps the search, detokenisation overlaps
-nothing.
+None decodes with PIL, as gitax does there.  On one card the search
+runs as a replayed CUDA graph step (`decode.device_loop`) and the upload
+goes through page-locked buffers (`PinnedUploads`), so `dispatch`
+returns before the search ends, as gitax's asynchronous dispatch does:
+the TSV loops' three stages (decode of chunk i+1, the search of chunk i,
+detokenisation of chunk i-1) overlap, and `resolve` (`to_host`) is the
+first host wait.
 
 On a mesh (`mesh=`, gitax pipeline.py:166-182 and 334-378) the engine is
 one process per rank, not gitax's one SPMD program.  Rank 0 is the
@@ -202,6 +205,47 @@ class _Channel(object):
         return comm.broadcast(t, self.src, self.control).tolist()
 
 
+class PinnedUploads(object):
+    """Host-to-device copies through page-locked buffers.  A copy from
+    pageable memory synchronises with the stream first, so the next
+    batch's upload would wait for the search before it; from pinned
+    memory it is enqueued behind it and the host goes on.  Each (shape,
+    dtype) has a ring of up to RING buffers, each reused once the copy
+    that last read it has run (an event): the host waits only when every
+    buffer of the ring is still in flight.  At most KEYS shapes are kept,
+    the least recently used dropped first."""
+
+    RING = 3
+    KEYS = 8
+
+    def __init__(self):
+        self._rings = collections.OrderedDict()
+
+    def upload(self, host: torch.Tensor, device) -> torch.Tensor:
+        """A copy of the CPU tensor `host` on the CUDA `device`, enqueued on
+        the current stream without a host wait."""
+        key = (tuple(host.shape), host.dtype)
+        ring = self._rings.pop(key, [])
+        self._rings[key] = ring
+        while len(self._rings) > self.KEYS:
+            self._rings.popitem(last=False)
+        free = [i for i, (_, done) in enumerate(ring) if done.query()]
+        if free:
+            slot = ring.pop(free[0])
+        elif len(ring) < self.RING:
+            slot = (torch.empty(host.shape, dtype=host.dtype, pin_memory=True),
+                    torch.cuda.Event())
+        else:  # the oldest, once its copy has run
+            slot = ring.pop(0)
+            slot[1].synchronize()
+        ring.append(slot)
+        buf, done = slot
+        buf.copy_(host)
+        out = buf.to(device, non_blocking=True)
+        done.record(torch.cuda.current_stream(device))
+        return out
+
+
 class CaptionEngine(object):
     """Batched captioning around a port GitModel, whose parameters set the
     device.  `dispatch` runs the search batch by batch and returns a
@@ -284,6 +328,7 @@ class CaptionEngine(object):
                                                np.float32)).to(self.device)
         # the host decode stage; its threads start at the first submit
         self.pool = ThreadPoolExecutor(max_workers=decode_workers)
+        self._uploads = PinnedUploads()
         self._close = weakref.finalize(self, self.pool.shutdown, wait=False)
         self._on_close = on_close
 
@@ -360,7 +405,9 @@ class CaptionEngine(object):
 
         This is the one host-to-device seam: the TSV loops and the
         serving batcher both come through here, so a mesh engine serves
-        every product surface."""
+        every product surface.  On one card it returns once the upload and
+        the search are enqueued (pinned uploads, the replayed search
+        step); the sequences are ready when `to_host` has read them."""
         if imgs.ndim not in (4, 5) or imgs.shape[-1] != 3:
             raise ValueError("a batch must be [B, H, W, 3] images or [B, F, H, W, 3] clips, "
                              "got {}".format(imgs.shape))
@@ -372,8 +419,12 @@ class CaptionEngine(object):
         dev_imgs = torch.from_numpy(imgs)
         if dev_imgs.dtype != torch.uint8:  # cast on the host: the upload is activation-width
             dev_imgs = dev_imgs.to(self.dtype)
-        dev_imgs = dev_imgs.to(self.device)
-        pref = torch.from_numpy(pref).to(self.device)
+        pref = torch.from_numpy(pref)
+        if self.device.type == "cuda":  # no host wait: see PinnedUploads
+            dev_imgs = self._uploads.upload(dev_imgs, self.device)
+            pref = self._uploads.upload(pref, self.device)
+        else:
+            dev_imgs, pref = dev_imgs.to(self.device), pref.to(self.device)
         seqs, _ = self._caption_fn(pref.shape[1], generate)(dev_imgs, pref)
         return seqs
 

@@ -31,11 +31,13 @@ dropped before detokenization.  Bucketing bounds the batch shapes per
 What differs from gitax's copy: the device sequences reach the host
 through the engine's `to_host`; the batcher and resolver threads make
 the engine's card their current CUDA device (it is per thread, and the
-kernels launch on the thread's current device); and the port's dispatch
-is synchronous (the beam loop reads the host every step), so
-`dispatch_device_batch` returns after the whole search: `max_in_flight`
-overlaps no device work, and requests that arrive during a search queue
-up and form the next group.
+kernels launch on the thread's current device).  As in gitax, dispatch
+is asynchronous on one card: `dispatch_device_batch` returns once the
+upload (pinned) and the search (a replayed CUDA graph step,
+`decode.device_loop`) are enqueued, so up to `max_in_flight` batches'
+uploads and searches overlap on the card, and the resolver's `to_host`
+is the first host wait.  A model group of m > 1 ranks still searches
+with one host read a step.
 """
 
 import collections
@@ -184,11 +186,10 @@ class DynamicBatcher(object):
         # the busy-hold policy's inputs (guarded by _cv)
         self._in_flight = 0
         self._completed = 0
-        # dispatch / completion split, kept from gitax: there dispatch is
+        # dispatch / completion split, as in gitax: dispatch is
         # asynchronous and batch N+1 is enqueued while the device runs
-        # batch N; the port's dispatch returns after the search, so here
-        # the resolver only detokenizes and fulfils futures beside the
-        # next search.  Bounded queue caps queued batches (latency, memory).
+        # batch N; the resolver's to_host is the first wait on the card.
+        # Bounded queue caps queued batches (latency, memory).
         import queue as _queue
 
         self._completions = _queue.Queue(maxsize=max(1, int(max_in_flight)))
@@ -287,9 +288,9 @@ class DynamicBatcher(object):
              buckets: Optional[Sequence[int]] = None):
         """Run every bucket size once for the given prefix lengths before
         traffic: the first search builds the CUDA kernels (nvcc at first
-        use, about 11 s) and warms cuBLAS and the allocator for each batch
-        shape, which would otherwise stall every group behind it on the
-        single batcher thread.
+        use, about 11 s), warms cuBLAS and the allocator and captures the
+        search's step graph for each batch shape, which would otherwise
+        stall every group behind it on the single batcher thread.
 
         Warms the exact path HTTP traffic hits: a dummy image is run
         through the engine's own transform, so shape and dtype match real

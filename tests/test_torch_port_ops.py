@@ -350,7 +350,8 @@ def test_port_imports_no_jax():
             "gitax_torch.ops.vocab_topk", "gitax_torch.models.git",
             "gitax_torch.runtime.serving", "gitax_torch.serve",
             "gitax_torch.models.resnet", "gitax_torch.models.clip",
-            "gitax_torch.ckpt.clip_archive", "gitax_torch.native"} <= set(mods)
+            "gitax_torch.ckpt.clip_archive", "gitax_torch.native",
+            "gitax_torch.decode.device_loop"} <= set(mods)
 
 
 def test_port_sources_never_import_jax():
@@ -359,6 +360,7 @@ def test_port_sources_never_import_jax():
                for f in files if f.endswith(".py")]
     assert {os.path.join(REPO, "gitax_torch", "ops", name + ".py")
             for name in ("decode_attention", "flash_attention", "vocab_topk")} <= set(sources)
+    assert os.path.join(REPO, "gitax_torch", "decode", "device_loop.py") in sources
     assert {os.path.join(REPO, "gitax_torch", "runtime", "serving.py"),
             os.path.join(REPO, "gitax_torch", "serve.py")} <= set(sources)
     for path in sources + [os.path.join(REPO, "chip_smoke.py")]:
