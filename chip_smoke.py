@@ -252,6 +252,25 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      (`settle`: the steps each graph ran on the card times the kernels
      one captured step launches), and ms per beam step is the searches'
      device span less encode and prefill, over the steps.
+ 35. the device-side search on a model group over NCCL (in phase 23's
+     2-rank group, where the machine has a card for each rank; with one
+     card a line says it needs two and that phase 23's gloo rehearsal
+     stays on the eager loop): on [1, 2], (a) (a)'s cut model in f32,
+     COCO beam, VQA at 30x40 with both question lengths, greedy and
+     sampling (one seed): the graph's capture, its cached replay and the
+     eager loop give one card's tokens, the ranks' sequences equal, and
+     the bodies each rank's graphs ran equal after every search; (b) the
+     cut model bf16 + int8 at B=32: every call of kernel 1 (M 257 and
+     1201, H=6) and kernel 3 (R=128, vocab_kernel=True) inside the
+     replayed TP step held to its plain version on that call's own
+     inputs; (c) GIT_LARGE_COCO bf16 + int8 B=32 through the [1, 2]
+     engine, eager and graph in turns: ms per beam step, images/s, rank
+     0's device busy share and host launches, dispatch's host ms against
+     the batch's device ms with no synchronising call; (d) VQA (30x40,
+     [CLS]+13) the same: pairs/s; each rank's peak memory.
+Every wait of phase 23 on its group (the group's start, each run, its
+close) has a deadline (P23_DEADLINE_S): past it every rank prints its
+Python stack, the spawned ranks are killed and the phase fails.
 Phases 14-19, 21, 22, 23, 26-28, 31, 33 and 34 write in build/gitax_torch/smoke_work, removed
 after.
 Each slice prints its peak device memory.
@@ -474,10 +493,14 @@ def settle():
     call to the kernels' counts and the models' decode_step_calls
     (`decode.device_loop.settle`: a replay launches a captured step's
     kernels without their wrappers' Python code).  Waits for the card;
-    call it before a count is zeroed and before it is read."""
+    call it before a count is zeroed and before it is read.  Returns the
+    bodies (search steps) this process's graphs have run in all
+    (`device_loop.bodies`: phase 23 compares it between the ranks of a
+    model group)."""
     from gitax_torch.decode import device_loop
 
     device_loop.settle()
+    return device_loop.bodies
 
 
 class SearchSpans(object):
@@ -3887,6 +3910,11 @@ def phase_mesh(card, work, seed, train_rate):
 # ---------------------------------------------------------------------------
 
 MESH_INFER_TIMEOUT_S = 300  # the group's timeout: a rank that fails ends the others' waits
+# a wait on phase 23's group (its start, a mesh run, its close) that takes
+# longer fails the phase: every rank prints its Python stack, the
+# followers are killed, and the run exits non-zero (a collective that
+# never pairs up waits forever: a communicator's creation has no timeout)
+P23_DEADLINE_S = 240
 # a rank of a 2-wide model group: the decoder's 12 heads and the encoder's
 # 16 split in two
 RANK_H, RANK_ENC_H = H // 2, ENC_H // 2
@@ -3898,34 +3926,111 @@ P23_REQUESTS = 4  # (c): f32 replies held to one card's
 
 
 def rank_stats(control, dev, world, reset):
-    """[world, 4] on every rank of phase 23's group: each rank's peak
-    device memory since its last reset and its three kernels' launch
-    counts (an all-reduce of zero-padded rows over the host); reset: start
-    each rank's peak anew."""
+    """[world, 5] on every rank of phase 23's group: each rank's peak
+    device memory since its last reset, its three kernels' launch counts
+    and the bodies its search graphs ran (`settle`) (an all-reduce of
+    zero-padded rows over the host); reset: start each rank's peak
+    anew."""
     import torch
     import torch.distributed as dist
 
-    t = torch.zeros(world, 4, dtype=torch.float64)
+    t = torch.zeros(world, 5, dtype=torch.float64)
     t[dist.get_rank()] = torch.tensor([torch.cuda.max_memory_allocated(dev)]
-                                      + list(kernel_launches()), dtype=torch.float64)
+                                      + list(kernel_launches()) + [settle()],
+                                      dtype=torch.float64)
     dist.all_reduce(t, group=control)
     if reset:
         torch.cuda.reset_peak_memory_stats(dev)
     return t
 
 
-def infer_follower(rank, world, init_method, share):
+class Deadline(object):
+    """A watchdog over one wait of rank 0 on a group of spawned ranks
+    (`procs`): if the block has not ended after `seconds`, it prints
+    rank 0's Python stack (every thread's), signals each spawned rank to
+    print its own (SIGUSR1, `faulthandler.register` in `infer_follower`),
+    kills them, and then waits for rank 0's call to fail as its peers go;
+    the block then raises, naming the deadline.  Should rank 0 stay
+    blocked in a native call, the process exits (code 3) once GRACE_S
+    more have passed."""
+
+    GRACE_S = 30
+
+    def __init__(self, label, seconds, procs):
+        import threading
+
+        self.label, self.seconds, self.procs = label, seconds, procs
+        self.fired = False
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._watch, daemon=True)
+
+    def _watch(self):
+        import faulthandler
+        import signal
+
+        if self._done.wait(self.seconds):
+            return
+        self.fired = True
+        log("DEADLINE: {} did not end within {:.0f} s; every rank's Python stack follows "
+            "(rank 0 first, then each spawned rank on SIGUSR1)".format(self.label, self.seconds))
+        sys.stdout.flush()
+        faulthandler.dump_traceback(file=sys.stdout, all_threads=True)
+        sys.stdout.flush()
+        for p in self.procs:
+            if p.is_alive():
+                os.kill(p.pid, signal.SIGUSR1)
+        time.sleep(5)
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+        if not self._done.wait(self.GRACE_S):
+            log("DEADLINE: rank 0 is still blocked {} s after its peers were killed; "
+                "exiting".format(self.GRACE_S))
+            sys.stdout.flush()
+            os._exit(3)
+
+    def __enter__(self):
+        import faulthandler
+
+        # the backstop, should rank 0 hold the GIL in a native call: its
+        # stack and an exit, after the watchdog's turn
+        faulthandler.dump_traceback_later(self.seconds + self.GRACE_S + 20, exit=True,
+                                          file=sys.stdout)
+        self._thread.start()
+        return self
+
+    def __exit__(self, kind, exc, tb):
+        import faulthandler
+
+        self._done.set()
+        self._thread.join()
+        faulthandler.cancel_dump_traceback_later()
+        if self.fired:
+            # raised while the block's own error, if any, is being handled:
+            # Python prints both
+            raise RuntimeError("{} passed its deadline of {:.0f} s (the stacks are above)".format(
+                self.label, self.seconds))
+        return False
+
+
+def infer_follower(rank, world, init_method, share, deadline_s=P23_DEADLINE_S):
     """A rank 1.. of phase 23's group (a spawned process: it imports
     gitax_torch and nothing of JAX), as a rank of a launch of data x
     model processes: it runs rank 0's commands until None comes.
     ('engine', shape): the follower of rank 0's engine on a `shape` mesh;
     ('call', module, name, cwd, kwargs): an entry point, which takes the
     launch's ranks and follows rank 0's engine; ('stats', reset):
-    `rank_stats`."""
+    `rank_stats`.  SIGUSR1 prints its Python stack (rank 0's `Deadline`);
+    a command still running deadline_s + 60 s after it came prints the
+    stack and ends the process, should rank 0 be gone."""
+    import faulthandler
     import importlib
+    import signal
 
     import torch
     import torch.distributed as dist
+
+    faulthandler.register(signal.SIGUSR1, file=sys.stdout, all_threads=True)
 
     from gitax_torch.parallel import comm
     from gitax_torch.parallel.mesh import make_mesh
@@ -3944,6 +4049,7 @@ def infer_follower(rank, world, init_method, share):
             cmd = comm.broadcast_object(None, 0, control)
             if cmd is None:
                 return
+            faulthandler.dump_traceback_later(deadline_s + 60, exit=True, file=sys.stdout)
             if cmd[0] == "engine":
                 follow_mesh(make_mesh(*cmd[1], device=dev, backend=backend))
             elif cmd[0] == "call":
@@ -3956,6 +4062,7 @@ def infer_follower(rank, world, init_method, share):
                     os.chdir(old)
             else:
                 rank_stats(control, dev, world, cmd[1])
+            faulthandler.cancel_dump_traceback_later()
             gc.collect()
             torch.cuda.empty_cache()
     finally:
@@ -3965,23 +4072,29 @@ def infer_follower(rank, world, init_method, share):
 class InferGroup(object):
     """Phase 23's group of `world` ranks: this process is rank 0, ranks 1..
     are spawned `infer_follower`s; NCCL a card a rank, or every rank on
-    card 0 over gloo (`share`)."""
+    card 0 over gloo (`share`).  Every wait on the group (its start, each
+    `mesh_run`, its close) is bounded by `deadline_s` (`Deadline`)."""
 
-    def __init__(self, world, share):
+    def __init__(self, world, share, deadline_s=P23_DEADLINE_S):
         import torch.distributed as dist
 
         from gitax_torch.runtime.distributed import SpawnedRanks, init_training_group
 
-        self.world = world
-        self.ranks = SpawnedRanks("chip_smoke:infer_follower", world, (share,))
+        self.world, self.deadline_s = world, deadline_s
+        self.ranks = SpawnedRanks("chip_smoke:infer_follower", world, (share, deadline_s))
         try:
-            self.dev, self.backend = init_training_group(0, world, self.ranks.init_method,
-                                                         share_card=share,
-                                                         timeout_s=MESH_INFER_TIMEOUT_S)
-            self.control = dist.new_group(backend="gloo")
+            with self.deadline("the {}-rank group's start".format(world)):
+                self.dev, self.backend = init_training_group(0, world, self.ranks.init_method,
+                                                             share_card=share,
+                                                             timeout_s=MESH_INFER_TIMEOUT_S)
+                self.control = dist.new_group(backend="gloo")
         except BaseException:
             self.ranks.join(ok=False)
             raise
+
+    def deadline(self, label):
+        """A `Deadline` of deadline_s over the spawned ranks."""
+        return Deadline("phase 23: " + label, self.deadline_s, self.ranks.procs)
 
     def send(self, cmd):
         from gitax_torch.parallel import comm
@@ -4017,30 +4130,42 @@ class InferGroup(object):
 
     def stats(self, reset=True):
         """`rank_stats` of every rank: (peak MiB a rank, launches summed
-        over the ranks)."""
+        over the ranks); the bodies each rank's graphs ran in all go to
+        `self.bodies`."""
         self.send(("stats", reset))
         t = rank_stats(self.control, self.dev, self.world, reset)
-        return [p / 2**20 for p in t[:, 0].tolist()], [int(x) for x in t[:, 1:].sum(0).tolist()]
+        self.bodies = [int(x) for x in t[:, 4].tolist()]
+        return [p / 2**20 for p in t[:, 0].tolist()], [int(x) for x in t[:, 1:4].sum(0).tolist()]
 
     def close(self, ok=True):
         import torch.distributed as dist
 
-        try:
-            if ok:
-                self.send(None)
-        finally:
-            dist.destroy_process_group()
-            self.ranks.join(ok)
+        with self.deadline("the {}-rank group's close".format(self.world)):
+            if not ok:  # stop the ranks first: they may wait on this one
+                self.ranks.join(ok)
+            try:
+                if ok:
+                    self.send(None)
+            finally:
+                dist.destroy_process_group()
+                if ok:
+                    self.ranks.join(ok)
 
 
-def mesh_run(group, run):
+def mesh_run(group, run, label=None):
     """run() between two `stats` reads: (its result, the peak MiB of each
-    rank, the three kernels' launches over every rank).  An engine on the
-    group is made and closed inside run(): its followers read no command
-    of the group until it closes."""
-    before = group.stats(reset=True)[1]
-    out = run()
-    peaks, after = group.stats(reset=True)
+    rank, the three kernels' launches over every rank), all of it within
+    the group's deadline.  An engine on the group is made and closed
+    inside run(): its followers read no command of the group until it
+    closes."""
+    name = label or getattr(run, "__name__", "a run")
+    with group.deadline("a mesh run ({}) on the {}-rank group".format(name, group.world)):
+        before = group.stats(reset=True)[1]
+        bodies = group.bodies
+        out = run()
+        peaks, after = group.stats(reset=True)
+    # the bodies each rank's search graphs ran in this run
+    group.run_bodies = [a - b for a, b in zip(group.bodies, bodies)]
     return out, peaks, [a - b for a, b in zip(after, before)]
 
 
@@ -4517,6 +4642,7 @@ def phase_mesh_infer(card, coco, vqa, images, work, seed, rates, w8a8_want):
     vqa_pref = [encode_prefix(tok, VQA_QUESTIONS[1], 40)] * len(vqa_items)
     vqa_one = p23_one_card_rate(vqa, tok, vqa_items, vqa_pref)
     samp_want = p32_one_card(parity_model, tok, inputs, seed)
+    tp_want = p35_one_card(parity_model, tok, seed) if cards >= 2 else None
     sharp = p23_sharp(work, coco)
     p23_small_one_card(sharp)
     gc.collect()
@@ -4530,6 +4656,14 @@ def phase_mesh_infer(card, coco, vqa, images, work, seed, rates, w8a8_want):
                                                                  time.perf_counter() - t0))
         ok = False
         try:
+            if world == 2 and share:
+                log("phase 35 (the device-side search on a [1, 2] model group over NCCL) needs "
+                    "two cards, one a rank; this machine has {}: phase 23's rehearsal over gloo, "
+                    "ranks sharing one card, stays on the eager loop".format(cards))
+            elif world == 2:
+                got, _ = p35_tp_loop(card, group, work, seed, tp_want, coco, coco_tok, coco_items,
+                                     coco_pref, vqa, tok, vqa_items, vqa_pref)
+                add(got)
             for shape in ([(2, 1), (1, 2)] if world == 2 else [(2, 2)]):
                 add(p23_parity(card, group, shape, parity_model, tok, inputs, want))
             if world == dp:
@@ -4951,7 +5085,8 @@ def p23_hosts(card, group, sharp, share):
                  out_tsv="small.hosts.tsv", batch_size=8, dtype="float32", mesh_shape=2,
                  share_card=share)
     _, peaks, launches = mesh_run(group, lambda: group.call(
-        "gitax_torch.inference", "test_git_inference_single_tsv", sharp, small))
+        "gitax_torch.inference", "test_git_inference_single_tsv", sharp, small),
+        "row shards over hosts")
     with open(os.path.join(sharp, "small.one.tsv"), "rb") as a, \
             open(os.path.join(sharp, "small.hosts.tsv"), "rb") as b:
         one, hosts = a.read(), b.read()
@@ -5349,6 +5484,7 @@ def p32_sampling(card, group, cpu_model, tok, inputs, seed, want, coco, coco_tok
             p32_sample(engine, items[:P23_ROWS], pref[:P23_ROWS], sampled)  # warm-up
             for label, kw in (("sampled", sampled), ("beam", None)):
                 torch.cuda.synchronize()
+                settle()
                 engine.model.decode_step_calls = 0
                 t1 = time.perf_counter()
                 if kw is None:
@@ -5356,6 +5492,7 @@ def p32_sampling(card, group, cpu_model, tok, inputs, seed, want, coco, coco_tok
                 else:
                     seqs = p32_sample(engine, items[:P23_ROWS], pref[:P23_ROWS], kw)
                 wall = time.perf_counter() - t1
+                settle()  # a replayed graph's steps reach decode_step_calls here
                 steps = engine.model.decode_step_calls
                 out[label] = (wall / steps * 1e3, steps, len({tuple(r) for r in seqs.tolist()}))
         return out, engine.group_mismatches
@@ -5948,6 +6085,427 @@ def phase_device_loop(card, cpu_model, images, work, seed):
     settle()
     log("phase 34 (the device-side search) {:.1f} s".format(time.perf_counter() - t0))
     return decode_attention.launches - d0
+
+
+# ---------------------------------------------------------------------------
+# 35. the device-side search on a model group over NCCL (in phase 23)
+# ---------------------------------------------------------------------------
+
+P35_ROWS = 8  # (a): COCO images, and VQA pairs a question length
+P35_BATCH = 32  # (b)-(d): a batch's rows
+P35_PASSES = 3  # (c): passes each, eager and graph in turns
+P35_CASES = ("COCO beam", "VQA [CLS]+6", "VQA [CLS]+13", "greedy", "sampled")
+
+
+def p35_inputs(seed, tok, rows, dtype):
+    """(a)'s and (b)'s inputs, made alike on every rank from the seed (at 8
+    rows phase 23 (a)'s images): COCO images (224 px) and VQA images
+    (420x560, a 30x40 grid, S=1201) normalised on this rank's card, and
+    both question prefixes."""
+    import numpy as np
+    import torch
+
+    from gitax_torch.tokenization import encode_prefix
+
+    rng = np.random.RandomState(seed + 23)
+    coco = [rng.randint(0, 256, (224, 224, 3)).astype(np.uint8)
+            for _ in range(max(rows, 2 * P23_PARITY_ROWS))][:rows]
+    vqa = [rng.randint(0, 256, (420, 560, 3)).astype(np.uint8)
+           for _ in range(max(rows, 2 * P23_PARITY_PAIRS))][:rows]
+    out = {"coco": normalized(coco, dtype), "vqa": normalized(vqa, dtype)}
+    out["prefixes"] = {q: torch.tensor([encode_prefix(tok, q, 40)] * rows,
+                                       device=out["coco"].device) for q in VQA_QUESTIONS}
+    return out
+
+
+def p35_search(model, name, inputs, seed, eager_loop):
+    """One of (a)'s searches (P35_CASES) in f32, the decode kernel on (not
+    in greedy): its sequences."""
+    import torch
+
+    from gitax_torch.decode.beam import BeamSearchConfig
+
+    kw = dict(dtype=torch.float32, eager_loop=eager_loop)
+    if name == "COCO beam":
+        return model.generate(inputs["coco"], beam=BeamSearchConfig(
+            num_beams=4, max_steps=41, norm_max_length=1024), decode_kernel=True, **kw)[0]
+    if name.startswith("VQA"):
+        prefix = inputs["prefixes"][VQA_QUESTIONS[0 if "+6" in name else 1]]
+        return model.generate(inputs["vqa"], prefix, beam=BeamSearchConfig(
+            num_beams=4, max_steps=prefix.shape[1] + 40, norm_max_length=1024),
+            decode_kernel=True, flash=True, **kw)[0]
+    if name == "greedy":
+        return model.generate(inputs["coco"], mode="greedy", max_steps=24, **kw)[0]
+    rng = torch.Generator(inputs["coco"].device).manual_seed(seed)
+    return model.generate(inputs["coco"], beam=BeamSearchConfig(**P32_BEAM), decode_kernel=True,
+                          num_return_sequences=P32_R, rng=rng, **kw)[0]
+
+
+def p35_one_card(cpu_model, tok, seed):
+    """One card's tokens of (a)'s searches (the graph path, m = 1)."""
+    import torch
+
+    from gitax_torch.decode import device_loop
+
+    model = build_model("cuda", torch.float32, cpu_model)
+    inputs = p35_inputs(seed, tok, P35_ROWS, torch.float32)
+    out = {name: p35_search(model, name, inputs, seed, False).cpu().numpy()
+           for name in P35_CASES}
+    device_loop.release(model)
+    del model, inputs
+    torch.cuda.empty_cache()
+    return out
+
+
+class KernelSpy(object):
+    """Wraps the decode step's kernel wrappers (`models.textual`'s
+    `decode_attention` and `vocab_logits_topk`) until `remove`: each call
+    made while a graph is being captured also copies its inputs, its
+    output and (kernel 1) the cache after its write into tensors the spy
+    keeps, so that every replay of that step leaves there the inputs and
+    outputs of its last run, on which `check` holds each call to its plain
+    version."""
+
+    def __init__(self):
+        import torch
+
+        from gitax_torch.models import textual
+
+        self.textual, self.calls = textual, []
+        self.saved = textual.decode_attention, textual.vocab_logits_topk
+        attend, head = self.saved
+
+        def decode_attention(q, kv_new, txt_kv, anc, pos, mem_kv, mem_bias=None,
+                             mem_scale=None, **kw):
+            capturing = torch.cuda.is_current_stream_capturing()
+            if capturing:
+                inputs = dict(q=q.clone(), kv_new=kv_new.clone(), txt_kv=txt_kv.clone(),
+                              anc=anc.clone(), pos=pos.clone(), mem_kv=mem_kv.clone(),
+                              mem_bias=None if mem_bias is None else mem_bias.clone(),
+                              mem_scale=None if mem_scale is None else mem_scale.clone())
+            out = attend(q, kv_new, txt_kv, anc, pos, mem_kv, mem_bias, mem_scale, **kw)
+            if capturing:
+                self.calls.append(("decode_attention", inputs, kw, out.clone(), txt_kv.clone()))
+            return out
+
+        def vocab_logits_topk(hidden, wq8t, scale, bias, **kw):
+            capturing = torch.cuda.is_current_stream_capturing()
+            out = head(hidden, wq8t, scale, bias, **kw)
+            if capturing:
+                self.calls.append(("vocab_topk", (hidden.clone(), wq8t, scale, bias.clone()), kw,
+                                   tuple(t.clone() for t in out), None))
+            return out
+
+        textual.decode_attention, textual.vocab_logits_topk = decode_attention, vocab_logits_topk
+
+    def remove(self):
+        self.textual.decode_attention, self.textual.vocab_logits_topk = self.saved
+
+    def check(self, label, dtype):
+        """Each captured call's last run against its plain version, at
+        `check_decode_case`'s and `check_vocab_call`'s bars: {kernel: the
+        worst error}."""
+        import torch
+
+        worst = {}
+        for i, (name, inputs, kw, out, after) in enumerate(self.calls):
+            tag = "{} in the replayed TP step, call {}".format(label, i)
+            if name == "decode_attention":
+
+                def replayed(**a):
+                    a["txt_kv"].copy_(after)
+                    return out
+
+                err = check_decode_case(tag, inputs, dtype, inputs["mem_kv"].dtype == torch.int8,
+                                        kw, launch=replayed)
+            else:
+                err, _ = check_vocab_call("vocab kernel " + tag, *inputs, *out)
+            worst[name] = max(worst.get(name, 0.0), err)
+        return worst
+
+
+def p35_rank(seed):
+    """Every rank of phase 23's 2-rank group over NCCL (one card a rank):
+    (a)'s cut model f32 on a [1, 2] mesh, each search of P35_CASES as
+    the graph's capture, its cached replay and the eager loop, with the
+    bodies each rank's graphs ran after each search; (b) the cut model
+    bf16 + weight-only int8 at B=32, COCO (kernel 1 at M=257, kernel 3 at
+    R=128) and VQA (kernel 1 at M=1201), each kernel call inside the
+    replayed TP step held to its plain version (`KernelSpy`).  Returns
+    rank 0's and each rank's findings on rank 0, which `p35_parity`
+    checks."""
+    global log
+    import torch
+    import torch.distributed as dist
+
+    from gitax_torch.decode import device_loop
+    from gitax_torch.decode.beam import BeamSearchConfig
+    from gitax_torch.ops.quant import quantize_git_model_
+    from gitax_torch.parallel import comm
+    from gitax_torch.parallel.mesh import make_mesh, shard_for_inference
+    from gitax_torch.tokenization import BertTokenizer, build_tiny_vocab
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(1, 2, device=dev)
+    check(mesh.backend == "nccl", "phase 35 runs over NCCL, got {}".format(mesh.backend))
+    tok = BertTokenizer(build_tiny_vocab(VQA_WORDS))
+    cpu_model = p23_parity_model(seed)
+    out = {"parity": {}, "kernels": {}, "errors": []}
+    model = shard_for_inference(build_model(dev, torch.float32, cpu_model), mesh)
+    inputs = p35_inputs(seed, tok, P35_ROWS, torch.float32)
+    settle()
+    for name in P35_CASES:
+        runs = {}
+        for label in ("capture", "replay", "eager"):
+            t0 = time.perf_counter()
+            before = settle()
+            seqs = p35_search(model, name, inputs, seed, label == "eager")
+            bodies = torch.zeros(2, dtype=torch.int64, device=dev)
+            bodies[mesh.model_rank] = settle() - before
+            comm.all_reduce(bodies, mesh.model_group)
+            runs[label] = {"tokens": seqs.cpu().numpy(), "bodies": bodies.tolist(),
+                           "unequal": comm.count_unequal(seqs, mesh.model_group, 2),
+                           "s": time.perf_counter() - t0}
+        out["parity"][name] = runs
+    device_loop.release(model)
+    del model, inputs
+    torch.cuda.empty_cache()
+
+    # (b) the kernels inside the replayed TP step, at a rank's shapes
+    qmodel = shard_for_inference(quantize_git_model_(build_model(dev, torch.bfloat16,
+                                                                 cpu_model)), mesh)
+    inputs = p35_inputs(seed, tok, P35_BATCH, torch.bfloat16)
+    quiet = rank != 0
+    for label, x, prefix, kw in (
+            ("COCO B=32 bf16+int8", inputs["coco"], None,
+             dict(beam=BeamSearchConfig(num_beams=4, max_steps=41, norm_max_length=1024),
+                  vocab_kernel=True)),
+            ("VQA 30x40 B=32 bf16+int8", inputs["vqa"], inputs["prefixes"][VQA_QUESTIONS[1]],
+             dict(beam=BeamSearchConfig(num_beams=4, max_steps=54, norm_max_length=1024),
+                  flash=True))):
+        device_loop.release(qmodel)
+        before = settle()
+        spy = KernelSpy()
+        try:
+            qmodel.generate(x, prefix, dtype=torch.bfloat16, decode_kernel=True,
+                            fast_prefill=True, **kw)
+        finally:
+            spy.remove()
+        torch.cuda.synchronize()
+        ran = settle() - before
+        shown = log
+        if quiet:
+            log = lambda msg: None  # noqa: E731 -- rank 0 prints its own checks
+        try:
+            check(ran > 0 and spy.calls, "{}: no body ran inside the graph".format(label))
+            for kernel, err in spy.check(label + ", rank {}".format(rank),
+                                         torch.bfloat16).items():
+                out["kernels"][kernel] = max(out["kernels"].get(kernel, 0.0), err)
+        except Exception as e:  # reported by rank 0
+            out["errors"].append("rank {}: {}".format(rank, e))
+        finally:
+            log = shown
+        out["kernels"]["calls " + label] = len(spy.calls)
+        del spy
+        device_loop.release(qmodel)
+    del qmodel, inputs
+    torch.cuda.empty_cache()
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, {k: out[k] for k in ("kernels", "errors")})
+    out["ranks"] = every
+    return out if rank == 0 else None
+
+
+def p35_parity(card, group, work, seed, want):
+    """(a) and (b) on the group (`p35_rank` on every rank), checked here."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    got, peaks, launches = mesh_run(group, lambda: group.call(
+        "chip_smoke", "p35_rank", work, dict(seed=seed)), "phase 35 (a), (b)")
+    for name in P35_CASES:
+        runs = got["parity"][name]
+        ref = want[name]
+        for label, r in runs.items():
+            differ = [i for i in range(len(ref)) if not np.array_equal(r["tokens"][i], ref[i])]
+            check(r["tokens"].shape == ref.shape and not differ,
+                  "phase 35 (a) {} [1, 2] {}: rows {} differ from one card's: {} vs {}".format(
+                      name, label, differ, [r["tokens"][i].tolist() for i in differ[:2]],
+                      [ref[i].tolist() for i in differ[:2]]))
+            check(r["unequal"] == 0, "phase 35 (a) {} {}: {} elements differ between the "
+                  "ranks".format(name, label, r["unequal"]))
+            check(r["bodies"][0] == r["bodies"][1], "phase 35 (a) {} {}: the ranks' graphs ran "
+                  "{} bodies".format(name, label, r["bodies"]))
+        check(runs["eager"]["bodies"] == [0, 0] and min(runs["replay"]["bodies"]) > 0,
+              "phase 35 (a) {}: bodies {}".format(name, {k: v["bodies"] for k, v in runs.items()}))
+        log("phase 35 (a) {} f32 [1, 2] over NCCL (the cut model of 23 (a), attention x10): {} "
+            "rows, the "
+            "graph's capture, its cached replay and the eager loop give one card's tokens ({} "
+            "distinct); the ranks' sequences equal; bodies a rank {} / {} / {} (capture: the "
+            "warm-up step runs eagerly); {} s".format(
+                name, len(ref), len({tuple(x) for x in ref.tolist()}),
+                runs["capture"]["bodies"], runs["replay"]["bodies"], runs["eager"]["bodies"],
+                " / ".join("%.2f" % runs[k]["s"] for k in ("capture", "replay", "eager"))))
+    errors = [e for r in got["ranks"] for e in r["errors"]]
+    check(not errors, "phase 35 (b): {}".format(errors))
+    for rank, r in enumerate(got["ranks"]):
+        log("phase 35 (b) rank {}: every kernel call inside the replayed TP step held to its "
+            "plain version (check_decode_case's and check_vocab_call's bars); calls and worst "
+            "bf16 error {}".format(rank, r["kernels"]))
+    check(all(r["kernels"].get("decode_attention") is not None
+              and r["kernels"].get("vocab_topk") is not None for r in got["ranks"]),
+          "phase 35 (b): a kernel was not checked inside the step: {}".format(got["ranks"]))
+    check(group.run_bodies[0] == group.run_bodies[1] > 0,
+          "phase 35: the ranks' graphs ran {} bodies".format(group.run_bodies))
+    log("phase 35 (a), (b): {:.1f} s; bodies a rank {}; peak memory a rank {} MiB; launches over "
+        "every rank decode_attention {} flash_attention {} vocab_topk {} [{}]".format(
+            time.perf_counter() - t0, group.run_bodies, ["%.1f" % p for p in peaks], *launches,
+            card))
+    return launches, got["ranks"][0]["kernels"]
+
+
+def p35_engine_rate(card, group, cpu_model, tok, items, pref, label):
+    """(c), (d): `cpu_model` at full size, bf16 + int8, through the [1, 2]
+    engine over NCCL (rank 0's weights, broadcast): a batch of P35_BATCH
+    rows, eager and graph in turns (P35_PASSES each; the generate
+    arguments travel with the batch), ms per beam step (rank 0's device
+    events: the searches less encode and prefill, over the steps), the
+    rate; COCO also: each loop's device busy share and host launches (one
+    batch under torch.profiler) and dispatch's host ms against the
+    batch's device ms, with no synchronising call inside dispatch (sync
+    debug mode)."""
+    import numpy as np
+    import torch
+
+    from gitax_torch.decode.beam import BeamSearchConfig
+
+    arr, pref = np.stack(items[:P35_BATCH]), np.asarray(pref[:P35_BATCH])
+
+    def run():
+        engine = group.engine((1, 2), build_model("cuda", torch.bfloat16, cpu_model), tok,
+                              batch_size=P35_BATCH, beam=BeamSearchConfig(num_beams=4,
+                                                                          max_steps=40),
+                              dtype=torch.bfloat16, int8=True, fast_prefill=True,
+                              decode_kernel=True)
+        found = {"ms": {True: [], False: []}, "rate": {True: [], False: []}}
+        with engine:
+            beam = engine.beam_for(pref.shape[1])
+
+            def gen(eager):
+                return dict(beam=beam, fast_prefill=True, decode_kernel=True, eager_loop=eager)
+
+            for eager in (True, False):  # warm-ups; the graph's first search captures
+                engine.to_host(engine.dispatch_device_batch(arr, pref, **gen(eager)))
+            for eager in [True, False, False, True, True, False][:2 * P35_PASSES]:
+                spans = SearchSpans(engine.model)
+                torch.cuda.synchronize()
+                settle()
+                engine.model.decode_step_calls = 0
+                t0 = time.perf_counter()
+                seqs = engine.to_host(engine.dispatch_device_batch(arr, pref, **gen(eager)))
+                found["rate"][eager].append(len(arr) / (time.perf_counter() - t0))
+                settle()
+                found["ms"][eager].append(spans.loop_ms() / engine.model.decode_step_calls)
+                found["steps"] = engine.model.decode_step_calls
+                spans.remove()
+                found.setdefault("seqs", {})[eager] = seqs
+            # two batches in flight: the second's eager encoder and prefill
+            # (all-reduces on the model group's communicator) are enqueued
+            # while the first's graph launches are outstanding
+            first = engine.dispatch_device_batch(arr, pref, **gen(False))
+            second = engine.dispatch_device_batch(arr, pref, **gen(False))
+            found["in flight"] = (engine.to_host(first), engine.to_host(second))
+            if label == "COCO":
+                for eager in (True, False):
+                    found["busy", eager] = busy_profile(lambda: engine.to_host(
+                        engine.dispatch_device_batch(arr, pref, **gen(eager))))
+                host, dev, pending = [], [], []
+                for _ in range(3):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    t0 = time.perf_counter()
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        seqs = engine.dispatch_device_batch(arr, pref, **gen(False))
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                    host.append((time.perf_counter() - t0) * 1e3)
+                    end.record()
+                    pending.append(not end.query())  # the batch's work still running
+                    engine.to_host(seqs)
+                    dev.append(start.elapsed_time(end))
+                found["dispatch"] = (host, dev, pending)
+        found["unequal"] = engine.group_mismatches
+        return found
+
+    t0 = time.perf_counter()
+    found, peaks, launches = mesh_run(group, run, "phase 35 " + label)
+    check(found["unequal"] == 0, "phase 35 {}: {} elements differ within the model group".format(
+        label, found["unequal"]))
+    check(group.run_bodies[0] == group.run_bodies[1] > 0,
+          "phase 35 {}: the ranks' graphs ran {} bodies".format(label, group.run_bodies))
+    same = np.mean([np.array_equal(a, b) for a, b in zip(found["seqs"][True],
+                                                         found["seqs"][False])])
+    first, second = found["in flight"]
+    check(np.array_equal(first, found["seqs"][False])
+          and np.array_equal(second, found["seqs"][False]),
+          "phase 35 {}: two batches in flight on the graph differ from one at a time".format(label))
+    med = {k: sorted(v)[len(v) // 2] for k, v in found["ms"].items()}
+    rate = {k: sorted(v)[len(v) // 2] for k, v in found["rate"].items()}
+    unit = "images" if label == "COCO" else "pairs"
+    log("phase 35 (c) {} B={} bf16+int8 [1, 2] over NCCL, {} beam steps a search: ms per beam step "
+        "(rank 0's device events: the search less encode and prefill) eager {} (median {:.3f}), "
+        "graph {} (median {:.3f}); eager / graph {:.2f}x; {}/s eager {} graph {} (host clock, "
+        "dispatch to the sequences on the host); {:.1%} of the graph's sequences equal the eager "
+        "loop's; two batches in flight (the second's eager prefill enqueued behind the first's "
+        "graph launches) give the one-at-a-time sequences; bodies a rank {}; peak memory a rank {} MiB; launches over every rank decode_attention {} "
+        "flash_attention {} vocab_topk {}; {:.1f} s [{}]".format(
+            label, P35_BATCH, found["steps"], ["%.3f" % v for v in found["ms"][True]], med[True],
+            ["%.3f" % v for v in found["ms"][False]], med[False], med[True] / med[False], unit,
+            ["%.2f" % v for v in found["rate"][True]], ["%.2f" % v for v in found["rate"][False]],
+            same, group.run_bodies, ["%.1f" % p for p in peaks], *launches, time.perf_counter() - t0,
+            card))
+    if label == "COCO":
+        for eager in (True, False):
+            share, busy, span, host = found["busy", eager]
+            log("phase 35 (c) COCO B={} [1, 2], {}: rank 0's device busy {:.1%} of {:.2f} ms "
+                "({:.2f} ms busy); host launches {} [{}]".format(
+                    P35_BATCH, "eager loop" if eager else "graph", share, span, busy, host, card))
+        host, dev, pending = found["dispatch"]
+        check(all(pending), "phase 35: the batch's work had ended when dispatch returned ({}; "
+              "host ms {}, device ms {})".format(pending, host, dev))
+        log("phase 35 (c) COCO B={} [1, 2]: dispatch_device_batch returns after {} host ms, the "
+            "batch's device work on rank 0 takes {} ms and is still running when it returns "
+            "(an event recorded then has not completed, every time); no synchronising call "
+            "inside dispatch (sync debug mode 'error') [{}]".format(
+                P35_BATCH, ["%.2f" % h for h in host], ["%.2f" % d for d in dev], card))
+    return launches, med, rate
+
+
+def p35_tp_loop(card, group, work, seed, want, coco, coco_tok, coco_items, coco_pref, vqa, tok,
+                vqa_items, vqa_pref):
+    """35. The device-side search on a [1, 2] model group over NCCL (in
+    phase 23's 2-rank group, one card a rank): (a) f32 parity of the
+    graph's capture, its cached replay and the eager loop with one card,
+    the ranks' bodies equal; (b) kernels 1 and 3 inside the replayed TP
+    step held to their plain versions; (c) COCO at full size bf16 + int8,
+    graph against eager in turns: ms per beam step, busy share, dispatch's
+    host ms; (d) VQA (30x40, [CLS]+13) pairs/s the same way.  Returns the
+    launches over every rank and (c), (d)'s readings."""
+    t0 = time.perf_counter()
+    launches, kernels = p35_parity(card, group, work, seed, want)
+    more, coco_ms, coco_rate = p35_engine_rate(card, group, coco, coco_tok, coco_items, coco_pref,
+                                               "COCO")
+    launches = [a + b for a, b in zip(launches, more)]
+    more, vqa_ms, vqa_rate = p35_engine_rate(card, group, vqa, tok, vqa_items, vqa_pref, "VQA")
+    launches = [a + b for a, b in zip(launches, more)]
+    log("phase 35 (the device-side search on a [1, 2] model group over NCCL) {:.1f} s".format(
+        time.perf_counter() - t0))
+    return launches, {"coco_ms": coco_ms, "coco_rate": coco_rate, "vqa_ms": vqa_ms,
+                      "vqa_rate": vqa_rate, "kernels": kernels}
 
 
 def main(argv):

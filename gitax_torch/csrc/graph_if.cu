@@ -83,4 +83,45 @@ int gitax_graph_destroy(void* exec) {
   return (int)cudaGraphExecDestroy(static_cast<cudaGraphExec_t>(exec));
 }
 
+// The types (cudaGraphNodeType) of a graph's nodes, depth first, each
+// child graph's nodes after its own node: at most `cap` written to
+// `types`.  Returns how many there are (more than cap when cut short), or
+// minus the first cudaError.  What a conditional body may hold is
+// limited (kernel, memset, memcpy, empty, child-graph and conditional
+// nodes), so this tells why a body is refused.
+int gitax_graph_node_types(void* graph, int* types, int cap) {
+  size_t n = 0;
+  cudaError_t e = cudaGraphGetNodes(static_cast<cudaGraph_t>(graph), nullptr, &n);
+  if (e != cudaSuccess) return -(int)e;
+  cudaGraphNode_t* nodes = new cudaGraphNode_t[n > 0 ? n : 1];
+  e = cudaGraphGetNodes(static_cast<cudaGraph_t>(graph), nodes, &n);
+  int count = 0;
+  for (size_t i = 0; e == cudaSuccess && i < n; ++i) {
+    cudaGraphNodeType type;
+    e = cudaGraphNodeGetType(nodes[i], &type);
+    if (e != cudaSuccess) break;
+    if (count < cap) types[count] = (int)type;
+    ++count;
+    if (type == cudaGraphNodeTypeGraph) {
+      cudaGraph_t child = nullptr;
+      e = cudaGraphChildGraphNodeGetGraph(nodes[i], &child);
+      if (e != cudaSuccess) break;
+      int sub = gitax_graph_node_types(child, count < cap ? types + count : types,
+                                       count < cap ? cap - count : 0);
+      if (sub < 0) {
+        e = (cudaError_t)(-sub);
+        break;
+      }
+      count += sub;
+    }
+  }
+  delete[] nodes;
+  return e == cudaSuccess ? count : -(int)e;
+}
+
+// The runtime's name and text of a cudaError.
+const char* gitax_graph_error_string(int error) {
+  return cudaGetErrorString(static_cast<cudaError_t>(error));
+}
+
 }  // extern "C"

@@ -15,7 +15,10 @@ step in a CUDA graph under a conditional node whose predicate,
 `beam_running`, the last step computed on the card, and replays it
 without reading the host; `beam_search` is the eager loop (the CPU, a
 model group of m > 1 ranks, and the reference the graph is held
-against), with one host read per step.  The cache is never reordered:
+against; and gloo model groups), with one host read per step.  On a
+model group the predicate is computed on every rank from values that
+are equal on all of them, so the ranks run the same steps.  The cache
+is never reordered:
 each beam inherits its parent's ancestry row (KVCache.anc).
 
 Every top-k breaks ties toward the lowest index, as gitax does
@@ -264,7 +267,10 @@ def beam_init(prefill_logits, cache, prefix_tokens, cfg: BeamSearchConfig, rng=N
 
 def beam_running(state: BeamState, cfg: BeamSearchConfig):
     """gitax's `cond` (beam.py:283-284) on the card: a 0-dim bool, true
-    while a position is left and some batch element is not done."""
+    while a position is left and some batch element is not done.  On a
+    model group every rank's `done` and `cur_len` are equal bit for bit
+    (they follow from the replicated head's logits over all-reduced
+    activations), so every rank computes the same predicate."""
     return (state.cur_len < cfg.max_steps) & ~state.done.all()
 
 

@@ -60,11 +60,23 @@ launches, to the wrappers' counts and to the owner's `decode_step_calls`
 card once).  `launches` counts the graph's launches, each of which
 launches `set_condition` once.
 
+On a model group of m > 1 ranks over NCCL, one card a rank, the step's
+all-reduces are captured with it (NCCL's collectives are kernels on the
+card) and the IF node's body holds them.  Every rank of the group runs
+the same key at the same call, so the ranks warm up (the collectives'
+first run, which makes the group's communicator) and capture together;
+and each rank's predicate comes from values equal on every rank, so all
+of them run or skip the body at each launch and the all-reduces inside
+pair up (`GitModel._search_run`).  A failed capture raises there as
+anywhere: a rank that fell back to the eager loop would leave the
+others' collectives unpaired.
+
 The eager loop (`run_eager`, one host read a step) serves CPU tensors,
-model groups of m > 1 ranks (the step all-reduces over a group that
-cannot be captured) and the reference the graph is held against;
+gloo model groups (a gloo all-reduce is a host round trip, which a
+graph cannot capture) and the reference the graph is held against;
 `run_on_host` runs the graph's schedule on the host, the body under the
-predicate as the IF node runs it, for the CPU tests.
+predicate as the IF node runs it, for the CPU tests (gloo model groups
+included).
 """
 
 from __future__ import annotations
@@ -136,10 +148,12 @@ class StepGraph(object):
 
     def settle(self):
         """Add the launches of the bodies run since the last settle to the
-        counts; waits for the card."""
+        counts (and to the module's `bodies`); waits for the card."""
+        global bodies
         n = int(self.steps.item())
         self.steps.zero_()
         _add_counts(self.owner(), {k: n * v for k, v in self.per_step.items()})
+        bodies += n
         return n
 
 
@@ -234,6 +248,9 @@ def run_on_host(state, step, running, result, replays, draw=None, rng=None):
 _LIB = None
 # launches of the conditional graph (each launches set_condition once)
 launches = 0
+# the bodies (search steps) the graphs ran on the card, summed over every
+# settle, an owner's last included
+bodies = 0
 
 
 def _bind():
@@ -246,25 +263,68 @@ def _bind():
                                        ctypes.POINTER(ctypes.c_void_p)]
         lib.gitax_graph_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         lib.gitax_graph_destroy.argtypes = [ctypes.c_void_p]
-        for fn in (lib.gitax_graph_if, lib.gitax_graph_launch, lib.gitax_graph_destroy):
+        lib.gitax_graph_node_types.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+                                               ctypes.c_int]
+        for fn in (lib.gitax_graph_if, lib.gitax_graph_launch, lib.gitax_graph_destroy,
+                   lib.gitax_graph_node_types):
             fn.restype = ctypes.c_int
+        lib.gitax_graph_error_string.argtypes = [ctypes.c_int]
+        lib.gitax_graph_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def cuda_error(rc):
+    """'cudaError <rc>: <the runtime's text>'."""
+    return "cudaError {}: {}".format(rc, _bind().gitax_graph_error_string(rc).decode())
+
+
+# cudaGraphNodeType's values (driver_types.h)
+NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty",
+              6: "wait_event", 7: "event_record", 8: "ext_semaphore_signal",
+              9: "ext_semaphore_wait", 10: "mem_alloc", 11: "mem_free", 12: "batch_mem_op",
+              13: "conditional"}
+
+
+def node_types(body):
+    """The types of a captured torch.cuda.CUDAGraph's (keep_graph=True)
+    nodes, child graphs' nodes included, by name: what decides whether it
+    may be the body of a conditional node."""
+    lib = _bind()
+    cap = 4096
+    buf = (ctypes.c_int * cap)()
+    n = lib.gitax_graph_node_types(body.raw_cuda_graph(), buf, cap)
+    if n < 0:
+        raise RuntimeError("graph_if: reading the graph's nodes failed: " + cuda_error(-n))
+    return [NODE_TYPES.get(t, str(t)) for t in buf[:min(n, cap)]]
+
+
+# the node types a conditional node's body may hold (CUDA 12.4+)
+BODY_NODES = {"kernel", "memcpy", "memset", "empty", "graph", "conditional"}
 
 
 class IfGraph(object):
     """The executable graph `set_condition(pred) -> IF pred { body }`, the
     body a clone of `body` (a torch.cuda.CUDAGraph captured with
-    keep_graph=True, kept alive for its pool)."""
+    keep_graph=True, kept alive for its pool).  A body holding another
+    node type raises, naming it: NCCL's captured collectives bring event
+    nodes unless NCCL_GRAPH_MIXING_SUPPORT=0
+    (`runtime.distributed.init_training_group` sets it)."""
 
     def __init__(self, body, pred):
         lib = _bind()
         self.body, self.pred = body, pred
+        other = collections.Counter(t for t in node_types(body) if t not in BODY_NODES)
+        if other:
+            raise RuntimeError(
+                "graph_if: the captured step holds {} nodes, which a conditional body cannot "
+                "hold (a collective captured by NCCL with NCCL_GRAPH_MIXING_SUPPORT other than "
+                "0 brings event nodes)".format(dict(other)))
         handle = ctypes.c_void_p()
         rc = lib.gitax_graph_if(body.raw_cuda_graph(), pred.data_ptr(), ctypes.byref(handle))
         if rc != 0:
-            raise RuntimeError("graph_if: building the conditional graph failed: cudaError "
-                               "{}".format(rc))
+            raise RuntimeError("graph_if: building the conditional graph failed: " +
+                               cuda_error(rc))
         self.exec = handle.value
         self._destroy = lib.gitax_graph_destroy
 
@@ -273,7 +333,7 @@ class IfGraph(object):
         global launches
         rc = _LIB.gitax_graph_launch(self.exec, torch.cuda.current_stream(self.pred.device).cuda_stream)
         if rc != 0:
-            raise RuntimeError("graph_if: launch failed: cudaError {}".format(rc))
+            raise RuntimeError("graph_if: launch failed: " + cuda_error(rc))
         launches += 1
 
     def __del__(self):

@@ -167,7 +167,9 @@ def trie_init(prefill_logits, cache, prefix_tokens, trie: TokenTrie, max_steps: 
 
 
 def trie_running(s: TrieState, max_steps: int):
-    """A 0-dim bool: a position is left after cur and a row is running."""
+    """A 0-dim bool: a position is left after cur and a row is running.
+    On a model group every rank's picks, and so this, are equal (argmax
+    of the replicated head's logits over all-reduced activations)."""
     return (s.cur + 1 < max_steps) & ~s.finished.all()
 
 

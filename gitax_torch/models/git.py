@@ -38,6 +38,7 @@ from ..decode.beam import BeamSearchConfig, beam_search
 from ..decode.greedy import greedy_search
 from ..decode.trie import trie_greedy_search
 from ..ops.vocab_topk import TILE
+from ..parallel import comm
 from . import textual as T
 from .config import GitConfig
 from .nn import empty_param
@@ -276,16 +277,21 @@ class GitModel(nn.Module):
         ranks draw the same noise whatever their callers seeded.
 
         The search's loop, gitax's device-side `while_loop`: on a CUDA
-        device with m = 1 every mode runs one captured step replayed
-        under a predicate the card computes (`decode.device_loop`), so
-        this returns once the work is enqueued, before the search ends;
-        the sequences come back as new tensors (the graph's buffers are
-        not handed out).  The encoder and the prefill stay eager.  The
-        eager loop, one host read a step, runs CPU tensors and model
-        groups of m > 1 (their step all-reduces over a group that cannot
-        be captured); eager_loop=True runs it on the card too, the
-        reference the graph is held against (tests and chip_smoke.py
-        pass it; the CLI, the engine and the server do not)."""
+        device every mode runs one captured step replayed under a
+        predicate the card computes (`decode.device_loop`), so this
+        returns once the work is enqueued, before the search ends; the
+        sequences come back as new tensors (the graph's buffers are not
+        handed out).  On a model group of m > 1 that holds when the
+        group is NCCL's (one card a rank): the step's all-reduces are
+        captured with it, and every rank of the group captures and
+        replays the same step at the same call (see `_search_run`).
+        The encoder and the prefill stay eager.  The eager loop, one host
+        read a step, runs CPU tensors and gloo model groups (ranks on the
+        CPU or sharing one card: a gloo all-reduce is a host round trip,
+        which a graph cannot capture); eager_loop=True runs it on the
+        card too, the reference the graph is held against (tests and
+        chip_smoke.py pass it; the CLI, the engine and the server do
+        not)."""
         if mode not in ("beam", "greedy", "trie"):
             raise ValueError("generate mode {!r}: 'beam', 'greedy' or 'trie'".format(mode))
         if mode == "beam" and beam is not None and beam.do_sample and rng is not None \
@@ -353,11 +359,28 @@ class GitModel(nn.Module):
 
     def _search_run(self, visual, eager_loop, key):
         """The search's loop: None, the eager loop, for CPU tensors, a
-        model group of m > 1 or eager_loop=True; else `device_loop.run`
-        with this model as the owner of its graphs and `key` (what fixes
-        the step's code beside the state's shapes)."""
-        if eager_loop or not visual.is_cuda or self.textual.tp_group is not None:
+        gloo model group or eager_loop=True; else `device_loop.run` with
+        this model as the owner of its graphs and `key` (what fixes the
+        step's code beside the state's shapes).
+
+        On an NCCL model group the key also names the group
+        (`comm.group_key`), so that one model sharded for two meshes
+        never shares a graph.  The ranks of a group stay in lockstep with
+        nothing exchanged for it: each calls generate with the same
+        inputs and settings, so each misses the cache, warms up (the
+        warm-up step runs the group's collectives, which also makes its
+        communicator) and captures at the same call; and each rank's
+        predicate is computed from values that are equal bit for bit on
+        every rank (logits of the replicated head over all-reduced
+        activations, the same flags and lengths, a sampled search's noise
+        from the group's rank-0 generator state, `share_generator`), so
+        every rank takes the same branch of the IF node at every launch
+        and the all-reduces inside the step pair up."""
+        group = self.textual.tp_group
+        if eager_loop or not visual.is_cuda or not comm.capturable(group):
             return None
+        if group is not None:
+            key = key + (comm.group_key(group),)
 
         def run(state, step, running, result, replays, draw=None, rng=None):
             return device_loop.run(self, key, state, step, running, result, replays, draw, rng)

@@ -28,7 +28,9 @@ mesh: each rank holds its heads' K/V (the text cache is
 [T_max, B*beams, h*2Dh] and the memory [B, h, M, 2Dh] for this rank's h
 heads) and both kernels run on those heads; after each layer's last
 all-reduce every rank holds the same activations and computes the full
-logits.
+logits.  Over NCCL a decode step's all-reduces (two a layer, both
+`row_linear`'s) are captured with the rest of the step and replayed by
+`decode.device_loop`.
 """
 
 from __future__ import annotations

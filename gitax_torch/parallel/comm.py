@@ -10,6 +10,12 @@ over gloo with ranks that share one card (`chip_smoke.py`).  A group of
 None is a group of one rank: every helper is then the identity and
 issues nothing.
 
+NCCL's collectives are kernels on the card, so a CUDA graph can capture
+them (`capturable`): the device-side search replays a model group's
+decode step, its all-reduces inside, under a predicate the card computes
+(`decode.device_loop`).  gloo's are host round trips, which no graph
+holds: a gloo model group keeps the eager loop.
+
 Tensor parallelism uses Megatron's pair of autograd functions:
 `copy_to_model` ("f": identity forward, all-reduce of the gradient
 backward) before each column-parallel product, and `reduce_from_model`
@@ -44,6 +50,19 @@ def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
         dist = _dist()
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     return t
+
+
+def capturable(group) -> bool:
+    """Whether a CUDA graph can capture collectives over `group`: NCCL's
+    (one card a rank) can; gloo's (the CPU, ranks sharing one card)
+    cannot.  A group of None issues nothing, so it is capturable."""
+    return group is None or _dist().get_backend(group) == "nccl"
+
+
+def group_key(group):
+    """What names a group in a cache key: its name and its global ranks
+    (two meshes over the same ranks make two groups, two names)."""
+    return group.group_name, tuple(_dist().get_process_group_ranks(group))
 
 
 def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
@@ -115,14 +134,20 @@ def gather_rows(t: torch.Tensor, lo: int, total: int, group) -> torch.Tensor:
     return all_reduce(full, group)
 
 
-def count_unequal(t: torch.Tensor, group, size: int) -> int:
+def unequal_elements(t: torch.Tensor, group, size: int) -> torch.Tensor:
     """How many elements of the integer tensor `t` differ between the
-    `size` ranks of `group`: with s1 and s2 the sums of t and t^2 over the
-    ranks, an element is equal on all of them iff size * s2 == s1^2."""
+    `size` ranks of `group`, as a 0-dim int64 tensor on t's device (no
+    host wait): with s1 and s2 the sums of t and t^2 over the ranks, an
+    element is equal on all of them iff size * s2 == s1^2."""
     t = t.to(torch.int64)
     s1 = all_reduce(t.clone(), group)
     s2 = all_reduce(t * t, group)
-    return int((size * s2 != s1 * s1).sum().item())
+    return (size * s2 != s1 * s1).sum()
+
+
+def count_unequal(t: torch.Tensor, group, size: int) -> int:
+    """`unequal_elements` read on the host."""
+    return int(unequal_elements(t, group, size).item())
 
 
 class _CopyToModel(torch.autograd.Function):

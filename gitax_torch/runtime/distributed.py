@@ -135,7 +135,27 @@ def init_training_group(rank=None, world_size=None, init_method=None, device=Non
     cards; share_card=True puts every rank on `device` (default cuda:0)
     over gloo, which NCCL refuses.  A group the launcher already made (the
     CLI's gloo group under torchrun, `common.dispatch_main`) is kept; the
-    mesh's groups then take the backend returned."""
+    mesh's groups then take the backend returned.
+
+    The group is not bound to a device (no `device_id`): each NCCL group
+    then makes its communicator among its own ranks at its first
+    collective.  Bound, torch makes every later group by splitting the
+    default communicator (`ncclCommSplit`, a collective of every rank),
+    and a rank outside a new group of any backend takes part with a
+    no-colour split while the members of a gloo group make none: a gloo
+    group of some ranks only (the hosts' `hosts_group`, an engine's
+    header group on a launch of several hosts) leaves the ranks' splits
+    unpaired, and the next NCCL group waits forever (four cards, 2 hosts
+    x [2, 1]).
+
+    NCCL ranks set NCCL_GRAPH_MIXING_SUPPORT=0 unless the environment
+    sets it: with NCCL's default (1) a captured collective brings event
+    record and wait nodes into the graph, which the body of a
+    conditional node cannot hold, so a model group's search could not
+    run on the card (`decode.device_loop`); with 0 it is kernels and
+    copies only.  What 0 gives up, NCCL launches of one communicator on
+    unordered streams at once, the port never does: every collective
+    and every graph launch of a rank is ordered on its stream."""
     import torch
     import torch.distributed as dist
 
@@ -154,17 +174,17 @@ def init_training_group(rank=None, world_size=None, init_method=None, device=Non
         check_data_parallel(local + 1)
         backend, dev = "nccl", torch.device("cuda", local)
         torch.cuda.set_device(dev)
+        # before NCCL makes a communicator: see the docstring
+        os.environ.setdefault("NCCL_GRAPH_MIXING_SUPPORT", "0")
     if dist.is_initialized():
         if (dist.get_rank(), dist.get_world_size()) != (rank, world_size):
             raise ValueError("the process group is rank {} of {}, not {} of {}".format(
                 dist.get_rank(), dist.get_world_size(), rank, world_size))
         return dev, backend
     global _GROUP_TIMEOUT_S
-    kwargs = dict(backend=backend, init_method=init_method or "env://", world_size=world_size,
-                  rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
-    if backend == "nccl":
-        kwargs["device_id"] = dev
-    dist.init_process_group(**kwargs)
+    dist.init_process_group(backend=backend, init_method=init_method or "env://",
+                            world_size=world_size, rank=rank,
+                            timeout=datetime.timedelta(seconds=timeout_s))
     _GROUP_TIMEOUT_S = timeout_s
     logging.info("training group: rank %d/%d, %s on %s", rank, world_size, backend, dev)
     return dev, backend

@@ -56,7 +56,13 @@ data rank runs the search on its rows (`Mesh.batch_rows`), its model
 group on its heads, and the sequences come back to rank 0 as an
 all-reduce of zero-padded rows over the data axis.  Rank 0 issues every
 collective from the thread that calls `dispatch_device_batch`, under a
-lock, in one order.
+lock, in one order.  Over NCCL (one card a rank) the search is the
+replayed graph step on every rank, model groups of m > 1 included, and
+rank 0's upload is pinned, so `dispatch_device_batch` returns once the
+batch's broadcasts, the search and the sequences' all-reduce are
+enqueued, before the search ends, as on one card; over gloo (ranks
+sharing one card) each model group's search reads the host once a
+step.
 """
 
 from __future__ import annotations
@@ -262,7 +268,8 @@ class CaptionEngine(object):
     over the data axis.  on_close: called by `close()` after the
     followers are stopped (the entry points leave their group there).
     check_groups: count, on every batch, the sequence elements that
-    differ between the ranks of a model group (`group_mismatches`)."""
+    differ between the ranks of a model group (`group_mismatches`, read
+    on the host only when asked)."""
 
     def __init__(self, model: GitModel, tokenizer, batch_size: int = 32,
                  beam: Optional[BeamSearchConfig] = None, dtype=torch.bfloat16,
@@ -275,7 +282,7 @@ class CaptionEngine(object):
         self.use_native = resolve_use_native(use_native)
         self.mesh = mesh
         self.check_groups = check_groups
-        self.group_mismatches = 0
+        self._mismatches = None  # a device count on rank 0, summed over the batches
         # rank 0 of a mesh stops its followers once; a failed batch leaves
         # the group broken, and then no stop header is sent
         self._stopped = mesh is None or mesh.rank != 0
@@ -331,6 +338,13 @@ class CaptionEngine(object):
         self._uploads = PinnedUploads()
         self._close = weakref.finalize(self, self.pool.shutdown, wait=False)
         self._on_close = on_close
+
+    @property
+    def group_mismatches(self) -> int:
+        """The sequence elements that differed within a model group, over
+        every batch so far (rank 0 of a mesh with check_groups); waits for
+        the card."""
+        return 0 if self._mismatches is None else int(self._mismatches.item())
 
     @classmethod
     def follower(cls, mesh):
@@ -419,12 +433,7 @@ class CaptionEngine(object):
         dev_imgs = torch.from_numpy(imgs)
         if dev_imgs.dtype != torch.uint8:  # cast on the host: the upload is activation-width
             dev_imgs = dev_imgs.to(self.dtype)
-        pref = torch.from_numpy(pref)
-        if self.device.type == "cuda":  # no host wait: see PinnedUploads
-            dev_imgs = self._uploads.upload(dev_imgs, self.device)
-            pref = self._uploads.upload(pref, self.device)
-        else:
-            dev_imgs, pref = dev_imgs.to(self.device), pref.to(self.device)
+        dev_imgs, pref = self._upload(dev_imgs), self._upload(torch.from_numpy(pref))
         seqs, _ = self._caption_fn(pref.shape[1], generate)(dev_imgs, pref)
         return seqs
 
@@ -448,14 +457,21 @@ class CaptionEngine(object):
                                         int(bool(generate))])
                 if generate:
                     comm.broadcast_object(generate, self._channel.src, self._channel.control)
-                dev_imgs = comm.broadcast(torch.from_numpy(imgs).to(self.device),
+                dev_imgs = comm.broadcast(self._upload(torch.from_numpy(imgs)),
                                           self._channel.src, self._channel.world)
-                dev_pref = comm.broadcast(torch.from_numpy(pref).to(self.device),
+                dev_pref = comm.broadcast(self._upload(torch.from_numpy(pref)),
                                           self._channel.src, self._channel.world)
                 return self._run(dev_imgs, dev_pref, generate or None)
             except BaseException:
                 self._broken = True
                 raise
+
+    def _upload(self, host):
+        """A CPU tensor on the engine's device: through `PinnedUploads` on a
+        card (no host wait, see there), else a copy."""
+        if self.device.type == "cuda":
+            return self._uploads.upload(host, self.device)
+        return host.to(self.device)
 
     def _run(self, images, pref, generate):
         """Every rank's part of a device batch [B, ...]: its data rank's
@@ -476,14 +492,14 @@ class CaptionEngine(object):
             generate = dict(generate, rng=local)
         seqs, _ = self._caption_fn(pref.shape[1], generate)(images, pref)
         if self.check_groups and mesh.model > 1:
-            unequal = comm.count_unequal(seqs, mesh.model_group, mesh.model)
+            unequal = comm.unequal_elements(seqs, mesh.model_group, mesh.model)
         if mesh.model_rank != 0:
             return None
         per_row = seqs.shape[0] // (hi - lo)  # num_return_sequences
         full = comm.gather_rows(seqs, lo * per_row, total * per_row, mesh.data_group)
         if self.check_groups and mesh.model > 1:
-            n = comm.all_reduce(torch.tensor([unequal], device=self.device), mesh.data_group)
-            self.group_mismatches += int(n.item())
+            n = comm.all_reduce(unequal.reshape(1), mesh.data_group)[0]
+            self._mismatches = n if self._mismatches is None else self._mismatches + n
         return full if mesh.rank == 0 else None
 
     def follow(self):

@@ -36,8 +36,9 @@ is asynchronous on one card: `dispatch_device_batch` returns once the
 upload (pinned) and the search (a replayed CUDA graph step,
 `decode.device_loop`) are enqueued, so up to `max_in_flight` batches'
 uploads and searches overlap on the card, and the resolver's `to_host`
-is the first host wait.  A model group of m > 1 ranks still searches
-with one host read a step.
+is the first host wait.  The same holds on a mesh whose groups are
+NCCL's (one card a rank), model groups of m > 1 included; a gloo mesh
+(ranks sharing one card) searches with one host read a step.
 """
 
 import collections

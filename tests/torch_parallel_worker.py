@@ -188,24 +188,34 @@ SCENARIOS = {
 }
 
 
-def main(rank, world, init_method, job_dir):
+def run_scenarios(rank, world, init_method, job_dir, job_file, scenarios, out_file):
+    """A rank of a launch of `world` gloo CPU ranks: every (name, fn) of
+    `scenarios` in order on the job in `job_file`, rank 0 writing each
+    one's result, or its traceback, to `out_file`."""
     init_training_group(rank, world, init_method, device="cpu", timeout_s=TIMEOUT_S)
     threads = torch.get_num_threads()
     torch.set_num_threads(1)  # the ranks share the test machine's cores
     try:
-        job = torch.load(os.path.join(job_dir, "job.pt"), weights_only=False)
+        job = torch.load(os.path.join(job_dir, job_file), weights_only=False)
         job["dir"] = job_dir
         results = {"jax_imported": per_rank("jax" in sys.modules, world)}
-        for name, fn in SCENARIOS[world]:
+        for name, fn in scenarios:
             try:
                 results[name] = fn(job)
             except Exception:  # recorded for the test of this scenario to report
                 results[name] = {"error": traceback.format_exc()}
         if rank == 0:
-            torch.save(results, os.path.join(job_dir, "results{}.pt".format(world)))
+            torch.save(results, os.path.join(job_dir, out_file))
     finally:
         torch.set_num_threads(threads)
         dist.destroy_process_group()
+
+
+def main(rank, world, init_method, job_dir):
+    """A rank of the training group of `world` ranks: every scenario of
+    SCENARIOS[world], results in results{world}.pt."""
+    run_scenarios(rank, world, init_method, job_dir, "job.pt", SCENARIOS[world],
+                  "results{}.pt".format(world))
 
 
 # ---------------------------------------------------------------------------
@@ -443,25 +453,9 @@ INFER_SCENARIOS = {
 
 def infer_main(rank, world, init_method, job_dir):
     """A rank of the inference group of `world` ranks: every scenario of
-    INFER_SCENARIOS[world] in order, rank 0 writing each one's result, or
-    its traceback, to infer{world}.pt."""
-    init_training_group(rank, world, init_method, device="cpu", timeout_s=TIMEOUT_S)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        job = torch.load(os.path.join(job_dir, "infer_job.pt"), weights_only=False)
-        job["dir"] = job_dir
-        results = {"jax_imported": per_rank("jax" in sys.modules, world)}
-        for name, fn in INFER_SCENARIOS[world]:
-            try:
-                results[name] = fn(job)
-            except Exception:
-                results[name] = {"error": traceback.format_exc()}
-        if rank == 0:
-            torch.save(results, os.path.join(job_dir, "infer{}.pt".format(world)))
-    finally:
-        torch.set_num_threads(threads)
-        dist.destroy_process_group()
+    INFER_SCENARIOS[world], results in infer{world}.pt."""
+    run_scenarios(rank, world, init_method, job_dir, "infer_job.pt", INFER_SCENARIOS[world],
+                  "infer{}.pt".format(world))
 
 
 def faulty_follower(rank, world, init_method, mesh_shape, device, share_card, timeout_s):
@@ -565,25 +559,8 @@ HOSTS_SCENARIOS = [
 
 def hosts_main(rank, world, init_method, job_dir):
     """A rank of a launch of `world` gloo CPU ranks: every scenario of
-    HOSTS_SCENARIOS in order, rank 0 writing each one's result, or its
-    traceback, to hosts.pt."""
-    init_training_group(rank, world, init_method, device="cpu", timeout_s=TIMEOUT_S)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        job = torch.load(os.path.join(job_dir, "hosts_job.pt"), weights_only=False)
-        job["dir"] = job_dir
-        results = {"jax_imported": per_rank("jax" in sys.modules, world)}
-        for name, fn in HOSTS_SCENARIOS:
-            try:
-                results[name] = fn(job)
-            except Exception:
-                results[name] = {"error": traceback.format_exc()}
-        if rank == 0:
-            torch.save(results, os.path.join(job_dir, "hosts.pt"))
-    finally:
-        torch.set_num_threads(threads)
-        dist.destroy_process_group()
+    HOSTS_SCENARIOS, results in hosts.pt."""
+    run_scenarios(rank, world, init_method, job_dir, "hosts_job.pt", HOSTS_SCENARIOS, "hosts.pt")
 
 
 def sleeping_follower(rank, world, init_method, timeout_s, sleep_s):
@@ -602,3 +579,184 @@ def sleeping_follower(rank, world, init_method, timeout_s, sleep_s):
     make_mesh(2, 1, device="cpu", timeout_s=timeout_s)
     _Channel(mesh)
     time.sleep(sleep_s)
+
+
+# ---------------------------------------------------------------------------
+# the groups every rank makes, and a model group's search on the card's
+# schedule: the ranks of tests/test_torch_port_tp_loop.py
+# ---------------------------------------------------------------------------
+
+
+class GroupLog(object):
+    """Every `torch.distributed.new_group` call this process makes until
+    `remove`, in order: (its ranks, sorted, or None for all; its backend
+    as the caller named it, or None).  Before each call every rank's call
+    is gathered over the default group, and a call that differs from
+    another rank's raises on every rank at once: a group that one host
+    makes and another does not, or makes later, fails here instead of
+    leaving the others waiting in its creation (as gloo does, on the
+    group's timeout, and NCCL does forever)."""
+
+    def __init__(self):
+        self.calls = []
+        self._new_group = dist.new_group
+
+        def new_group(ranks=None, *args, **kwargs):
+            backend = kwargs.get("backend", args[1] if len(args) > 1 else None)
+            call = (None if ranks is None else tuple(sorted(ranks)),
+                    None if backend is None else str(backend))
+            self.calls.append(call)
+            self.agree(("new_group", call))
+            return self._new_group(ranks, *args, **kwargs)
+
+        dist.new_group = new_group
+
+    @staticmethod
+    def agree(item):
+        """Every rank's `item`, gathered; raises unless all are equal."""
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, item)
+        if any(x != every[0] for x in every):
+            raise RuntimeError("the ranks' new_group calls differ: {}".format(
+                group_order_mismatch([[x] for x in every]) or every))
+
+    def remove(self):
+        dist.new_group = self._new_group
+
+
+def group_order_mismatch(calls_by_rank):
+    """None when every rank of a launch made the same `new_group` calls
+    in the same order (what NCCL needs of every rank); else a message
+    naming the first rank and call that differ from rank 0's."""
+    first = calls_by_rank[0]
+    for rank, calls in enumerate(calls_by_rank[1:], 1):
+        if calls != first:
+            i = next((i for i, (a, b) in enumerate(zip(first, calls)) if a != b),
+                     min(len(first), len(calls)))
+            return "rank {} call {}: {} where rank 0 made {}".format(
+                rank, i, calls[i] if i < len(calls) else "nothing",
+                first[i] if i < len(first) else "nothing")
+    return None
+
+
+def with_groups(fn):
+    """fn(job) under a `GroupLog` on every rank: {'result': fn's, 'groups':
+    every rank's calls} on rank 0, None elsewhere."""
+
+    def run(job):
+        log = GroupLog()
+        try:
+            result = fn(job)
+            log.agree(("done", len(log.calls)))
+        finally:
+            log.remove()
+        calls = [None] * dist.get_world_size()
+        dist.all_gather_object(calls, log.calls)
+        return {"result": result, "groups": calls} if dist.get_rank() == 0 else None
+
+    return run
+
+
+def replayed_noise(table):
+    """A `gumbel_noise` that hands out `table`'s draws in order (gitax's,
+    made by the test), one a call, from the first at each search."""
+    state = {"i": 0}
+
+    def noise(shape, generator):
+        t = torch.from_numpy(table[state["i"]])
+        state["i"] += 1
+        assert tuple(t.shape) == tuple(shape), (t.shape, shape)
+        return t
+
+    return state, noise
+
+
+def tp_schedule(job, name):
+    """The TP case `name` of the job on a [1, 2] mesh of this launch: the
+    search's step form on the card's schedule (`device_loop.run_on_host`:
+    every launch, the body under the predicate), then the eager loop on
+    the same mesh.  Every rank logs, after each body, the predicate the
+    body computed and the bodies run so far.  Rank 0 gets both loops'
+    tokens and logprobs, the elements that differ within the model group,
+    and every rank's log."""
+    from gitax_torch.decode import beam as pt_beam
+    from gitax_torch.decode import device_loop
+    from gitax_torch.decode.beam import BeamSearchConfig
+    from gitax_torch.decode.trie import build_vocab_trie
+    from gitax_torch.models.git import GitModel as PortModel
+    from gitax_torch.parallel.mesh import shard_for_inference
+    from gitax_torch.tokenization import BertTokenizer, build_tiny_vocab
+
+    spec, case = job["tp"], job["tp_cases"][name]
+    mesh = make_mesh(1, 2, device="cpu")
+    model = shard_for_inference(model_from(spec["cfg"], spec["weights"]), mesh)
+    kw = dict(mode=case.get("mode", "beam"))
+    if kw["mode"] == "beam":
+        kw["beam"] = BeamSearchConfig(**case["beam"])
+    else:
+        kw["max_steps"] = case["max_steps"]
+    if kw["mode"] == "trie":
+        kw["trie"] = build_vocab_trie(BertTokenizer(build_tiny_vocab(job["trie_words"])),
+                                      job["trie_classes"])
+    table = job["tp_noise"].get(name)
+    log, launches = [], []
+
+    def search_run(self, visual, eager_loop, key):
+        if eager_loop:
+            return None
+
+        def run(state, step, running, result, replays, draw=None, rng=None):
+            launches.append(replays)
+            bodies = [0]
+
+            def counted(st, noise):
+                bodies[0] += 1
+                step(st, noise)
+
+            def observed(st):
+                pred = running(st)
+                log.append((bool(pred), bodies[0]))
+                return pred
+
+            return device_loop.run_on_host(state, counted, observed, result, replays, draw, rng)
+
+        return run
+
+    saved = PortModel._search_run, pt_beam.gumbel_noise
+    PortModel._search_run = search_run
+    out = {}
+    try:
+        for loop in ("schedule", "eager"):
+            if table is not None:
+                replay, pt_beam.gumbel_noise = replayed_noise(table)
+                kw["rng"] = torch.Generator()
+            prefix = None if case.get("prefix") is None else torch.tensor(case["prefix"])
+            seqs, logprobs = model.generate(torch.from_numpy(spec["images"]), prefix,
+                                            eager_loop=loop == "eager", **kw)
+            out[loop] = {"tokens": seqs.numpy(), "logprobs": logprobs.numpy(),
+                         "unequal": comm.count_unequal(seqs, mesh.model_group, 2)}
+    finally:
+        PortModel._search_run, pt_beam.gumbel_noise = saved
+    logs = [None] * dist.get_world_size()
+    dist.all_gather_object(logs, (log, launches))
+    return dict(out, logs=logs) if dist.get_rank() == 0 else None
+
+
+TP_SCENARIOS = {
+    2: [("tp_beam", lambda job: tp_schedule(job, "beam")),
+        ("tp_beam_prefix", lambda job: tp_schedule(job, "beam_prefix")),
+        ("tp_greedy", lambda job: tp_schedule(job, "greedy")),
+        ("tp_trie", lambda job: tp_schedule(job, "trie")),
+        ("tp_sampled", lambda job: tp_schedule(job, "sampled")),
+        ("groups_engine_1x2", with_groups(lambda job: mesh_tokens(job, (1, 2), case="tp"))),
+        ("groups_tp_graph_search", with_groups(lambda job: tp_schedule(job, "beam")))],
+    4: [("groups_hosts_2x1", with_groups(lambda job: hosts_tsv(job, "caption", [2, 1]))),
+        ("groups_engine_2x2", with_groups(lambda job: mesh_tokens(job, (2, 2), case="tp")))],
+}
+
+
+def tp_loop_main(rank, world, init_method, job_dir):
+    """A rank of a launch of `world` gloo CPU ranks: every scenario of
+    TP_SCENARIOS[world], results in tp{world}.pt."""
+    run_scenarios(rank, world, init_method, job_dir, "tp_job.pt", TP_SCENARIOS[world],
+                  "tp{}.pt".format(world))
