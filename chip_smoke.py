@@ -1047,6 +1047,26 @@ def build_model(device, dtype, cpu_model):
     return model
 
 
+def coco_model():
+    """The run's GIT_LARGE_COCO: random weights of seed 0, EOS gated at 12."""
+    return random_model("GIT_LARGE_COCO", seed=0, gate=12)
+
+
+def vqa_model():
+    """The run's GIT_LARGE_VQAv2: random weights of seed 1, EOS gated at 16
+    (past the 14-token question prefix: answers of ~2 and ~9 tokens)."""
+    return random_model("GIT_LARGE_VQAv2", seed=1, gate=16)
+
+
+def coco_images():
+    """Phase 5's COCO_TSV_ROWS images, 224 x 224 (seed 0), which phases 14
+    and 23 read too."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    return [rng.randint(0, 256, (224, 224, 3)).astype(np.uint8) for _ in range(COCO_TSV_ROWS)]
+
+
 def random_model(name, seed, gate):
     """Random weights whose EOS row dominates from text position `gate`
     on (positions count the prefix)."""
@@ -1082,8 +1102,7 @@ def phase_coco_slice(card, cpu_model, tok, trace_dir):
                            beam=BeamSearchConfig(num_beams=4, max_steps=24),
                            dtype=torch.bfloat16, int8=True, fast_prefill=True,
                            decode_kernel=True)
-    rng = np.random.RandomState(0)
-    images = [rng.randint(0, 256, (224, 224, 3)).astype(np.uint8) for _ in range(96)]
+    images = coco_images()
     prefixes = [[tok.cls_token_id]] * len(images)
     engine.generate_batch(images[:32], prefixes[:32])  # warm-up: cuBLAS, allocator
     torch.cuda.synchronize()
@@ -2052,6 +2071,22 @@ def check_caption_rows(label, path, keys, decodes):
     return empty
 
 
+def write_coco_work(work, cpu_model, images):
+    """Phase 14's files in `work`, which phase 23 reads too: the COCO
+    weights as output/GIT_LARGE_COCO/snapshot/model.pt
+    (`ckpt.save_reference_checkpoint`) and `images` as coco.img.tsv.
+    Returns (the checkpoint's write seconds, its path, the TSV's keys)."""
+    from gitax_torch.ckpt import save_reference_checkpoint
+
+    snap = os.path.join(work, "output", "GIT_LARGE_COCO", "snapshot")
+    os.makedirs(snap)
+    path = os.path.join(snap, "model.pt")
+    t0 = time.perf_counter()
+    save_reference_checkpoint(path, cpu_model)
+    write_s = time.perf_counter() - t0
+    return write_s, path, write_image_tsv(os.path.join(work, "coco.img.tsv"), images)
+
+
 def phase_coco_tsv(card, cpu_model, images, work, engine_rate):
     """14. The COCO TSV through the CLI: the weights of phase 5 written by
     `ckpt.save_reference_checkpoint` as
@@ -2063,20 +2098,14 @@ def phase_coco_tsv(card, cpu_model, images, work, engine_rate):
     import torch
 
     from gitax_torch import common, inference
-    from gitax_torch.ckpt import save_reference_checkpoint
     from gitax_torch.ops import flash_attention as fa
     from gitax_torch.ops.decode_attention import decode_attention
     from gitax_torch.runtime.engine import CaptionEngine
     from gitax_torch.tokenization import BertTokenizer
 
     torch.cuda.reset_peak_memory_stats()
-    snap = os.path.join(work, "output", "GIT_LARGE_COCO", "snapshot")
-    os.makedirs(snap)
-    t0 = time.perf_counter()
-    save_reference_checkpoint(os.path.join(snap, "model.pt"), cpu_model)
-    write_s = time.perf_counter() - t0
     check(len(images) == COCO_TSV_ROWS, "{} images from phase 5".format(len(images)))
-    keys = write_image_tsv(os.path.join(work, "coco.img.tsv"), images)
+    write_s, ckpt_path, keys = write_coco_work(work, cpu_model, images)
 
     build = Captured(inference, "_build_model")
     loop = Captured(CaptionEngine, "run_caption_tsv")
@@ -2125,7 +2154,7 @@ def phase_coco_tsv(card, cpu_model, images, work, engine_rate):
         "the card {:.2f} s; the TSV "
         "loop {:.2f} images/s ({:.2f} s for {} rows, the first batch's warm-up included) beside "
         "the engine's {:.2f} images/s on the same images decoded (phase 5) [{}]".format(
-            write_s, os.path.getsize(os.path.join(snap, "model.pt")) / 2**20, build.seconds[0],
+            write_s, os.path.getsize(ckpt_path) / 2**20, build.seconds[0],
             rate, loop.seconds[0], COCO_TSV_ROWS, engine_rate, card))
     # the float upload: the transform's normalised f32 batch, cast to bf16
     # on the host and copied, as dispatch_device_batch does
@@ -4999,9 +5028,9 @@ def phase_w8a8_path(card, coco, vqa, images, seed):
             len({tuple(r) for r in seqs["w8a8"].tolist()}), card))
 
     # f32: the cut model's w8a8 tokens, card (kernels) against CPU (plain)
-    cut = quantize_git_model_(p23_parity_model(seed), encoder=True)
+    cut = w8a8_cut_model(seed)
     x = w8a8_parity_images(seed)
-    beam = BeamSearchConfig(num_beams=4, max_steps=24)
+    beam = w8a8_parity_beam()
     want, _ = cut.generate(x.cpu(), beam=beam)
     card_model = copy.deepcopy(cut).to("cuda")  # the int8 codes and scales as they are
     reset_int8_launches()
@@ -5022,6 +5051,23 @@ def phase_w8a8_path(card, coco, vqa, images, seed):
     return launches, got.cpu()
 
 
+def w8a8_cut_model(seed):
+    """Phase 26's cut model in f32 on the CPU: `p23_parity_model` with
+    the w8a8 encoder.  Phase 23 holds its mesh to its tokens on the
+    card, searched with `w8a8_parity_beam()`."""
+    from gitax_torch.ops.quant import quantize_git_model_
+
+    return quantize_git_model_(p23_parity_model(seed), encoder=True)
+
+
+def w8a8_parity_beam():
+    """The search of the cut model's w8a8 tokens, on one card and on the
+    mesh."""
+    from gitax_torch.decode.beam import BeamSearchConfig
+
+    return BeamSearchConfig(num_beams=4, max_steps=24)
+
+
 def w8a8_parity_images(seed):
     """W8A8_PARITY_ROWS uint8 224x224 images from the seed, normalised to
     f32 on the card (every rank of phase 23 makes the same)."""
@@ -5040,17 +5086,13 @@ def w8a8_mesh_rank(seed):
     import torch
     import torch.distributed as dist
 
-    from gitax_torch.decode.beam import BeamSearchConfig
-    from gitax_torch.ops.quant import quantize_git_model_
     from gitax_torch.parallel.mesh import make_mesh, shard_for_inference
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
     mesh = make_mesh(1, 2, device=dev)
-    model = shard_for_inference(quantize_git_model_(p23_parity_model(seed), encoder=True).to(dev),
-                                mesh)
-    seqs, _ = model.generate(w8a8_parity_images(seed),
-                             beam=BeamSearchConfig(num_beams=4, max_steps=24))
+    model = shard_for_inference(w8a8_cut_model(seed).to(dev), mesh)
+    seqs, _ = model.generate(w8a8_parity_images(seed), beam=w8a8_parity_beam())
     return seqs.cpu() if dist.get_rank() == 0 else None
 
 
@@ -6094,6 +6136,7 @@ def phase_device_loop(card, cpu_model, images, work, seed):
 P35_ROWS = 8  # (a): COCO images, and VQA pairs a question length
 P35_BATCH = 32  # (b)-(d): a batch's rows
 P35_PASSES = 3  # (c): passes each, eager and graph in turns
+P35_IN_FLIGHT = 4  # (c): batches dispatched before the first is read
 P35_CASES = ("COCO beam", "VQA [CLS]+6", "VQA [CLS]+13", "greedy", "sampled")
 
 
@@ -6250,6 +6293,12 @@ def p35_rank(seed):
     dev = torch.device("cuda", torch.cuda.current_device())
     mesh = make_mesh(1, 2, device=dev)
     check(mesh.backend == "nccl", "phase 35 runs over NCCL, got {}".format(mesh.backend))
+    # the captured step's communicator: a twin of the model group that no
+    # eager collective uses (NCCL's graph mixing is off)
+    check(mesh.graph_group is not None and mesh.graph_group is not mesh.model_group
+          and dist.get_process_group_ranks(mesh.graph_group)
+          == dist.get_process_group_ranks(mesh.model_group),
+          "phase 35: the mesh has no graph group over its model group's ranks")
     tok = BertTokenizer(build_tiny_vocab(VQA_WORDS))
     cpu_model = p23_parity_model(seed)
     out = {"parity": {}, "kernels": {}, "errors": []}
@@ -6411,12 +6460,13 @@ def p35_engine_rate(card, group, cpu_model, tok, items, pref, label):
                 found["steps"] = engine.model.decode_step_calls
                 spans.remove()
                 found.setdefault("seqs", {})[eager] = seqs
-            # two batches in flight: the second's eager encoder and prefill
-            # (all-reduces on the model group's communicator) are enqueued
-            # while the first's graph launches are outstanding
-            first = engine.dispatch_device_batch(arr, pref, **gen(False))
-            second = engine.dispatch_device_batch(arr, pref, **gen(False))
-            found["in flight"] = (engine.to_host(first), engine.to_host(second))
+            # P35_IN_FLIGHT batches in flight: each later batch's eager
+            # encoder and prefill (all-reduces on the model group) are
+            # enqueued while the earlier batches' graph launches (on the
+            # graph group, `Mesh.graph_group`) are outstanding
+            batches = [engine.dispatch_device_batch(arr, pref, **gen(False))
+                       for _ in range(P35_IN_FLIGHT)]
+            found["in flight"] = [engine.to_host(b) for b in batches]
             if label == "COCO":
                 for eager in (True, False):
                     found["busy", eager] = busy_profile(lambda: engine.to_host(
@@ -6449,10 +6499,9 @@ def p35_engine_rate(card, group, cpu_model, tok, items, pref, label):
           "phase 35 {}: the ranks' graphs ran {} bodies".format(label, group.run_bodies))
     same = np.mean([np.array_equal(a, b) for a, b in zip(found["seqs"][True],
                                                          found["seqs"][False])])
-    first, second = found["in flight"]
-    check(np.array_equal(first, found["seqs"][False])
-          and np.array_equal(second, found["seqs"][False]),
-          "phase 35 {}: two batches in flight on the graph differ from one at a time".format(label))
+    check(all(np.array_equal(s, found["seqs"][False]) for s in found["in flight"]),
+          "phase 35 {}: {} batches in flight on the graph differ from one at a time".format(
+              label, P35_IN_FLIGHT))
     med = {k: sorted(v)[len(v) // 2] for k, v in found["ms"].items()}
     rate = {k: sorted(v)[len(v) // 2] for k, v in found["rate"].items()}
     unit = "images" if label == "COCO" else "pairs"
@@ -6460,14 +6509,15 @@ def p35_engine_rate(card, group, cpu_model, tok, items, pref, label):
         "(rank 0's device events: the search less encode and prefill) eager {} (median {:.3f}), "
         "graph {} (median {:.3f}); eager / graph {:.2f}x; {}/s eager {} graph {} (host clock, "
         "dispatch to the sequences on the host); {:.1%} of the graph's sequences equal the eager "
-        "loop's; two batches in flight (the second's eager prefill enqueued behind the first's "
-        "graph launches) give the one-at-a-time sequences; bodies a rank {}; peak memory a rank {} MiB; launches over every rank decode_attention {} "
-        "flash_attention {} vocab_topk {}; {:.1f} s [{}]".format(
+        "loop's; {} batches in flight (each later one's eager encoder and prefill on the model "
+        "group enqueued behind the earlier ones' graph launches on the graph group) give the "
+        "one-at-a-time sequences; bodies a rank {}; peak memory a rank {} MiB; launches over "
+        "every rank decode_attention {} flash_attention {} vocab_topk {}; {:.1f} s [{}]".format(
             label, P35_BATCH, found["steps"], ["%.3f" % v for v in found["ms"][True]], med[True],
             ["%.3f" % v for v in found["ms"][False]], med[False], med[True] / med[False], unit,
             ["%.2f" % v for v in found["rate"][True]], ["%.2f" % v for v in found["rate"][False]],
-            same, group.run_bodies, ["%.1f" % p for p in peaks], *launches, time.perf_counter() - t0,
-            card))
+            same, P35_IN_FLIGHT, group.run_bodies, ["%.1f" % p for p in peaks], *launches,
+            time.perf_counter() - t0, card))
     if label == "COCO":
         for eager in (True, False):
             share, busy, span, host = found["busy", eager]
@@ -6508,6 +6558,44 @@ def p35_tp_loop(card, group, work, seed, want, coco, coco_tok, coco_items, coco_
                       "vqa_rate": vqa_rate, "kernels": kernels}
 
 
+def mesh_phase_alone(card, seed):
+    """`python3 chip_smoke.py --phase 23`: phase 23 alone, inference on a
+    mesh with phase 35 inside it (the device-side search on a [1, 2] model
+    group over NCCL), on what the whole run hands it: the kernels built,
+    the COCO and VQA models (`coco_model`, `vqa_model`), phase 14's
+    checkpoint and TSV of phase 5's images (`write_coco_work`) and phase
+    26's w8a8 tokens of the cut model on one card (`w8a8_cut_model`, no
+    CPU check here).  On one card the ranks share it over gloo and phase
+    35 says it needs two; on four, NCCL with a card a rank (`chiprun
+    --chips 4`)."""
+    import copy
+
+    import torch
+
+    t_all = time.perf_counter()
+    phase_build(card)
+    work = os.path.join(ROOT, "build", "gitax_torch", "smoke_work")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    coco, vqa, images = coco_model(), vqa_model(), coco_images()
+    write_coco_work(work, coco, images)
+    cut = copy.deepcopy(w8a8_cut_model(seed)).to("cuda")
+    w8a8_tokens = cut.generate(w8a8_parity_images(seed), beam=w8a8_parity_beam())[0].cpu()
+    del cut
+    torch.cuda.empty_cache()
+    log("set-up {:.1f} s".format(time.perf_counter() - t_all))
+    t0 = time.perf_counter()
+    nan = float("nan")
+    phase_mesh_infer(card, coco, vqa, images, work, seed,
+                     {"coco_tsv": nan, "serving": (nan, nan)}, w8a8_tokens)
+    log("phase 23 (with 35) {:.1f} s, all {:.1f} s".format(time.perf_counter() - t0,
+                                                           time.perf_counter() - t_all))
+    shutil.rmtree(work)
+
+
+USAGE = "usage: python3 chip_smoke.py [--profile] [--seed N] [--phase 23]"
+
+
 def main(argv):
     import torch
 
@@ -6516,10 +6604,15 @@ def main(argv):
     PROFILE = "--profile" in args
     if PROFILE:
         args.remove("--profile")
-    seed = 0
-    if args[:1] == ["--seed"] and len(args) == 2 and args[1].isdigit():
-        seed, args = int(args[1]), []
-    check(not args, "usage: python3 chip_smoke.py [--profile] [--seed N]")
+    seed, phase = 0, None
+    while args:
+        check(len(args) >= 2 and args[0] in ("--seed", "--phase") and args[1].isdigit(), USAGE)
+        if args[0] == "--seed":
+            seed = int(args[1])
+        else:
+            phase = int(args[1])
+        args = args[2:]
+    check(phase in (None, 23), USAGE)
     check(os.path.isdir(os.path.join(ROOT, "gitax_torch")),
           "gitax_torch/ not found beside chip_smoke.py")
     check(torch.cuda.is_available(), "no CUDA device")
@@ -6531,6 +6624,13 @@ def main(argv):
         card, torch.__version__, torch.version.cuda, torch.cuda.device_count()))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if phase == 23:
+        mesh_phase_alone(card, seed)
+        log(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     t_start = time.perf_counter()
 
     phase_build(card)  # 2
@@ -6553,7 +6653,7 @@ def main(argv):
     from gitax_torch.decode import device_loop
 
     device_loop.launches = 0
-    coco = random_model("GIT_LARGE_COCO", seed=0, gate=12)
+    coco = coco_model()
     coco_launches, images, coco_rate, coco_step_ms = phase_coco_slice(
         card, coco, BertTokenizer(build_tiny_vocab()), os.path.join(work, "trace"))  # and 29
     phase_coco_f32_parity(coco, images)
@@ -6570,8 +6670,7 @@ def main(argv):
     p34_d = phase_device_loop(card, coco, images, work, seed)  # 34, on phase 14's TSV
 
     # 7, 8, 15: the VQA path
-    # past the 14-token question prefix: answers of ~2 and ~9 tokens
-    vqa = random_model("GIT_LARGE_VQAv2", seed=1, gate=16)
+    vqa = vqa_model()
     vqa_tok = BertTokenizer(build_tiny_vocab(VQA_WORDS))
     vqa_d, vqa_f, pairs, vqa_rate = phase_vqa_slice(card, vqa, vqa_tok)
     phase_vqa_f32_parity(vqa, pairs)

@@ -62,7 +62,13 @@ launches `set_condition` once.
 
 On a model group of m > 1 ranks over NCCL, one card a rank, the step's
 all-reduces are captured with it (NCCL's collectives are kernels on the
-card) and the IF node's body holds them.  Every rank of the group runs
+card) and the IF node's body holds them.  They go over the mesh's graph
+group (`parallel.mesh.Mesh.graph_group`), a communicator of their own:
+with NCCL's graph mixing off, an eager call on a communicator that has
+a graph launch outstanding is unsupported, and the model group's eager
+collectives run while the last search's launches are queued.  The
+graph group's one eager use is the warm-up, after the host has read the
+predicate, so with no launch outstanding.  Every rank of the group runs
 the same key at the same call, so the ranks warm up (the collectives'
 first run, which makes the group's communicator) and capture together;
 and each rank's predicate comes from values equal on every rank, so all
@@ -377,7 +383,10 @@ def _capture(owner, state, step, running, draw, rng):
     side.wait_stream(current)
     with torch.cuda.stream(side):
         # the warm-up is the search's first step; a capture synchronises
-        # the card anyway, so the host may read the predicate here
+        # the card anyway, so the host may read the predicate here.  The
+        # read also waits out every graph launched before on this stream:
+        # the warm-up's eager collectives then find none of them
+        # outstanding on the graph group (`Mesh.graph_group`)
         go = bool(running(state))
         if go:
             _body(state, step, running, None if draw is None else draw(loop_rng), pred)

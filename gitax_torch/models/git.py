@@ -220,10 +220,10 @@ class GitModel(nn.Module):
                          fast=fast, kernel_memory=kernel_memory, flash=flash)
 
     def decode_step(self, tokens, cache, dtype=torch.float32, kernel=False,
-                    vocab_kernel=False):
+                    vocab_kernel=False, graph=False):
         self.decode_step_calls += 1
         return T.decode_step(self.textual, tokens, cache, self.cfg, dtype=dtype,
-                             kernel=kernel, vocab_kernel=vocab_kernel)
+                             kernel=kernel, vocab_kernel=vocab_kernel, graph=graph)
 
     def vocab_kernel_applies(self, beam: BeamSearchConfig) -> bool:
         """gitax's gate of `vocab_kernel` (git.py:321-333): no sampling, no
@@ -282,10 +282,11 @@ class GitModel(nn.Module):
         returns once the work is enqueued, before the search ends; the
         sequences come back as new tensors (the graph's buffers are not
         handed out).  On a model group of m > 1 that holds when the
-        group is NCCL's (one card a rank): the step's all-reduces are
-        captured with it, and every rank of the group captures and
-        replays the same step at the same call (see `_search_run`).
-        The encoder and the prefill stay eager.  The eager loop, one host
+        group is NCCL's (one card a rank): the step's all-reduces, over
+        the mesh's graph group, are captured with it, and every rank of
+        the group captures and replays the same step at the same call
+        (see `_search_run`).  The encoder and the prefill stay eager, on
+        the model group.  The eager loop, one host
         read a step, runs CPU tensors and gloo model groups (ranks on the
         CPU or sharing one card: a gloo all-reduce is a host round trip,
         which a graph cannot capture); eager_loop=True runs it on the
@@ -326,10 +327,11 @@ class GitModel(nn.Module):
             logits, cache = self.prefill(visual, prefix_tokens, max_steps, memory_valid, dtype,
                                          flash=flash)
 
-            def plain_step(tokens, cache):
-                return self.decode_step(tokens, cache, dtype)
-
             run = self._search_run(visual, eager_loop, (mode, max_steps, dtype))
+
+            def plain_step(tokens, cache):
+                return self.decode_step(tokens, cache, dtype, graph=run is not None)
+
             if mode == "greedy":
                 seqs, logprobs = greedy_search(plain_step, logits, cache, prefix_tokens, max_steps,
                                                run=run)
@@ -343,13 +345,13 @@ class GitModel(nn.Module):
                                      kernel_memory=decode_kernel, flash=flash)
 
         vocab_kernel = bool(vocab_kernel) and self.vocab_kernel_applies(beam)
+        run = self._search_run(visual, eager_loop, ("beam", beam, dtype, decode_kernel,
+                                                    vocab_kernel))
 
         def step(tokens, cache):
             return self.decode_step(tokens, cache, dtype, kernel=bool(decode_kernel),
-                                    vocab_kernel=vocab_kernel)
+                                    vocab_kernel=vocab_kernel, graph=run is not None)
 
-        run = self._search_run(visual, eager_loop, ("beam", beam, dtype, decode_kernel,
-                                                    vocab_kernel))
         decoded, logprobs = beam_search(step, logits, cache, prefix_tokens, beam, rng=rng,
                                         vocab_stats=vocab_kernel, run=run)
         decoded = decoded[:, :, tp:]
@@ -363,13 +365,16 @@ class GitModel(nn.Module):
         this model as the owner of its graphs and `key` (what fixes the
         step's code beside the state's shapes).
 
-        On an NCCL model group the key also names the group
+        On an NCCL model group the step's all-reduces go over the mesh's
+        graph group (`decode_step(graph=True)`, `Mesh.graph_group`: a
+        communicator that no eager collective shares, as NCCL's graph
+        mixing off requires), and the key names that group
         (`comm.group_key`), so that one model sharded for two meshes
         never shares a graph.  The ranks of a group stay in lockstep with
         nothing exchanged for it: each calls generate with the same
         inputs and settings, so each misses the cache, warms up (the
-        warm-up step runs the group's collectives, which also makes its
-        communicator) and captures at the same call; and each rank's
+        warm-up step runs the graph group's collectives, which also makes
+        its communicator) and captures at the same call; and each rank's
         predicate is computed from values that are equal bit for bit on
         every rank (logits of the replicated head over all-reduced
         activations, the same flags and lengths, a sampled search's noise
@@ -380,7 +385,10 @@ class GitModel(nn.Module):
         if eager_loop or not visual.is_cuda or not comm.capturable(group):
             return None
         if group is not None:
-            key = key + (comm.group_key(group),)
+            if self.textual.graph_group is None:
+                raise RuntimeError("an NCCL model group without its graph group: shard the "
+                                   "model on a mesh from parallel.mesh.make_mesh")
+            key = key + (comm.group_key(self.textual.graph_group),)
 
         def run(state, step, running, result, replays, draw=None, rng=None):
             return device_loop.run(self, key, state, step, running, result, replays, draw, rng)

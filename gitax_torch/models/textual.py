@@ -30,7 +30,8 @@ heads) and both kernels run on those heads; after each layer's last
 all-reduce every rank holds the same activations and computes the full
 logits.  Over NCCL a decode step's all-reduces (two a layer, both
 `row_linear`'s) are captured with the rest of the step and replayed by
-`decode.device_loop`.
+`decode.device_loop`; such a step (`decode_step(graph=True)`) sums over
+`graph_group`, the model group's twin that only captured steps use.
 """
 
 from __future__ import annotations
@@ -139,8 +140,10 @@ class TextualHead(nn.Module):
         # tied head: logits = h @ words^T + bias (decoder.py:500-505)
         self.output = Linear(d, v, device=device, dtype=dtype)
         self.output.weight = self.embedding.words.weight
-        # the model group under tensor parallelism (parallel/mesh.py)
+        # the model group under tensor parallelism (parallel/mesh.py), and
+        # its twin for captured decode steps (NCCL only)
         self.tp_group = None
+        self.graph_group = None
 
     def layers(self) -> List[BertLayer]:
         return list(self.transformer.encoder.layer)
@@ -400,7 +403,7 @@ def prefill(tx: TextualHead, visual_features, prefix_tokens, cfg: GitConfig,
 
 
 def decode_step(tx: TextualHead, tokens, cache: KVCache, cfg: GitConfig,
-                dtype=torch.float32, kernel=False, vocab_kernel=False):
+                dtype=torch.float32, kernel=False, vocab_kernel=False, graph=False):
     """One incremental step: tokens [B*beams] at text position
     cache.length.  Returns (f32 logits [B*beams, vocab], the cache with
     length+1, a new 0-dim tensor); the text cache is updated in place.
@@ -424,7 +427,12 @@ def decode_step(tx: TextualHead, tokens, cache: KVCache, cfg: GitConfig,
     (gitax textual.py:618-675), which scores against all beam rows and
     selects through the ancestry one-hot.  Score math is f32 in both; in
     f32 they agree to rounding, in bf16 the kernel sums both contexts in
-    f32 before one cast."""
+    f32 before one cast.
+
+    graph=True: the step runs under `decode.device_loop` (warm-up and
+    capture), and its all-reduces go over `tx.graph_group` where the mesh
+    made one (NCCL), else over the model group."""
+    group = tx.graph_group if graph and tx.graph_group is not None else tx.tp_group
     bk = tokens.shape[0]
     b = cache.batch
     beams = bk // b
@@ -501,7 +509,7 @@ def decode_step(tx: TextualHead, tokens, cache: KVCache, cfg: GitConfig,
     mem_scale = cache.mem_scale or [None] * cache.num_layers
     for li, layer in enumerate(tx.layers()):
         ctx = attend(x, layer, cache.mem_kv[li], mem_scale[li], cache.txt_kv[li])
-        x = _attn_tail(x, ctx, layer, cfg, tx.tp_group)
+        x = _attn_tail(x, ctx, layer, cfg, group)
     cache = dataclasses.replace(cache, length=pos + 1)
     if vocab_kernel:
         out = tx.output

@@ -13,7 +13,8 @@ issues nothing.
 NCCL's collectives are kernels on the card, so a CUDA graph can capture
 them (`capturable`): the device-side search replays a model group's
 decode step, its all-reduces inside, under a predicate the card computes
-(`decode.device_loop`).  gloo's are host round trips, which no graph
+(`decode.device_loop`); those go over the mesh's graph group, a
+communicator no eager collective shares (`parallel.mesh.make_mesh`).  gloo's are host round trips, which no graph
 holds: a gloo model group keeps the eager loop.
 
 Tensor parallelism uses Megatron's pair of autograd functions:

@@ -154,6 +154,9 @@ class Mesh:
     device: torch.device
     data_group: object = None
     model_group: object = None
+    # NCCL, m > 1: a second group over the model group's ranks, which only
+    # a captured search step uses (`make_mesh`)
+    graph_group: object = None
     backend: Optional[str] = None  # the backend of its groups
     timeout_s: Optional[float] = None  # the timeout of its groups
     base: int = 0  # the global rank of this mesh's rank 0
@@ -216,7 +219,18 @@ def make_mesh(data: Optional[int] = None, model: int = 1, device=None, backend=N
     Under NCCL the timeout is kept by the watchdog: torch documents that a
     collective past it is aborted and the process brought down, unless
     TORCH_NCCL_BLOCKING_WAIT=1, with which the waiting call raises
-    instead.  Under gloo the waiting call raises."""
+    instead.  Under gloo the waiting call raises.
+
+    Under NCCL with model > 1 each model group has a twin over the same
+    ranks, made right after it (`Mesh.graph_group`): the communicator of
+    the search step that `decode.device_loop` captures.  With NCCL's
+    graph mixing off (`runtime.distributed.init_training_group`) a
+    communicator must never take an eager call while one of its graph
+    launches is outstanding, and the mesh's eager collectives (the next
+    batch's encoder and prefill, `share_generator`, the engine's checks)
+    run on the model group while the last search's launches are still
+    queued; the twin takes graph launches only, and the step's warm-up,
+    which runs after the host has waited for the stream."""
     import torch.distributed as dist
 
     from ..runtime.distributed import group_timeout_s
@@ -240,10 +254,12 @@ def make_mesh(data: Optional[int] = None, model: int = 1, device=None, backend=N
         mine = base == mesh.base
         if model > 1:
             for d in range(data):
-                group = dist.new_group([base + d * model + m for m in range(model)],
-                                       backend=backend, timeout=timeout)
+                ranks = [base + d * model + m for m in range(model)]
+                group = dist.new_group(ranks, backend=backend, timeout=timeout)
+                twin = (dist.new_group(ranks, backend=backend, timeout=timeout)
+                        if mesh.backend == "nccl" else None)
                 if mine and d == mesh.data_rank:
-                    mesh.model_group = group
+                    mesh.model_group, mesh.graph_group = group, twin
         if data > 1:
             for m in range(model):
                 group = dist.new_group([base + d * model + m for d in range(data)],
@@ -337,6 +353,7 @@ def _shard_(model, mesh: Mesh):
                 module.register_buffer(leaf, shard.clone(memory_format=torch.preserve_format))
         model.image_encoder.tp_group = mesh.model_group
         model.textual.tp_group = mesh.model_group
+        model.textual.graph_group = mesh.graph_group
     model.mesh = mesh
     return model
 

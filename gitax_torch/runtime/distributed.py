@@ -153,9 +153,18 @@ def init_training_group(rank=None, world_size=None, init_method=None, device=Non
     record and wait nodes into the graph, which the body of a
     conditional node cannot hold, so a model group's search could not
     run on the card (`decode.device_loop`); with 0 it is kernels and
-    copies only.  What 0 gives up, NCCL launches of one communicator on
-    unordered streams at once, the port never does: every collective
-    and every graph launch of a rank is ordered on its stream."""
+    copies only.  With 0, NCCL documents correctness only for a
+    communicator that never has two graph launches outstanding on
+    unordered streams, nor an outstanding graph launch followed by an
+    eager call, whatever the streams' dependencies.  The port keeps both
+    rules by giving captured collectives communicators of their own:
+    each model group has a twin over the same ranks, `Mesh.graph_group`
+    (`parallel.mesh.make_mesh`), on which only the search's captured
+    step runs.  Its graphs are launched on one stream under one lock,
+    and its one eager use, the step's warm-up before a capture, comes
+    after the host has waited for that stream.  Every eager collective
+    (encoder, prefill, `share_generator`, the engine's) stays on the
+    model group, which no graph holds."""
     import torch
     import torch.distributed as dist
 

@@ -60,7 +60,9 @@ lock, in one order.  Over NCCL (one card a rank) the search is the
 replayed graph step on every rank, model groups of m > 1 included, and
 rank 0's upload is pinned, so `dispatch_device_batch` returns once the
 batch's broadcasts, the search and the sequences' all-reduce are
-enqueued, before the search ends, as on one card; over gloo (ranks
+enqueued, before the search ends, as on one card (the captured step
+sums over the mesh's graph group, every other collective over the model
+group: `parallel.mesh.Mesh.graph_group`); over gloo (ranks
 sharing one card) each model group's search reads the host once a
 step.
 """

@@ -253,22 +253,25 @@ def test_init_training_group_binds_no_card(monkeypatch):
 
 
 class _Group(object):
-    group_name = "7"
+    def __init__(self, name="7", ranks=(2, 3)):
+        self.group_name, self.ranks = name, list(ranks)
 
 
 @pytest.mark.parametrize("backend", ["nccl", "gloo"])
 def test_search_run_takes_the_graph_on_nccl_and_the_eager_loop_on_gloo(backend, monkeypatch):
     """A model group over NCCL searches on the card's replayed graph, its
-    key naming the group; over gloo (no graph can capture its host round
-    trips), the eager loop; eager_loop=True and CPU tensors the eager loop
-    on either."""
+    key naming the mesh's graph group (the captured step's communicator);
+    over gloo (no graph can capture its host round trips), the eager
+    loop; eager_loop=True and CPU tensors the eager loop on either.  An
+    NCCL model group with no graph group raises."""
     import torch.distributed as dist
 
     _, model = weights()
-    group = _Group()
+    group, twin = _Group("7"), _Group("8")
     monkeypatch.setattr(model.textual, "tp_group", group)
+    monkeypatch.setattr(model.textual, "graph_group", twin if backend == "nccl" else None)
     monkeypatch.setattr(dist, "get_backend", lambda g: backend if g is group else "?")
-    monkeypatch.setattr(dist, "get_process_group_ranks", lambda g: [2, 3])
+    monkeypatch.setattr(dist, "get_process_group_ranks", lambda g: g.ranks)
     keys = []
     monkeypatch.setattr(device_loop, "run", lambda owner, key, *a: keys.append((owner, key)))
     on_card = types.SimpleNamespace(is_cuda=True)
@@ -280,5 +283,106 @@ def test_search_run_takes_the_graph_on_nccl_and_the_eager_loop_on_gloo(backend, 
         assert run is None
         return
     run("state", "step", "running", "result", 5)
-    assert keys == [(model, ("beam", 4, ("7", (2, 3))))]
+    assert keys == [(model, ("beam", 4, ("8", (2, 3))))]
     assert isinstance(model, PortModel)
+    monkeypatch.setattr(model.textual, "graph_group", None)
+    with pytest.raises(RuntimeError, match="graph group"):
+        model._search_run(on_card, False, ("beam", 4))
+
+
+def _fake_world(monkeypatch, world, rank, backend):
+    """torch.distributed as `make_mesh` sees it on global rank `rank` of
+    `world`, every group of `backend`: new_group records (ranks,
+    backend) and returns a new _Group."""
+    import torch.distributed as dist
+
+    calls = []
+
+    def new_group(ranks, backend=None, timeout=None):
+        calls.append((tuple(ranks), backend))
+        return _Group(str(len(calls)), ranks)
+
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda: world)
+    monkeypatch.setattr(dist, "get_rank", lambda: rank)
+    monkeypatch.setattr(dist, "get_backend", lambda g=None: backend)
+    monkeypatch.setattr(dist, "new_group", new_group)
+    return calls
+
+
+# mesh_shape, world size, the groups made under NCCL and under gloo: each
+# model group (with its twin under NCCL), each data group, the hosts' group
+MESH_SHAPES = {"1x2": ([1, 2], 2, 2, 1), "2x2": ([2, 2], 4, 6, 4),
+               "hosts_2x[1,2]": ([1, 2], 4, 5, 3)}
+
+
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+@pytest.mark.parametrize("shape", sorted(MESH_SHAPES))
+def test_nccl_model_groups_get_a_graph_group_in_lockstep(shape, backend, monkeypatch):
+    """Under NCCL every model group of m > 1 has a twin over the same
+    ranks (`Mesh.graph_group`), which only a captured decode step uses:
+    with NCCL's graph mixing off, the model group's eager collectives
+    may not share a communicator with an outstanding graph launch.
+    Every rank makes every host's groups, twins included, in one order
+    (no card: torch.distributed mocked).  Over gloo there is no twin."""
+    from gitax_torch.parallel.mesh import make_mesh_from_shape
+
+    mesh_shape, world, n_nccl, n_gloo = MESH_SHAPES[shape]
+    seqs = []
+    for rank in range(world):
+        calls = _fake_world(monkeypatch, world, rank, backend)
+        mesh = make_mesh_from_shape(mesh_shape, device="cpu", backend=backend)
+        seqs.append(calls)
+        if backend == "gloo":
+            assert mesh.graph_group is None
+            continue
+        assert mesh.graph_group is not mesh.model_group
+        assert mesh.graph_group.ranks == mesh.model_group.ranks
+        assert rank in mesh.model_group.ranks and len(mesh.model_group.ranks) == mesh.model
+    assert all(s == seqs[0] for s in seqs)
+    assert len(seqs[0]) == (n_nccl if backend == "nccl" else n_gloo)
+
+
+class _Recorder(object):
+    """comm.all_reduce over a group of one rank, recording each call's
+    group."""
+
+    def __init__(self):
+        self.groups = []
+
+    def __call__(self, t, group):
+        self.groups.append(group)
+        return t
+
+
+@pytest.mark.parametrize("mode", ["beam", "greedy"])
+def test_captured_steps_sum_over_the_graph_group(mode, monkeypatch):
+    """The search's steps under `device_loop` (here its schedule on the
+    host) send their all-reduces over the graph group and the prefill
+    over the model group; the eager loop sends every one over the model
+    group.  Either way the tokens are the unsharded model's (an all-reduce
+    over one rank is the identity)."""
+    from test_torch_port_device_loop import host_schedule
+
+    _, model = weights()
+    x = torch.from_numpy(images())
+    kw = (dict(beam=BeamSearchConfig(num_beams=4, max_steps=10)) if mode == "beam"
+          else dict(mode="greedy", max_steps=10))
+    ref, _ = model.generate(x, **kw)
+    group, twin = _Group("7"), _Group("8")
+    monkeypatch.setattr(model.textual, "tp_group", group)
+    monkeypatch.setattr(model.textual, "graph_group", twin)
+    rec = _Recorder()
+    monkeypatch.setattr(comm, "all_reduce", rec)
+    eager, _ = model.generate(x, **kw)
+    assert rec.groups and set(rec.groups) == {group}
+    n_prefill = 2 * CFG.num_layers
+    launches, bodies = [], []
+    monkeypatch.setattr(PortModel, "_search_run", host_schedule(launches, bodies))
+    rec.groups.clear()
+    graph, _ = model.generate(x, **kw)
+    assert rec.groups[:n_prefill] == [group] * n_prefill
+    assert rec.groups[n_prefill:] == [twin] * (2 * CFG.num_layers * len(bodies))
+    assert len(bodies) > 0
+    np.testing.assert_array_equal(eager.numpy(), ref.numpy())
+    np.testing.assert_array_equal(graph.numpy(), ref.numpy())
