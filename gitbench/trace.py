@@ -1,0 +1,151 @@
+"""The traced span of a `--trace 1` run: torch.profiler over a steady part of
+the window, reduced to the device's busy time, each kernel's device time and
+the longest idle gaps.
+
+Copied from chip_smoke.py and repaired: `profile_batch` summed kernel times
+over a wall clock the profiler inflates; here the busy time is the union of
+the kernels' intervals (phase 34's busy share), clipped to the span between
+two marker kernels (`torch.cuda._sleep`, launched on a drained card as the
+span opens and closes).  Only device activity is traced, so the host runs
+at its own pace.  Each idle gap is named by the benchmark's host span
+(`Hooks.spans`: dispatch, resolve, to_host, decode) that held its midpoint,
+mapped onto the trace's clock through the opening marker.
+
+The span opens and closes with the card drained (`synchronize` and the
+graphs' step counts settled), so every batch dispatched inside it also ran
+inside it and its steps are counted.
+"""
+
+from __future__ import annotations
+
+import collections
+import time
+
+MARK = "spin_kernel"  # the kernel of torch.cuda._sleep
+MARK_CYCLES = 1000
+NAME_CHARS = 120  # a kernel's name in the breakdown, cut to this
+
+
+class Span(object):
+    """The profiler over part of the window: `poll(elapsed)`, from the thread
+    that drives the work, starts it once `elapsed` (seconds into the
+    window) reaches `start` and stops it `length` seconds of host time
+    after it started; `close()` stops it early at the window's close.  (One
+    session, started in the window: the tracer's start-up falls before the
+    span opens; a session started in set-up and carried through a schedule
+    lost its kernel records, and one carried through graph captures
+    crashed a vqa.tsv run.)"""
+
+    def __init__(self, start, length, settle, launches):
+        self.start, self.length, self.settle, self.launches = start, length, settle, launches
+        self.prof = None
+        self.t_open = self.t_close = None
+        self.steps = None  # decode steps run inside the span
+        self.events = None
+        self.result = None
+        self.launched = None  # each counted kernel's launches inside the span
+        self._steps0 = self._launches0 = None
+
+    def poll(self, elapsed):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        if self.prof is None and elapsed >= self.start:
+            torch.cuda.synchronize()
+            self._steps0 = self.settle()
+            self._launches0 = self.launches()
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.start()
+            self.t_open = time.perf_counter()
+            self._mark()
+            self.ref = torch.cuda.Event(enable_timing=True)
+            self.ref.record()
+        elif self.t_open is not None and self.t_close is None \
+                and time.perf_counter() - self.t_open >= self.length:
+            self.close()
+
+    def _mark(self):
+        import torch
+
+        torch.cuda._sleep(MARK_CYCLES)
+
+    def close(self):
+        import torch
+
+        if self.prof is None or self.t_close is not None:
+            return
+        torch.cuda.synchronize()
+        self.t_close = time.perf_counter()
+        self._mark()
+        torch.cuda.synchronize()
+        self.steps = self.settle() - self._steps0
+        self.launched = {k: v - self._launches0[k] for k, v in self.launches().items()}
+        self.prof.stop()
+        self.events = self.prof.events()
+
+    def reduce(self, spans, searches=()):
+        """{busy_s, window_s, kernels {name: s}, calls {name: records},
+        device_ops, idle_gaps}.  searches: the searches' device intervals
+        (ms after the opening marker's event): the tracer drops the kernels
+        of graphs captured while it runs (vqa.tsv captures throughout), so
+        the replayed searches count as busy from their CUDA events too."""
+        from torch.autograd import DeviceType
+
+        if not self.events:
+            raise RuntimeError("the profiler kept no events for the span")
+        kernels = [e for e in self.events if e.device_type == DeviceType.CUDA]
+        marks = sorted(e.time_range.start for e in kernels if MARK in e.name)
+        if len(marks) < 2:
+            raise RuntimeError("the trace holds {} of its 2 marker kernels".format(len(marks)))
+        lo, hi = marks[0], marks[-1]
+        ivals, by_name, calls = [], collections.Counter(), collections.Counter()
+        for e in kernels:
+            if MARK in e.name:
+                continue
+            a, b = max(e.time_range.start, lo), min(e.time_range.end, hi)
+            if b <= a:
+                continue
+            ivals.append((a, b))
+            by_name[e.name] += (b - a) / 1e6
+            calls[e.name] += 1
+        for a, b in searches:  # the opening marker's event follows its kernel
+            a, b = lo + a * 1e3, min(lo + b * 1e3, hi)
+            if b > a:
+                ivals.append((a, b))
+        ivals.sort()
+        merged = []
+        for a, b in ivals:
+            if merged and a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            else:
+                merged.append([a, b])
+        busy = sum(b - a for a, b in merged) / 1e6
+        gaps, at = [], lo
+        for a, b in merged:
+            if a > at:
+                gaps.append((at, a))
+            at = max(at, b)
+        if hi > at:
+            gaps.append((at, hi))
+
+        def host(us):  # trace microseconds -> host perf_counter seconds
+            return self.t_open + (us - lo) / 1e6
+
+        named = collections.Counter()
+        for a, b in gaps:
+            mid = host((a + b) / 2)
+            holding = [s for s in spans if s[1] <= mid <= s[2]]
+            name = max(holding, key=lambda s: s[1])[0] if holding else "other host work"
+            named[name] += (b - a) / 1e6
+        longest = sorted(gaps, key=lambda g: g[0] - g[1])[:10]
+        idle_gaps = []
+        for a, b in longest:
+            mid = host((a + b) / 2)
+            holding = [s for s in spans if s[1] <= mid <= s[2]]
+            idle_gaps.append(["while " + (max(holding, key=lambda s: s[1])[0] if holding
+                                          else "other host work"), (b - a) / 1e6])
+        self.result = dict(
+            busy_s=busy, window_s=(hi - lo) / 1e6, kernels=dict(by_name), calls=dict(calls),
+            device_ops=[[n[:NAME_CHARS], s] for n, s in by_name.most_common(10)],
+            idle_gaps=idle_gaps, idle_by_host=dict(named))
+        return self.result
