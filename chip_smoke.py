@@ -205,7 +205,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      2 hosts x mesh_shape 2, joined by host 0, byte-identical to the
      one-card CLI's;
  29. the trace: `runtime.profiling.trace` around one COCO batch (after
-     phase 5) writes a Chrome trace that names kernel 1.
+     phase 5) writes a Chrome trace that names kernel 1 and holds the
+     port's spans on the kernels' timebase (`check_trace_spans`): each
+     `model.encode` span holds the launch of the first kernel after its
+     start (and a layer's worth of launches) and its device span that
+     kernel, and the opening marker's launch lies within 0.2 ms of the
+     host time taken before it.
  30. the CLIP towers: RN50 at its published widths (layers (3, 4, 6, 3),
      width 64, heads 32, output 1024, 224 px) and its text tower (width
      512, 8 heads, 12 layers, context 77, vocab 49408), random weights
@@ -1087,7 +1092,7 @@ def random_model(name, seed, gate):
 def phase_coco_slice(card, cpu_model, tok, trace_dir):
     """GIT_LARGE_COCO through the port's CaptionEngine, as served; then one
     batch under `runtime.profiling.trace` (29), whose trace file must name
-    kernel 1."""
+    kernel 1 and hold the port's spans on its timebase."""
     import numpy as np
     import torch
 
@@ -1157,9 +1162,70 @@ def phase_coco_slice(card, cpu_model, tok, trace_dir):
         "of them decode_attention kernels) in {:.2f} s".format(
             os.path.relpath(path, ROOT), os.path.getsize(path) / 2**20, len(events), len(kernel1),
             time.perf_counter() - t0))
+    check_trace_spans(events, model.cfg.encoder.layers)
     del engine, model
     torch.cuda.empty_cache()
     return launches, images, 96 / seconds, step_ms
+
+
+LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def check_trace_spans(events, layers):
+    """Phase 29's reading of the port's spans in `profiling.trace`'s
+    trace.json: the spans are there; each `model.encode` host span holds
+    the launch (a runtime event) of the first kernel launched after its
+    start, its stamps aside, and at least `layers` launches; the opening
+    marker's launch lies within 0.2 ms of the host time taken before it
+    (the `trace.open` mark); each encode's device span, placed by its
+    stamp kernels, holds that first kernel on the card.  Logs both, and the
+    marker's kernel."""
+    from gitax_torch.runtime import profiling
+
+    mine = [e for e in events if e.get("pid") == profiling.TRACK_PID and e.get("ph") in ("X", "i")]
+    names = {e["name"] for e in mine}
+    want = {"engine.dispatch", "engine.device_batch", "engine.upload", "model.encode",
+            "model.prefill", "search.launch", "engine.resolve", "engine.to_host", "trace.open"}
+    check(want <= names, "the trace lacks the spans {}".format(sorted(want - names)))
+    kernels = {e["args"].get("correlation"): e for e in events if e.get("cat") == "kernel"}
+    # the device spans' own stamps (`csrc/span_clock.cu`) are not the model's kernels
+    launches = sorted((e for e in events if e.get("name") in LAUNCHES and profiling.STAMP not in
+                       kernels.get(e["args"].get("correlation"), {}).get("name", "")),
+                      key=lambda e: e["ts"])
+    encodes = [e for e in mine if e["name"] == "model.encode" and e.get("cat") == "gitax_torch"]
+    check(encodes and launches, "no model.encode span ({}) or no kernel launch ({}) in the "
+          "trace".format(len(encodes), len(launches)))
+    for e in encodes:
+        a, b = e["ts"], e["ts"] + e["dur"]
+        first = next((x for x in launches if x["ts"] >= a), None)
+        inside = sum(1 for x in launches if a <= x["ts"] <= b)
+        check(first is not None and first["ts"] <= b and inside >= layers,
+              "model.encode [{:.1f}, {:.1f}] us: its first launch at {} and {} launches inside "
+              "it".format(a, b, first and first["ts"], inside))
+        kernel = kernels.get(first["args"].get("correlation"))
+        dev = [d for d in mine if d.get("cat") == "gitax_torch_device"
+               and d["args"]["id"] == e["args"]["id"]]
+        # placed by its stamp kernels, the device span holds its first kernel
+        check(dev and kernel and dev[0]["ts"] <= kernel["ts"] <= dev[0]["ts"] + dev[0]["dur"],
+              "model.encode's device span {} does not hold its first kernel {}".format(
+                  dev and (dev[0]["ts"], dev[0]["dur"]), kernel and kernel["ts"]))
+        log("trace: model.encode host [{:.1f}, {:.1f}] us holds its first launch at +{:.1f} us "
+            "and {} launches; its first kernel on the card at {}, its device span from {}".format(
+                a, b, first["ts"] - a, inside, kernel and round(kernel["ts"] - a, 1),
+                dev and round(dev[0]["ts"] - a, 1)))
+    opened = [e for e in mine if e["name"] == "trace.open"]
+    marker = [e for e in events if e.get("cat") == "kernel" and "spin_kernel" in e.get("name", "")]
+    check(opened and marker, "no trace.open mark or no marker kernel in the trace")
+    first = min(marker, key=lambda e: e["ts"])
+    launch = [x["ts"] - opened[0]["ts"] for x in launches
+              if x["args"].get("correlation") == first["args"].get("correlation")]
+    # the launch is on the host's clock, as the spans are; the kernel on the card's, which
+    # the profiler places on the host's itself (off by 1.2 ms in one run of four)
+    check(launch and abs(launch[0]) < 200.0, "the opening marker's launch lies {} us from the "
+          "host time taken before it (limit 200)".format(launch and round(launch[0], 1)))
+    log("trace: the port's spans on the kernels' timebase: {} of them; after the host's mark the "
+        "marker's launch at {:.1f} us, its kernel at {:.1f} us".format(
+            len(mine), launch[0], first["ts"] - opened[0]["ts"]))
 
 
 def normalized(images, dtype):

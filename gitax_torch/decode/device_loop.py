@@ -60,6 +60,16 @@ launches, to the wrappers' counts and to the owner's `decode_step_calls`
 card once).  `launches` counts the graph's launches, each of which
 launches `set_condition` once.
 
+Spans (`runtime.profiling`): a miss is a `search.capture` span (the
+warm-up, the capture and the LRU eviction it causes: the evicted graph's
+settle and its release, graphs and pool, which wait for the card; `key`
+labels the graph), and each run's copy, predicate, launches and result a
+`search.launch` device span whose `steps` are the bodies its launches ran:
+its end stamp copies the graph's `steps` counter (never reset: `settle`
+keeps what it has taken on the host), less the graph's copy before.  An
+LRU eviction marks `search.evict` (its settle's and release's ms).  No
+device span sits inside a capture.
+
 On a model group of m > 1 ranks over NCCL, one card a rank, the step's
 all-reduces are captured with it (NCCL's collectives are kernels on the
 card) and the IF node's body holds them.  They go over the mesh's graph
@@ -96,6 +106,8 @@ import time
 import weakref
 
 import torch
+
+from ..runtime import profiling
 
 MAX_GRAPHS = 32
 
@@ -138,7 +150,8 @@ class StepGraph(object):
     card, the bodies its launches ran since the last `settle`; per_step:
     the launches one body makes ({kernel or 'decode_step_calls': n});
     replays: the launches the host enqueued; capture_s: the capture's
-    host seconds (the warm-up step excluded)."""
+    host seconds (the warm-up step excluded); label: the key's label in
+    the spans; last: the last `search.launch` span that copied `steps`."""
 
     def __init__(self, owner, state, graph, draw_graph, pred, steps, rng, per_step, capture_s):
         self.owner = weakref.ref(owner)
@@ -151,13 +164,15 @@ class StepGraph(object):
         self.per_step = per_step
         self.capture_s = capture_s
         self.replays = 0
+        self.settled = 0  # the bodies of `steps` already added to the counts
+        self.label = self.last = None
 
     def settle(self):
         """Add the launches of the bodies run since the last settle to the
         counts (and to the module's `bodies`); waits for the card."""
         global bodies
-        n = int(self.steps.item())
-        self.steps.zero_()
+        total = int(self.steps.item())
+        n, self.settled = total - self.settled, total
         _add_counts(self.owner(), {k: n * v for k, v in self.per_step.items()})
         bodies += n
         return n
@@ -448,22 +463,40 @@ def run(owner, key, state, step, running, result, replays, draw=None, rng=None):
             weakref.finalize(owner, _settle_loops, loops).atexit = False
         loop = loops.get(full_key)
         if loop is None:
-            loop = _capture(owner, state, step, running, draw, rng)
+            label = "{}:{:08x}".format(key[0] if isinstance(key, tuple) and key else key,
+                                       hash(full_key) & 0xffffffff)
+            t0 = time.perf_counter()
+            with profiling.span("search.capture", key=label):
+                loop = _capture(owner, state, step, running, draw, rng)
+                if loop is not None:
+                    loop.label = label
+                    loops[full_key] = loop
+                    _LIVE.add(loop)
+                    while len(loops) > MAX_GRAPHS:
+                        _, old = loops.popitem(last=False)
+                        t1 = time.perf_counter()
+                        old.settle()  # reads its step counter: waits for the card
+                        _LIVE.discard(old)
+                        gone, t2 = old.label, time.perf_counter()
+                        del old  # its graphs and pool are freed here, inside the span
+                        profiling.count(evictions=1)
+                        profiling.mark("search.evict", key=gone, settle_ms=(t2 - t1) * 1e3,
+                                       release_ms=(time.perf_counter() - t2) * 1e3)
+            profiling.count(captures=1, capture_s=time.perf_counter() - t0)
             if loop is None:
                 return result(state)
-            loops[full_key] = loop
-            _LIVE.add(loop)
-            while len(loops) > MAX_GRAPHS:
-                _, old = loops.popitem(last=False)
-                old.settle()
-                _LIVE.discard(old)
-            _launch(loop, replays - 1, rng)  # the warm-up was the first step
+            copy_in, n = False, replays - 1  # the warm-up was the first step
         else:
             loops.move_to_end(full_key)
-            copy_state(loop.state, state)
-            loop.pred.copy_(running(loop.state))
-            _launch(loop, replays, rng)
-        return result(loop.state)
+            copy_in, n = True, replays
+        with profiling.span("search.launch", device=True, replays=n) as s:
+            if copy_in:  # the caller's state into the graph's
+                copy_state(loop.state, state)
+                loop.pred.copy_(running(loop.state))
+            _launch(loop, n, rng)
+            s.counter("steps", loop.steps, loop.last)
+            loop.last = s
+            return result(loop.state)
 
 
 def graphs(owner):

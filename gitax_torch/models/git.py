@@ -39,6 +39,7 @@ from ..decode.greedy import greedy_search
 from ..decode.trie import trie_greedy_search
 from ..ops.vocab_topk import TILE
 from ..parallel import comm
+from ..runtime import profiling
 from . import textual as T
 from .config import GitConfig
 from .nn import empty_param
@@ -179,8 +180,11 @@ class GitModel(nn.Module):
     def build_memory(self, images, context_tokens=None, context_lengths=None,
                      dtype=torch.float32, fast=None, flash=None, remat=False):
         """Encode images and, given text context, append it (gitax
-        git.py:129-142).  Returns (memory, memory_valid or None)."""
-        visual = self.encode_images(images, dtype, fast=fast, flash=flash, remat=remat)
+        git.py:129-142).  Returns (memory, memory_valid or None).  The
+        encoder is the `model.encode` device span (its `tokens`: S)."""
+        with profiling.span("model.encode", device=images.is_cuda) as s:
+            visual = self.encode_images(images, dtype, fast=fast, flash=flash, remat=remat)
+            s.set(tokens=visual.shape[1])
         if context_tokens is None:
             return visual, None
         return self.append_text_context(visual, context_tokens, context_lengths, dtype)
@@ -324,8 +328,10 @@ class GitModel(nn.Module):
         tp = prefix_tokens.shape[1] if strip else 0
         if mode != "beam":
             max_steps = max_steps or 40
-            logits, cache = self.prefill(visual, prefix_tokens, max_steps, memory_valid, dtype,
-                                         flash=flash)
+            with profiling.span("model.prefill", device=visual.is_cuda, chain=True,
+                                tokens=visual.shape[1] + prefix_tokens.shape[1]):
+                logits, cache = self.prefill(visual, prefix_tokens, max_steps, memory_valid,
+                                             dtype, flash=flash)
 
             run = self._search_run(visual, eager_loop, (mode, max_steps, dtype))
 
@@ -340,9 +346,11 @@ class GitModel(nn.Module):
                                                     trie, max_steps, run=run)
             return seqs[:, tp:], logprobs
         beam = beam or BeamSearchConfig()
-        logits, cache = self.prefill(visual, prefix_tokens, beam.max_steps,
-                                     memory_valid, dtype, fast=fast_prefill,
-                                     kernel_memory=decode_kernel, flash=flash)
+        with profiling.span("model.prefill", device=visual.is_cuda, chain=True,
+                            tokens=visual.shape[1] + prefix_tokens.shape[1]):
+            logits, cache = self.prefill(visual, prefix_tokens, beam.max_steps,
+                                         memory_valid, dtype, fast=fast_prefill,
+                                         kernel_memory=decode_kernel, flash=flash)
 
         vocab_kernel = bool(vocab_kernel) and self.vocab_kernel_applies(beam)
         run = self._search_run(visual, eager_loop, ("beam", beam, dtype, decode_kernel,

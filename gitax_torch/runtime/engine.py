@@ -72,6 +72,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import datetime
+import itertools
 import json
 import logging
 import os
@@ -97,7 +98,11 @@ from ..parallel import comm
 from ..parallel.mesh import broadcast_params, mesh_dims, shard_for_inference
 from ..preprocess.transforms import CLIP_MEAN, CLIP_STD
 from ..tokenization import encode_prefix
-from . import distributed
+from . import distributed, profiling
+
+
+# the decode pool's chunks, numbered over the process (their spans' `chunk`)
+_chunk_ids = itertools.count(1)
 
 
 def resolve_use_native(use_native: Optional[bool]) -> bool:
@@ -245,7 +250,9 @@ class PinnedUploads(object):
                     torch.cuda.Event())
         else:  # the oldest, once its copy has run
             slot = ring.pop(0)
-            slot[1].synchronize()
+            profiling.count(upload_waits=1)
+            with profiling.span("engine.upload_wait"):
+                slot[1].synchronize()
         ring.append(slot)
         buf, done = slot
         buf.copy_(host)
@@ -338,6 +345,9 @@ class CaptionEngine(object):
         # the host decode stage; its threads start at the first submit
         self.pool = ThreadPoolExecutor(max_workers=decode_workers)
         self._uploads = PinnedUploads()
+        # the real rows of the device batch `_dispatch_batch` is dispatching,
+        # on the thread that dispatches it (the rest are padding)
+        self._feed = threading.local()
         self._close = weakref.finalize(self, self.pool.shutdown, wait=False)
         self._on_close = on_close
 
@@ -430,14 +440,23 @@ class CaptionEngine(object):
         if imgs.dtype != np.uint8:
             imgs = np.asarray(imgs, np.float32)
         pref = np.asarray(pref, np.int64)
-        if self.mesh is not None:
-            return self._mesh_dispatch(imgs, pref, generate)
-        dev_imgs = torch.from_numpy(imgs)
-        if dev_imgs.dtype != torch.uint8:  # cast on the host: the upload is activation-width
-            dev_imgs = dev_imgs.to(self.dtype)
-        dev_imgs, pref = self._upload(dev_imgs), self._upload(torch.from_numpy(pref))
-        seqs, _ = self._caption_fn(pref.shape[1], generate)(dev_imgs, pref)
-        return seqs
+        rows = imgs.shape[0]
+        real = getattr(self._feed, "real", None) or rows
+        profiling.count(rows=rows, real_rows=real)
+        p = self.model.cfg.encoder.patch_size
+        with profiling.span("engine.device_batch", rows=rows, real=real,
+                            grid=(imgs.shape[-3] // p, imgs.shape[-2] // p),
+                            prefix=pref.shape[1]):
+            if self.mesh is not None:
+                return self._mesh_dispatch(imgs, pref, generate)
+            dev_imgs = torch.from_numpy(imgs)
+            if dev_imgs.dtype != torch.uint8:  # cast on the host: the upload is activation-width
+                with profiling.span("engine.host_cast"):
+                    dev_imgs = dev_imgs.to(self.dtype)
+            with profiling.span("engine.upload", bytes=dev_imgs.nbytes + pref.nbytes):
+                dev_imgs, pref = self._upload(dev_imgs), self._upload(torch.from_numpy(pref))
+            seqs, _ = self._caption_fn(pref.shape[1], generate)(dev_imgs, pref)
+            return seqs
 
     # -- the mesh ------------------------------------------------------------
     def _mesh_dispatch(self, imgs, pref, generate):
@@ -542,18 +561,27 @@ class CaptionEngine(object):
         if any(len(p) != tp for p in prefixes):
             raise ValueError("prefixes of one dispatch must have one length")
         pad_n = (-n) % b
-        imgs = np.stack(images + [images[-1]] * pad_n)
-        if imgs.dtype != np.uint8:
-            imgs = np.asarray(imgs, np.float32)
-        pref = np.asarray(prefixes + [prefixes[-1]] * pad_n, np.int64)
-        return [self.dispatch_device_batch(imgs[i:i + b], pref[i:i + b])
-                for i in range(0, len(imgs), b)]
+        with profiling.span("engine.stack", rows=n + pad_n, real=n):
+            imgs = np.stack(images + [images[-1]] * pad_n)
+            if imgs.dtype != np.uint8:
+                imgs = np.asarray(imgs, np.float32)
+            pref = np.asarray(prefixes + [prefixes[-1]] * pad_n, np.int64)
+        out = []
+        try:
+            for i in range(0, len(imgs), b):
+                self._feed.real = min(b, n - i)
+                out.append(self.dispatch_device_batch(imgs[i:i + b], pref[i:i + b]))
+        finally:
+            self._feed.real = None
+        return out
 
     def dispatch(self, images: List[np.ndarray], prefixes: List[List[int]]):
         """Run generation over same-shape images [H, W, 3] or clips
         [F, H, W, 3]; returns a handle for `resolve`, of the form
         `dispatch_varshape` returns (one bucket)."""
-        return len(images), [(list(range(len(images))), self._dispatch_batch(images, prefixes))]
+        with profiling.span("engine.dispatch", items=len(images)):
+            return len(images), [(list(range(len(images))),
+                                  self._dispatch_batch(images, prefixes))]
 
     def encode_prefix(self, text: str) -> List[int]:
         """[CLS] + the last (max_text_len - 2) question tokens."""
@@ -568,33 +596,39 @@ class CaptionEngine(object):
         prefixes of one call share one length.  Returns a handle for
         `resolve`."""
         p = self.model.cfg.encoder.patch_size
-        groups = collections.defaultdict(list)
-        for i, a in enumerate(images):
-            if a.ndim != 3:
-                raise ValueError("dispatch_varshape takes images [H, W, 3], got {}".format(a.shape))
-            groups[((a.shape[0] // p) * p, (a.shape[1] // p) * p)].append(i)
-        dispatched = []
-        for (h, w), idxs in sorted(groups.items()):
-            seqs = self._dispatch_batch([images[i][:h, :w] for i in idxs],
-                                        [prefixes[i] for i in idxs])
-            dispatched.append((idxs, seqs))
-        return len(images), dispatched
+        with profiling.span("engine.dispatch", items=len(images)):
+            groups = collections.defaultdict(list)
+            for i, a in enumerate(images):
+                if a.ndim != 3:
+                    raise ValueError("dispatch_varshape takes images [H, W, 3], got {}".format(
+                        a.shape))
+                groups[((a.shape[0] // p) * p, (a.shape[1] // p) * p)].append(i)
+            dispatched = []
+            for (h, w), idxs in sorted(groups.items()):
+                seqs = self._dispatch_batch([images[i][:h, :w] for i in idxs],
+                                            [prefixes[i] for i in idxs])
+                dispatched.append((idxs, seqs))
+            return len(images), dispatched
 
     def to_host(self, seqs) -> np.ndarray:
         """Device sequences -> a numpy array: the one place where the
         engine's device results reach the host (gitax's batcher reads them
         with np.asarray, serving.py:297, 436)."""
-        return seqs.cpu().numpy()
+        with profiling.span("engine.to_host"):
+            return seqs.cpu().numpy()
 
     def resolve(self, handle):
         """Copy a dispatched handle's sequences to the host and detokenize
         them, in the order the images were given."""
         n, dispatched = handle
         results = [None] * n
-        for idxs, seqs in dispatched:
-            arr = self.to_host(torch.cat(seqs, dim=0))[:len(idxs)]
-            for i, row in zip(idxs, arr):
-                results[i] = self.tokenizer.decode(row.tolist(), skip_special_tokens=True)
+        with profiling.span("engine.resolve", items=n):
+            for idxs, seqs in dispatched:
+                arr = self.to_host(torch.cat(seqs, dim=0))[:len(idxs)]
+                with profiling.span("engine.detokenize", items=len(idxs)):
+                    for i, row in zip(idxs, arr):
+                        results[i] = self.tokenizer.decode(row.tolist(),
+                                                           skip_special_tokens=True)
         return results
 
     def generate_batch(self, images: List[np.ndarray], prefixes: List[List[int]]):
@@ -649,20 +683,29 @@ class CaptionEngine(object):
     def _prefetched_chunks(self, image_tsv, idxs, granule, depth=2):
         """Iterate (chunk_row_indices, decoded_arrays) with `depth` chunks
         of host decode in flight on the thread pool while the device runs:
-        the host stage of both TSV loops."""
+        the host stage of both TSV loops.  Each chunk's `decode.chunk` span
+        (on the pool) and the `tsv.pool_wait` that waited for it share its
+        chunk id; reading a chunk's payloads is `tsv.assemble`."""
         chunks = [idxs[i:i + granule] for i in range(0, len(idxs), granule)]
         futures = collections.deque()
 
+        def decode(chunk, payloads):
+            with profiling.span("decode.chunk", chunk=chunk, rows=len(payloads)):
+                return self._decode_chunk(payloads)
+
         def submit(batch_idxs):
-            payloads = [image_tsv[j][1] for j in batch_idxs]
-            futures.append((batch_idxs, self.pool.submit(self._decode_chunk, payloads)))
+            chunk = next(_chunk_ids)
+            with profiling.span("tsv.assemble", items=len(batch_idxs), chunk=chunk):
+                payloads = [image_tsv[j][1] for j in batch_idxs]
+            futures.append((batch_idxs, chunk, self.pool.submit(decode, chunk, payloads)))
 
         for c in chunks[:depth]:
             submit(c)
         ci = depth
         while futures:
-            batch_idxs, fut = futures.popleft()
-            decoded = fut.result()
+            batch_idxs, chunk, fut = futures.popleft()
+            with profiling.span("tsv.pool_wait", chunk=chunk):
+                decoded = fut.result()
             if ci < len(chunks):
                 submit(chunks[ci])
                 ci += 1
@@ -684,34 +727,34 @@ class CaptionEngine(object):
                    if world_size > 1 else out_tsv)
         cls = self.tokenizer.cls_token_id
 
-        def rows():
-            from .profiling import ThroughputMeter
+        def written(pending):
+            # the writer's time between this loop's yields is `tsv.write`
+            pkeys, phandle = pending
+            caps = self.resolve(phandle)
+            with profiling.span("tsv.write", rows=len(pkeys)):
+                for k, cap in zip(pkeys, caps):
+                    yield k, json_dump([{"caption": cap}])
 
+        def rows():
             idxs = list(range(start, end))
-            meter = ThroughputMeter(name="caption_tsv", unit="images")
             # host decode of the next chunks (thread pool) || the search of
             # this chunk || detokenization of the previous one (this thread)
             pending = None  # (keys, dispatch handle)
             for batch_idxs, decoded in self._prefetched_chunks(image_tsv, idxs,
                                                                self.batch_size):
-                arrs, keys = [], []
-                for j, a in zip(batch_idxs, decoded):
-                    if a is not None:
-                        arrs.append(a)
-                        keys.append(image_tsv.get_key(j))
+                with profiling.span("tsv.assemble", items=len(batch_idxs)):
+                    arrs, keys = [], []
+                    for j, a in zip(batch_idxs, decoded):
+                        if a is not None:
+                            arrs.append(a)
+                            keys.append(image_tsv.get_key(j))
                 handle = (self.dispatch_varshape(arrs, [[cls]] * len(arrs))
                           if arrs else None)
                 if pending is not None:
-                    pkeys, phandle = pending
-                    for k, cap in zip(pkeys, self.resolve(phandle)):
-                        yield k, json_dump([{"caption": cap}])
-                    meter.update(len(pkeys))
+                    yield from written(pending)
                 pending = (keys, handle) if handle is not None else None
             if pending is not None:
-                pkeys, phandle = pending
-                for k, cap in zip(pkeys, self.resolve(phandle)):
-                    yield k, json_dump([{"caption": cap}])
-                meter.update(len(pkeys))
+                yield from written(pending)
 
         tsv_writer(rows(), cur_out)
         finish_shards(out_tsv, rank, world_size, self.mesh and self.mesh.hosts_group)
@@ -751,33 +794,46 @@ class CaptionEngine(object):
                         results[pos] = (qid, ans)
 
             for batch_idxs, decoded in self._prefetched_chunks(image_tsv, idxs, dchunk):
-                for i, arr in zip(batch_idxs, decoded):
-                    ik = image_tsv.get_key(i)
-                    qrow = question_tsv[i]
-                    assert ik == qrow[0], (ik, qrow[0])  # key alignment (inference.py:176)
-                    questions = json.loads(qrow[1])
-                    if arr is None:
-                        order += len(questions)
-                        continue
-                    for q in questions:
-                        prefix = self.encode_prefix(q["question"])
-                        b = buckets.setdefault(len(prefix), ([], [], []))
-                        b[0].append(arr)
-                        b[1].append(prefix)
-                        b[2].append((order, q["question_id"]))
-                        order += 1
-                        if len(b[0]) == self.batch_size:
-                            pending.append((self.dispatch_varshape(b[0], b[1]), b[2]))
-                            buckets[len(prefix)] = ([], [], [])
-                            drain(max_inflight)
+                # the chunk's assembly is `tsv.assemble`, cut where a full
+                # bucket is dispatched and drained (top-level spans of their own)
+                assemble = profiling.span("tsv.assemble", items=len(batch_idxs))
+                assemble.__enter__()
+                try:
+                    for i, arr in zip(batch_idxs, decoded):
+                        ik = image_tsv.get_key(i)
+                        qrow = question_tsv[i]
+                        assert ik == qrow[0], (ik, qrow[0])  # key alignment (inference.py:176)
+                        questions = json.loads(qrow[1])
+                        if arr is None:
+                            order += len(questions)
+                            continue
+                        for q in questions:
+                            prefix = self.encode_prefix(q["question"])
+                            b = buckets.setdefault(len(prefix), ([], [], []))
+                            b[0].append(arr)
+                            b[1].append(prefix)
+                            b[2].append((order, q["question_id"]))
+                            order += 1
+                            if len(b[0]) == self.batch_size:
+                                assemble.__exit__(None, None, None)
+                                assemble = None
+                                pending.append((self.dispatch_varshape(b[0], b[1]), b[2]))
+                                buckets[len(prefix)] = ([], [], [])
+                                drain(max_inflight)
+                                assemble = profiling.span("tsv.assemble", items=0)
+                                assemble.__enter__()
+                finally:
+                    if assemble is not None:
+                        assemble.__exit__(None, None, None)
             for tp in sorted(buckets):
                 arrs, prefs, meta = buckets[tp]
                 if arrs:
                     pending.append((self.dispatch_varshape(arrs, prefs), meta))
             drain(0)
-            for pos in sorted(results):
-                qid, ans = results[pos]
-                yield (json_dump({"answer": ans, "question_id": qid}),)
+            with profiling.span("tsv.write", rows=len(results)):
+                for pos in sorted(results):
+                    qid, ans = results[pos]
+                    yield (json_dump({"answer": ans, "question_id": qid}),)
 
         tsv_writer(rows(), cur_out)
         finish_shards(out_tsv, rank, world_size, self.mesh and self.mesh.hosts_group)

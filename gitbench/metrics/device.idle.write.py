@@ -1,0 +1,10 @@
+"""device.idle.write: the share of the traced span's window the card sat idle
+while the feeding thread wrote the output TSV between the loop's yields
+(`tsv.write`): the idle gaps of the profile, the searches' own device spans
+counted busy, whose midpoint falls in that top-level span."""
+
+from gitbench import program_spans as P
+
+
+def read(ctx):
+    return P.idle_share(ctx, "tsv.write")

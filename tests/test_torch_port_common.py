@@ -1,16 +1,15 @@
 """The port's copies of gitax's framework-free helpers held to gitax's:
 `common` (the `$`-path helpers, `Config`, the locked and retried reads,
-`progress`), `runtime/profiling.py` (`StepLogger`, `ThroughputMeter`;
-`trace` records torch.profiler where gitax records jax.profiler) and
-`io/cache_backend.py`.  Each copy's code equals gitax's by AST (docstrings
-aside), and gitax's own cases of tests/test_common.py and
-tests/test_cache_backend.py that apply run here against the port's
-modules (gitax's test files stay as they are)."""
+`progress`) and `io/cache_backend.py`; and `runtime/profiling.py`'s
+`trace`, which records torch.profiler where gitax records jax.profiler.
+Each copy's code equals gitax's by AST (docstrings aside), and gitax's own
+cases of tests/test_common.py and tests/test_cache_backend.py that apply
+run here against the port's modules (gitax's test files stay as they
+are)."""
 
 import ast
 import inspect
 import json
-import logging
 import os
 import os.path as op
 import shutil
@@ -21,7 +20,6 @@ import torch
 
 import gitax.common as gx_common
 import gitax.io.cache_backend as gx_cache_backend
-import gitax.runtime.profiling as gx_profiling
 from gitax_torch import common
 from gitax_torch.io import cache_backend, fileio
 from gitax_torch.io.cache_backend import CachingBackend
@@ -45,11 +43,6 @@ def code_of(obj):
                                   "limited_retry_agent", "progress"])
 def test_common_copies_equal_gitax_by_ast(name):
     assert code_of(getattr(common, name)) == code_of(getattr(gx_common, name))
-
-
-@pytest.mark.parametrize("name", ["StepLogger", "ThroughputMeter"])
-def test_profiling_copies_equal_gitax_by_ast(name):
-    assert code_of(getattr(profiling, name)) == code_of(getattr(gx_profiling, name))
 
 
 def test_cache_backend_equals_gitax_by_ast():
@@ -126,14 +119,6 @@ def test_progress_stamps_the_callers_line():
     bar = common.progress(range(3), desc="rows")
     assert list(bar) == [0, 1, 2]
     assert bar.desc.startswith("test_torch_port_common.py:") and bar.desc.endswith(" rows")
-
-
-def test_step_logger_logs_window_extremes(caplog):
-    caplog.set_level(logging.INFO)
-    log = profiling.StepLogger(log_every=2)
-    log.update(1, {"loss": 3.0})
-    log.update(2, {"loss": 1.0, "lr": 0.5})
-    assert "step=2 loss=1.0000 window_min=1.0000 window_max=3.0000 {'lr': 0.5}" in caplog.text
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
