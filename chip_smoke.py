@@ -1291,8 +1291,10 @@ def vqa_pairs(engine, cfg):
 
 def run_vqa(engine, pairs):
     """Group the pairs by prefix length (one length per dispatch, as
-    gitax's run_vqa_tsv buckets them) and run each group through
-    `generate_varshape`'s two halves; (answers in pair order, handles)."""
+    gitax's run_vqa_tsv buckets them; the port's run_vqa_tsv keys its
+    buckets by (grid, prefix length) at once) and run each group through
+    `generate_varshape`'s two halves, which split it by grid; (answers in
+    pair order, handles)."""
     groups = collections.defaultdict(list)
     for i, (_, prefix) in enumerate(pairs):
         groups[len(prefix)].append(i)

@@ -15,9 +15,10 @@ file-system barrier.  The port's engine, as gitax's:
     thread pool that prefetches ahead of the device (`_prefetched_chunks`)
     while the search runs batch by batch, the tail batch padded with its
     last item;
-  * VQA prefixes are bucketed by token length, so that each dispatch
-    has one prefix length, and answers are emitted in the reference's
-    row order.
+  * VQA (image, prefix) pairs are bucketed by (whole-patch grid, prefix
+    token length), so that a full bucket is one device batch of real
+    rows; the buckets left at the pass's end are flushed, one padded
+    batch each, and answers are emitted in the reference's row order.
 
 `CaptionEngine` takes gitax's `transform`: its mean and std normalise
 uint8 batches on the device (CLIP's when the transform has none or there
@@ -595,20 +596,25 @@ class CaptionEngine(object):
         buckets, one batch program each (gitax pipeline.py:296-319).  The
         prefixes of one call share one length.  Returns a handle for
         `resolve`."""
-        p = self.model.cfg.encoder.patch_size
         with profiling.span("engine.dispatch", items=len(images)):
             groups = collections.defaultdict(list)
             for i, a in enumerate(images):
                 if a.ndim != 3:
                     raise ValueError("dispatch_varshape takes images [H, W, 3], got {}".format(
                         a.shape))
-                groups[((a.shape[0] // p) * p, (a.shape[1] // p) * p)].append(i)
+                groups[self.whole_patches(a)].append(i)
             dispatched = []
             for (h, w), idxs in sorted(groups.items()):
                 seqs = self._dispatch_batch([images[i][:h, :w] for i in idxs],
                                             [prefixes[i] for i in idxs])
                 dispatched.append((idxs, seqs))
             return len(images), dispatched
+
+    def whole_patches(self, image: np.ndarray) -> Tuple[int, int]:
+        """(H, W) of an image [H, W, 3] cut to whole patches: the exact grid
+        `dispatch_varshape` batches it at."""
+        p = self.model.cfg.encoder.patch_size
+        return (image.shape[0] // p) * p, (image.shape[1] // p) * p
 
     def to_host(self, seqs) -> np.ndarray:
         """Device sequences -> a numpy array: the one place where the
@@ -764,11 +770,20 @@ class CaptionEngine(object):
                     rank=0, world_size=1):
         """Batched VQA over aligned image and question TSVs.  Images are
         decoded once each by the prefetching pool; (image, prefix) pairs
-        are bucketed by prefix length, full buckets dispatch at once, at
-        most `max_inflight` stay unresolved, and the answers are written
-        in the reference's row order: image-major, question order within
-        an image (inference.py:178-199); an undecodable image's questions
-        are skipped with their slots consumed."""
+        are bucketed by (`whole_patches` grid, prefix length), so that a
+        bucket that reaches `batch_size` dispatches at once as one device
+        batch of real rows (profiling counter `full_buckets`); at most
+        `max_inflight` batches stay unresolved.  At the pass's end the
+        buckets left are flushed in (prefix length, grid) order, one
+        padded batch each (`flushed_buckets`), under the same bound.  The
+        answers are written in the reference's row order: image-major,
+        question order within an image (inference.py:178-199); an
+        undecodable image's questions are skipped with their slots
+        consumed.
+
+        Host memory: at most (grids x prefix lengths) x (batch_size - 1)
+        pairs wait in buckets, each holding a reference to its image's
+        decoded array, which the image's questions share."""
         self._require_transform()
         image_tsv = TSVFile(image_tsv_path)
         question_tsv = TSVFile(question_tsv_path)
@@ -780,7 +795,7 @@ class CaptionEngine(object):
         def rows():
             idxs = list(range(start, end))
             dchunk = max(1, self.batch_size // 4)  # decode-prefetch granule
-            buckets = {}  # tp -> (arrays, prefixes, [(order, qid)])
+            buckets = {}  # (grid, tp) -> (arrays, prefixes, [(order, qid)])
             # dispatched, unresolved handles, bounded: each pins its batch
             pending = collections.deque()
             max_inflight = 2
@@ -807,9 +822,11 @@ class CaptionEngine(object):
                         if arr is None:
                             order += len(questions)
                             continue
+                        grid = self.whole_patches(arr)
                         for q in questions:
                             prefix = self.encode_prefix(q["question"])
-                            b = buckets.setdefault(len(prefix), ([], [], []))
+                            key = (grid, len(prefix))
+                            b = buckets.setdefault(key, ([], [], []))
                             b[0].append(arr)
                             b[1].append(prefix)
                             b[2].append((order, q["question_id"]))
@@ -818,17 +835,19 @@ class CaptionEngine(object):
                                 assemble.__exit__(None, None, None)
                                 assemble = None
                                 pending.append((self.dispatch_varshape(b[0], b[1]), b[2]))
-                                buckets[len(prefix)] = ([], [], [])
+                                profiling.count(full_buckets=1)
+                                del buckets[key]
                                 drain(max_inflight)
                                 assemble = profiling.span("tsv.assemble", items=0)
                                 assemble.__enter__()
                 finally:
                     if assemble is not None:
                         assemble.__exit__(None, None, None)
-            for tp in sorted(buckets):
-                arrs, prefs, meta = buckets[tp]
-                if arrs:
-                    pending.append((self.dispatch_varshape(arrs, prefs), meta))
+            for grid, tp in sorted(buckets, key=lambda k: (k[1], k[0])):
+                arrs, prefs, meta = buckets[grid, tp]
+                pending.append((self.dispatch_varshape(arrs, prefs), meta))
+                profiling.count(flushed_buckets=1)
+                drain(max_inflight)
             drain(0)
             with profiling.span("tsv.write", rows=len(results)):
                 for pos in sorted(results):

@@ -9,6 +9,7 @@ the transforms) give gitax's outputs; the decoders give gitax's images,
 and without PIL they and the TSV loop raise rather than drop rows."""
 
 import base64
+import collections
 import filecmp
 import functools
 import io
@@ -176,6 +177,73 @@ def test_vqa_tsv_matches_gitax_bytes(kind, tmp_path):
     asked = {r[0]: [q["question_id"] for q in json.loads(r[1])] for r in TSVFile(q_tsv)}
     want = [qid for k in keys if k != "bad" for qid in asked[k]]
     assert [r["question_id"] for r in rows] == want
+
+
+def test_vqa_tsv_batches_one_grid_and_one_prefix_length(tmp_path):
+    """The VQA loop buckets pairs by (grid, prefix length): each device
+    batch holds one of each, a bucket that fills is one batch of real
+    rows, the rest are flushed at the pass's end in (prefix length, grid)
+    order, one padded batch each, and the answers are gitax's, in its
+    order."""
+    bs = 4
+    sizes = [((32, 32), "PNG"), ((20, 60), "PNG"), ((60, 20), "JPEG"), ((40, 50), "JPEG"),
+             ((64, 48), "PNG"), ((32, 40), "PNG")] * 3
+    img_tsv, q_tsv = str(tmp_path / "img.tsv"), str(tmp_path / "q.tsv")
+    keys = write_image_tsv(img_tsv, sizes)
+    write_question_tsv(q_tsv, keys)
+    gx, pt = engines(TRANSFORMS["minmax"], batch_size=bs)
+
+    # what each bucket should receive, from the transform and the tokenizer
+    tf = pt_tf.TestTransform(**TRANSFORMS["minmax"])
+    want = collections.Counter()
+    for (_, b64), (_, qs) in zip(TSVFile(img_tsv), TSVFile(q_tsv)):
+        img = pt_image.image_from_base64(b64)
+        if img is None:
+            continue
+        grid = pt.whole_patches(tf(img))
+        for q in json.loads(qs):
+            want[grid, len(pt.encode_prefix(q["question"]))] += 1
+    assert len({g for g, _ in want}) >= 2 and len({t for _, t in want}) >= 2
+    assert any(n >= bs for n in want.values()) and any(n % bs for n in want.values())
+
+    batches = []
+    dispatch = pt.dispatch_device_batch
+
+    def record(imgs, pref, **kw):
+        batches.append(((imgs.shape[1], imgs.shape[2]), pref.shape[1], pt._feed.real,
+                        imgs.shape[0]))
+        return dispatch(imgs, pref, **kw)
+
+    pt.dispatch_device_batch = record
+    c0 = pt_engine.profiling.counters()
+    with pt:
+        pt.run_vqa_tsv(img_tsv, q_tsv, str(tmp_path / "pt.tsv"))
+    c1 = pt_engine.profiling.counters()
+
+    full = sum(n // bs for n in want.values())
+    flushed = sum(1 for n in want.values() if n % bs)
+    assert c1["full_buckets"] - c0["full_buckets"] == full
+    assert c1["flushed_buckets"] - c0["flushed_buckets"] == flushed
+    assert len(batches) == full + flushed
+    assert all(rows == bs for *_, rows in batches)
+    assert sum(rows for *_, rows in batches) == sum(bs * -(-n // bs) for n in want.values())
+    # every batch one (grid, length) key; its real rows that key's share
+    got = collections.Counter()
+    for grid, tp, real, _ in batches:
+        got[grid, tp] += real
+    assert got == want
+    assert all(real == bs for _, _, real, _ in batches[:full])
+    tail = [(tp, grid) for grid, tp, real, _ in batches[full:]]
+    assert tail == sorted(tail) and len(set(tail)) == flushed
+    assert all(0 < real < bs for _, _, real, _ in batches[full:])
+
+    # gitax's engine (prefix-length buckets split by grid) writes the same bytes
+    gx.run_vqa_tsv(img_tsv, q_tsv, str(tmp_path / "gx.tsv"))
+    assert_same_tsv(str(tmp_path / "gx.tsv"), str(tmp_path / "pt.tsv"))
+    asked = {r[0]: [q["question_id"] for q in json.loads(r[1])] for r in TSVFile(q_tsv)}
+    rows = [json.loads(r[0]) for r in TSVFile(str(tmp_path / "pt.tsv"))]
+    assert [r["question_id"] for r in rows] == [qid for k in keys if k != "bad"
+                                                for qid in asked[k]]
 
 
 class Uint8Crop(object):
