@@ -6,10 +6,17 @@ traffic file's `kind`:
 - 'vqa_tsv': `CaptionEngine.run_vqa_tsv` over image and question TSVs, pass
   after pass.
 
-Each makes its inputs in set-up (`prepare`), warms the shapes its traffic
-uses (`warm`), runs the window (`window`) and lists the outputs due in it
-(`served`) for the judge.  Rates are the items completed (the program's
-`resolve` calls) from the window's opening to its close, over its seconds.
+A kind missing from `KINDS` is a file: `kinds/<kind>.py` (a kind with a
+`/` is a module path under gitbench/, as the tests' are) defines `Driver`,
+built as `Driver(cfg, spec, seed, work)`.
+
+Each makes its inputs in set-up (`prepare`), builds the program (`build`:
+an object with `.model`, `.engine` and `close()`, which stops whatever it
+started; `program.Program` by default), warms the shapes its traffic uses
+(`warm`), runs the window (`window`), lists the outputs due in it
+(`served`) for the judge and draws the sample judged (`pick`).  Rates are
+the items completed (the program's `resolve` calls) from the window's
+opening to its close, over its seconds.
 """
 
 from __future__ import annotations
@@ -18,6 +25,8 @@ import json
 import os
 import time
 
+from . import judge as J
+from . import spec as S
 from . import traffic as T
 from . import vocab as V
 from .judge import Served
@@ -37,6 +46,16 @@ class _TSVDriver(object):
     def __init__(self, cfg, spec, seed, work):
         self.cfg, self.spec, self.seed, self.work = cfg, spec, int(seed), work
         self.passes = []  # out TSV paths of the passes started in the window
+
+    def build(self, cfg, sd, device):
+        """The system under test from the benchmark's weights `sd`."""
+        from .program import Program
+
+        return Program(cfg, sd, device)
+
+    def pick(self, served, n, seed):
+        """The indices of the served outputs the judge samples."""
+        return J.pick(served, n, seed)
 
     def rate_window(self, hooks, t_open, deadline):
         """(items, seconds): the items `resolve` completed from the window's
@@ -182,8 +201,18 @@ class VqaTSV(_TSVDriver):
 KINDS = {"caption_tsv": CaptionTSV, "vqa_tsv": VqaTSV}
 
 
+def driver_class(kind):
+    """KINDS[kind], else the `Driver` of the kind's file (`kinds/<kind>.py`,
+    or `<kind>.py` under gitbench/ for a kind with a `/`)."""
+    if kind in KINDS:
+        return KINDS[kind]
+    rel = kind if "/" in kind else "kinds/" + kind
+    try:
+        return S.module(rel).Driver
+    except (FileNotFoundError, ValueError, AttributeError) as e:
+        raise ValueError("traffic kind {!r}: one of {} or a file gitbench/{}.py defining "
+                         "Driver ({})".format(kind, sorted(KINDS), rel, e))
+
+
 def make(cfg, spec, seed, work):
-    kind = spec["kind"]
-    if kind not in KINDS:
-        raise ValueError("traffic kind {!r}: one of {}".format(kind, sorted(KINDS)))
-    return KINDS[kind](cfg, spec, seed, work)
+    return driver_class(spec["kind"])(cfg, spec, seed, work)

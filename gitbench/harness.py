@@ -2,12 +2,13 @@
 
 Set-up is everything from the process's start until the window opens: the
 imports, the cell's inputs (made from the seed), the weights (drawn on the
-card from the seed), the program's construction (its kernels load from
-`build/gitax_torch/` in the checkout, built by nvcc on a checkout's first
-run), and the warm-up of the shapes this cell's traffic uses.  The window
-then measures for `seconds`.  After it: the peak device memory is read, the
-program is closed and freed, and the plain reference judges a sample of the
-outputs (not counted in set-up).
+card from the seed), the program's construction by the traffic's driver
+(`Driver.build`; its kernels load from `build/gitax_torch/` in the
+checkout, built by nvcc on a checkout's first run), and the warm-up of the
+shapes this cell's traffic uses.  The window then measures for `seconds`.
+After it: the peak device memory is read, the program is closed and freed
+(also on any failure), and the plain reference the configuration names
+(`spec.reference`) judges a sample of the outputs (not counted in set-up).
 """
 
 from __future__ import annotations
@@ -22,8 +23,7 @@ import types
 
 from . import drivers, judge, spec, weights
 from . import trace as tr
-from .program import Hooks, Program, launch_counts, steps_settled
-from .reference import Reference
+from .program import Hooks, launch_counts, steps_settled
 
 SPAN_START, SPAN_SECONDS = 0.4, 3.0  # the traced span: where in the window, how long
 
@@ -65,7 +65,7 @@ def run(bench, cell, seed, seconds, traced, device, t_start, log, fault=None, tr
         driver = drivers.make(cfg, traffic, seed, work)
         driver.prepare()
         sd = weights.make(cfg, seed, device)
-        program = Program(cfg, sd, device)
+        program = driver.build(cfg, sd, device)
         del sd
         if fault is not None:
             fault(program)
@@ -110,13 +110,15 @@ def run(bench, cell, seed, seconds, traced, device, t_start, log, fault=None, tr
             torch.cuda.empty_cache()
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+        R = spec.reference(cfg)
         sd = weights.make(cfg, seed, device)
-        refs = {"f32": Reference(cfg, sd, device), "bf16": Reference(cfg, sd, device, "bf16")}
+        refs = {"f32": R.Reference(cfg, sd, device),
+                "bf16": R.Reference(cfg, sd, device, "bf16")}
         if control:
-            refs["lowp"] = Reference(cfg, sd, device, precision="lowp")
+            refs["lowp"] = R.Reference(cfg, sd, device, precision="lowp")
         del sd
         checks, info = judge.judge(cfg, served, batches, limits["sample"], seed, refs, device,
-                                   limits["limits"])
+                                   limits["limits"], R=R, pick=driver.pick)
         del refs
         log("run: {} seed {}: setup {:.2f} s, window {}, graph captures in the window {}, "
             "this process {:.2f} of {} cores; judge {}".format(
@@ -144,7 +146,13 @@ def run(bench, cell, seed, seconds, traced, device, t_start, log, fault=None, tr
             kept = {k: sum(n for name, n in ctx.profile["calls"].items() if k in name)
                     for k in span.launched}
             log("trace: idle by host span {}; steps in the span {}; kernel records kept {} of "
-                "launched {}".format(ctx.profile["idle_by_host"], span.steps, kept, span.launched))
+                "launched {}; marker kernels kept {} of 2{}".format(
+                    ctx.profile["idle_by_host"], span.steps, kept, span.launched,
+                    ctx.profile["markers"], "" if ctx.profile["lost"] is None else
+                    " (the {} lost: its end from the host clock)".format(ctx.profile["lost"])))
+            # a span whose trace lost a marker kernel (trace.Span.bounds) is marked in the line
+            result["trace"] = {"markers_kept": ctx.profile["markers"],
+                               "lost": ctx.profile["lost"]}
         result["checks"] = checks
         return result
     finally:

@@ -3,7 +3,8 @@ seed, held to the plain reference.
 
 Every output a user got (a row of the output TSV) is matched to the batch
 row the program searched it in: same image (the 4 x 4 pixel fingerprint of
-the program's batch against the reference's own decode, within 2 levels),
+each frame of the program's batch against the reference's own decode,
+within 2 levels; the same frames a row and one frame's shape),
 same prefix (the reference's own tokenisation of the question), and the
 row's tokens detokenised by the reference equal to the served text.  Then:
 
@@ -19,7 +20,9 @@ row's tokens detokenised by the reference equal to the served text.  Then:
   plain reference's sum of log-probabilities of the same tokens, the prefix
   and image fed, over the summed gap that rounding the reference's product
   operands to bf16 (the configuration's precision) makes on the same rows:
-  the program's error in units of bf16 rounding.  Beam search serves the
+  the program's error in units of bf16 rounding.  A mesh's scores reach its
+  rank 0 for that rank's own rows only (the first of each batch): the rows
+  searched on the other cards are held to `search_gap_nats` alone.  Beam search serves the
   sequence of best score, not each step's best token, so its tokens are not
   compared with the reference's first choices; the score is the search's
   own statement about them, and a lower precision or a token altered where
@@ -47,6 +50,9 @@ row's tokens detokenised by the reference equal to the served text.  Then:
 The control (`control.py`) reads both with the reference computed one step
 below the configuration's precision in the program's place: its scores of
 the served tokens, and its own search's choice.
+
+The reference is the module the configuration names (`spec.reference`):
+its `Reference` objects in `refs` and its `pixels`, passed as `R`.
 """
 
 from __future__ import annotations
@@ -82,13 +88,16 @@ def pick(served, n, seed):
 
 
 def candidates(batches, arr, prefix):
-    """[(batch, row)] whose shape, fingerprint and prefix match."""
+    """[(batch, row)] whose frames, shape, fingerprint and prefix match;
+    arr an image [H, W, 3] or a clip [F, H, W, 3]."""
     from .program import fingerprint
 
     fp = fingerprint(arr[None])[0].astype(np.int16)
+    n_frames = arr.shape[0] if arr.ndim == 4 else 1
     out = []
     for bi, b in enumerate(batches):
-        if b["shape"] != arr.shape[:2] or b["prefix"].shape[1] != len(prefix):
+        if b.get("frames", 1) != n_frames or b["shape"] != arr.shape[-3:-1] \
+                or b["prefix"].shape[1] != len(prefix):
             continue
         near = np.abs(b["fp"].astype(np.int16) - fp).reshape(len(b["fp"]), -1).max(1) <= 2
         same = (b["prefix"] == np.asarray(prefix)[None]).all(1)
@@ -115,18 +124,19 @@ def words_of(row, eos):
     return None if not len(hit) else [int(t) for t in row[:hit[0]]]
 
 
-def judge(cfg, served, batches, sample, seed, refs, device, limits):
+def judge(cfg, served, batches, sample, seed, refs, device, limits, R=R, pick=pick):
     """The numbers compared, each with its limit, for the sampled outputs;
     refs: {'f32': Reference, 'bf16': Reference} (a 'lowp' entry adds the
-    control's readings, `control_<number>`).  `search_gap_nats` is read
-    where `limits` holds it.  Returns (checks, info)."""
+    control's readings, `control_<number>`) of the reference module R.
+    `search_gap_nats` is read where `limits` holds it; pick(served, n,
+    seed) draws the sample.  Returns (checks, info)."""
     vocab = V.tokens(cfg["vocab_size"])
     idx = V.index(vocab)
     eos = cfg["eos_id"]
     alpha = cfg["length_penalty"]
     searched = "search_gap_nats" in limits
     chosen = pick(served, sample, seed)
-    unmatched, skipped, tokens, lengths, worst = 0, 0, 0, [], []
+    unmatched, skipped, unscored, tokens, lengths, worst = 0, 0, 0, 0, [], []
     gaps = {name: [] for name in ("f32", "bf16", "lowp", "search", "lowp_search")}
     for i in chosen:
         s = served[i]
@@ -153,20 +163,25 @@ def judge(cfg, served, batches, sample, seed, refs, device, limits):
                 skipped += 1  # a forced end: the score holds a word not served
                 continue
             norm = R.length_norm(tp + n, alpha)
-            prog = float(batches[bi]["scores"][r]) * norm
             ref_sum = float(refs["f32"].sequence(memory["f32"], prefix, words, eos).sum())
-            unit = abs(float(refs["bf16"].sequence(memory["bf16"], prefix, words, eos).sum())
-                       - ref_sum)
-            gaps["f32"].append(abs(prog - ref_sum))
-            gaps["bf16"].append(unit)
-            if "lowp" in refs:  # the control: its own sum in the program's place
-                lp = refs["lowp"].sequence(memory["lowp"], prefix, words, eos)
-                gaps["lowp"].append(abs(float(lp.sum()) - ref_sum))
+            scores = batches[bi]["scores"]
+            if r < len(scores):  # else searched on another card of a mesh
+                prog = float(scores[r]) * norm
+                unit = abs(float(refs["bf16"].sequence(memory["bf16"], prefix, words, eos)
+                                 .sum()) - ref_sum)
+                gaps["f32"].append(abs(prog - ref_sum))
+                gaps["bf16"].append(unit)
+                if "lowp" in refs:  # the control: its own sum in the program's place
+                    lp = refs["lowp"].sequence(memory["lowp"], prefix, words, eos)
+                    gaps["lowp"].append(abs(float(lp.sum()) - ref_sum))
+                worst.append((round(gaps["f32"][-1], 4), round(unit, 4), batches[bi]["rows"],
+                              tp, n))
+            else:
+                unscored += 1
             if searched:
                 if not short:  # the reference's own search, once an input
                     best = refs["f32"].beam_search(memory["f32"], prefix, cfg)[0]
                 short.append(max(0.0, best - ref_sum / norm))
-            worst.append((round(gaps["f32"][-1], 4), round(unit, 4), batches[bi]["rows"], tp, n))
             tokens += n + 1
             lengths.append(n)
         if short:
@@ -190,7 +205,8 @@ def judge(cfg, served, batches, sample, seed, refs, device, limits):
         if searched:
             checks["control_search_gap_nats"] = {"value": nats(gaps["lowp_search"]),
                                                  "limit": limits["search_gap_nats"]}
-    info = dict(sampled=len(chosen), scored_rows=len(gaps["f32"]), forced_skipped=skipped,
+    info = dict(sampled=len(chosen), scored_rows=len(gaps["f32"]), unscored_rows=unscored,
+                forced_skipped=skipped,
                 tokens=tokens, served=len(served),
                 mean_words=float(np.mean(lengths)) if lengths else None,
                 max_words=max(lengths) if lengths else None,

@@ -47,12 +47,14 @@ def flash_prefill(b, h, m, tp, dh):
     return 4 * b * h * s * dh * 2, 4 * b * h * seen * dh
 
 
-def least_decode_attention_s(cfg, b, m, tp, steps):
+def least_decode_attention_s(cfg, b, m, tp, steps, frames=1):
     """Kernel 1's least time over a search of `steps` steps from prefix
     length tp: one call a layer a step, the step at position tp + j
-    reading tp + j + 1 live text rows."""
+    reading tp + j + 1 live text rows, over a memory of frames x m tokens
+    (m a frame's)."""
     k, h = cfg["num_beams"], cfg["num_heads"]
     dh = cfg["hidden_size"] // h
+    m = frames * m
     total = 0.0
     for j in range(steps):
         nbytes, flops = decode_attention(b, k, h, dh, m, tp + j + 1)
@@ -60,42 +62,57 @@ def least_decode_attention_s(cfg, b, m, tp, steps):
     return total * cfg["num_layers"]
 
 
-def least_flash_s(cfg, b, s, tp):
-    """Kernel 2's least time for one batch: the encoder's layers at s
-    tokens and the prefill's layers over [s memory; tp text]."""
+def least_flash_s(cfg, b, s, tp, frames=1):
+    """Kernel 2's least time for one batch of b rows of `frames` frames:
+    the encoder's layers over b x frames images at s tokens and the
+    prefill's layers over [frames x s memory; tp text]."""
     he, ht = cfg["encoder_heads"], cfg["num_heads"]
-    enc = least_s(*flash_encoder(b, he, s, cfg["encoder_width"] // he), BF16_FLOPS)
-    pre = least_s(*flash_prefill(b, ht, s, tp, cfg["hidden_size"] // ht), BF16_FLOPS)
+    enc = least_s(*flash_encoder(b * frames, he, s, cfg["encoder_width"] // he), BF16_FLOPS)
+    pre = least_s(*flash_prefill(b, ht, frames * s, tp, cfg["hidden_size"] // ht), BF16_FLOPS)
     return enc * cfg["encoder_layers"] + pre * cfg["num_layers"]
 
 
-def model_flops(cfg, s, tp, steps):
-    """The model FLOPs of one item: the ViT at s tokens (s - 1 patches and
-    the class token), the visual projection, the prefill over [s; tp] with
-    the last position's logits, and `steps` beam steps of num_beams rows
-    each, with GIT's attention over [memory; live text].  Whatever
-    implements them, these are the products the model needs."""
+def model_flops(cfg, s, tp, steps, frames=1):
+    """The model FLOPs of one item of `frames` frames: the ViT at s tokens
+    (s - 1 patches and the class token) a frame, the visual projection of
+    the memory's m = frames x s tokens, the prefill over [m; tp] with the
+    last position's logits, and `steps` beam steps of num_beams rows each,
+    with GIT's attention over [memory; live text].  Whatever implements
+    them, these are the products the model needs."""
     w, d, v = cfg["encoder_width"], cfg["hidden_size"], cfg["vocab_size"]
     p, ff, k = cfg["patch_size"], cfg["feedforward_size"], cfg["num_beams"]
-    patch = 2 * (s - 1) * 3 * p * p * w
-    enc = cfg["encoder_layers"] * (2 * s * w * (3 * w + w + 8 * w) + 4 * s * s * w)
-    proj = 2 * s * cfg["visual_feature_size"] * d
+    m = frames * s
+    patch = frames * (2 * (s - 1) * 3 * p * p * w)
+    enc = frames * (cfg["encoder_layers"] * (2 * s * w * (3 * w + w + 8 * w) + 4 * s * s * w))
+    proj = 2 * m * cfg["visual_feature_size"] * d
     layer = 2 * (4 * d * d + 2 * d * ff)  # per token: q, k, v, out; the FFN
-    seen = s * s + sum(s + i + 1 for i in range(tp))
-    pre = cfg["num_layers"] * ((s + tp) * layer + 4 * seen * d) + 2 * d * v
+    seen = m * m + sum(m + i + 1 for i in range(tp))
+    pre = cfg["num_layers"] * ((m + tp) * layer + 4 * seen * d) + 2 * d * v
     dec = 0
     for j in range(steps):
-        dec += k * (cfg["num_layers"] * (layer + 4 * d * (s + tp + j + 1)) + 2 * d * v)
+        dec += k * (cfg["num_layers"] * (layer + 4 * d * (m + tp + j + 1)) + 2 * d * v)
     return patch + enc + proj + pre + dec
 
 
-def span_work(ctx):
-    """[(rows, real items, s tokens, prefix length, steps)] of the batches
-    dispatched inside the traced span, or None where there is none.  The
+def data_ranks(ctx):
+    """The data ranks a device batch's rows are split over: the first of the
+    traffic's `mesh_shape`, 1 without a mesh."""
+    shape = (getattr(ctx, "traffic", None) or {}).get("mesh_shape")
+    if shape is None:
+        return 1
+    return int(shape) if isinstance(shape, int) else int(shape[0])
+
+
+def span_work(ctx, card=False):
+    """[(rows, real items, s tokens a frame, prefix length, steps, frames a
+    row)] of the batches dispatched inside the traced span, or None where
+    there is none.  The
     span opens and closes with the card drained, so these batches ran in
     it; its settled step count is split evenly over them (exact where the
     batches run equal steps; the steps' positions enter only kernel 1's
-    live text rows)."""
+    live text rows).  card: each batch's rows and real items on the traced
+    card, rank 0's data shard on a mesh (its first rows / data ranks), as
+    that card's kernels see them; the whole batch otherwise."""
     span = ctx.span
     if span is None or span.t_close is None or not span.steps:
         return None
@@ -103,9 +120,11 @@ def span_work(ctx):
     if not inside or any(b["real"] is None for b in inside):
         return None
     p = ctx.cfg["patch_size"]
+    data = data_ranks(ctx) if card else 1
     steps = span.steps / len(inside)
-    return [(b["rows"], b["real"], (b["shape"][0] // p) * (b["shape"][1] // p) + 1,
-             b["prefix"].shape[1], steps) for b in inside]
+    return [(b["rows"] // data, min(b["real"], b["rows"] // data),
+             (b["shape"][0] // p) * (b["shape"][1] // p) + 1,
+             b["prefix"].shape[1], steps, b.get("frames", 1)) for b in inside]
 
 
 KEPT_FLOOR = 0.9  # the share of a kernel's launches the trace must hold

@@ -10,10 +10,12 @@ native loader where it builds).
 `Hooks` wraps public methods of those objects at run time, from this folder,
 never in the program's files:
 - always (they decide `correct` and the rates): `CaptionEngine.
-  dispatch_device_batch` (each batch's shape, prefixes, a 4 x 4 pixel
-  fingerprint of each row and its sequences), `GitModel.generate` (each
-  batch's scores, the search's second output), `CaptionEngine.resolve` (when
-  each handle's items completed);
+  dispatch_device_batch` (each batch's frames a row, one frame's shape,
+  prefixes, a 4 x 4 pixel fingerprint of each row's frames and its
+  sequences), `GitModel.generate` (each batch's scores, the search's second
+  output: on a mesh's rank 0, the rows of its own data shard, the first
+  rows of the batch), `CaptionEngine.resolve` (when each handle's items
+  completed);
 - with tracing on, also the host clock around `dispatch_device_batch`,
   `resolve`, `to_host` and the decode pool's chunks, and CUDA events around
   `generate`, `encode_images` and `prefill` (a copy of chip_smoke.py's
@@ -35,22 +37,30 @@ FP_GRID = 4  # fingerprint: a 4 x 4 grid of pixels a row
 
 
 def fingerprint(imgs):
-    """[B, H, W, 3] uint8 or normalised float -> uint8 [B, 4, 4, 3]: the
-    pixels at the centres of a 4 x 4 grid, de-normalised with CLIP's
-    constants where the batch is float."""
+    """[B, H, W, 3] images or [B, F, H, W, 3] clips, uint8 or normalised
+    float -> uint8 [B, 4, 4, 3] or [B, F, 4, 4, 3]: each frame's pixels at
+    the centres of a 4 x 4 grid (the last three axes), de-normalised with
+    CLIP's constants where the batch is float."""
     imgs = np.asarray(imgs)
     h, w = imgs.shape[-3], imgs.shape[-2]
     ys = ((np.arange(FP_GRID) + 0.5) * h / FP_GRID).astype(int)
     xs = ((np.arange(FP_GRID) + 0.5) * w / FP_GRID).astype(int)
-    px = imgs[:, ys][:, :, xs].astype(np.float32)
+    px = np.take(np.take(imgs, ys, axis=-3), xs, axis=-2).astype(np.float32)
     if imgs.dtype != np.uint8:
         px = (px * CLIP_STD + CLIP_MEAN) * 255.0
     return np.clip(np.rint(px), 0, 255).astype(np.uint8)
 
 
+def frames(imgs):
+    """The frames a row of a batch: 1 for [B, H, W, 3], F for [B, F, H, W, 3]."""
+    return int(np.shape(imgs)[1]) if np.ndim(imgs) == 5 else 1
+
+
 def port_config(cfg):
     """The program's GitConfig from the file's widths; for a model of the
-    port's zoo it must equal the zoo's (with fast_softmax as the file says)."""
+    port's zoo it must equal the zoo's (with fast_softmax as the file says).
+    `num_image_with_embedding` (the zoo's frames of a video model, each with
+    its temporal embedding) is 0 where the file has none."""
     from gitax_torch.models.config import (MODEL_ZOO, GitConfig, ViTConfig, config_from_param,
                                            get_model_param)
 
@@ -64,7 +74,8 @@ def port_config(cfg):
                      feedforward_size=cfg["feedforward_size"],
                      max_caption_length=cfg["max_caption_length"],
                      bert_ln_eps=cfg["bert_ln_eps"], embedding_ln_eps=cfg["embedding_ln_eps"],
-                     projection_ln_eps=cfg["projection_ln_eps"])
+                     projection_ln_eps=cfg["projection_ln_eps"],
+                     num_image_with_embedding=int(cfg.get("num_image_with_embedding", 0)))
     if cfg["model_name"] in MODEL_ZOO:
         zoo = config_from_param(dict(get_model_param(cfg["model_name"]),
                                      fast_softmax=bool(cfg["fast_softmax"])))
@@ -74,30 +85,48 @@ def port_config(cfg):
     return port
 
 
+def build_model(cfg, sd, device):
+    """The port's GitModel of the file's widths on `device`, holding the
+    benchmark's weights `sd` (copied into its own parameters)."""
+    import torch
+
+    from gitax_torch.models.git import GitModel
+
+    model = GitModel(port_config(cfg), device=device, dtype=getattr(torch, cfg["dtype"]))
+    model.load_state_dict(sd)
+    return model
+
+
+def engine_settings(cfg):
+    """(tokenizer, keyword arguments of `CaptionEngine`) as the TSV CLI sets
+    them for the file's configuration."""
+    import torch
+
+    from gitax_torch.decode.beam import BeamSearchConfig
+    from gitax_torch.preprocess.transforms import TestTransform
+    from gitax_torch.tokenization import BertTokenizer
+
+    transform = TestTransform(crop_size=cfg["test_crop_size"],
+                              respect_ratio_max=cfg.get("test_respect_ratio_max"))
+    return BertTokenizer(V.tokens(cfg["vocab_size"])), dict(
+        batch_size=cfg["batch_size"],
+        beam=BeamSearchConfig(num_beams=cfg["num_beams"], max_steps=cfg["max_steps"]),
+        dtype=getattr(torch, cfg["dtype"]), max_text_len=cfg["max_text_len"],
+        int8=bool(cfg["int8"]), transform=transform, use_native=None)
+
+
 class Program(object):
     """The port's model and engine on `device`, from the benchmark's
     weights `sd` (copied into the program's own parameters)."""
 
     def __init__(self, cfg, sd, device):
-        import torch
-
-        from gitax_torch.decode.beam import BeamSearchConfig
-        from gitax_torch.models.git import GitModel
-        from gitax_torch.preprocess.transforms import TestTransform
         from gitax_torch.runtime.engine import CaptionEngine
-        from gitax_torch.tokenization import BertTokenizer
 
         self.cfg = cfg
-        dtype = getattr(torch, cfg["dtype"])
-        self.model = GitModel(port_config(cfg), device=device, dtype=dtype)
-        self.model.load_state_dict(sd)
-        self.transform = TestTransform(crop_size=cfg["test_crop_size"],
-                                       respect_ratio_max=cfg.get("test_respect_ratio_max"))
-        self.engine = CaptionEngine(
-            self.model, BertTokenizer(V.tokens(cfg["vocab_size"])), batch_size=cfg["batch_size"],
-            beam=BeamSearchConfig(num_beams=cfg["num_beams"], max_steps=cfg["max_steps"]),
-            dtype=dtype, max_text_len=cfg["max_text_len"], int8=bool(cfg["int8"]),
-            transform=self.transform, use_native=None)
+        self.model = build_model(cfg, sd, device)
+        tokenizer, kwargs = engine_settings(cfg)
+        self.transform = kwargs["transform"]
+        self.engine = CaptionEngine(self.model, tokenizer, **kwargs)
 
     def close(self):
         self.engine.close()
@@ -114,7 +143,7 @@ class Hooks(object):
         self.p, self.traced = program, traced
         self.lock = threading.Lock()
         self.recording = False
-        self.batches = []  # dicts: shape, fp, prefix, seqs, scores, t, rows
+        self.batches = []  # dicts: frames, shape, fp, prefix, seqs, scores, t, rows
         self.resolved = []  # (host time, items) of each resolve
         self.answers = []  # (id of a batch's sequences, row, text, host time) of each item
         self.real = {}  # id(seqs) -> real items of that batch (from resolve)
@@ -124,7 +153,7 @@ class Hooks(object):
         self.events = {"encode_images": [], "prefill": [], "generate": []}
         self.generate_t = []  # host time of each traced generate call
         self.captures = 0
-        self._scores = {}
+        self._last = threading.local()  # the scores of this thread's last generate
         self._undo = []
         eng, model = program.engine, program.model
 
@@ -139,7 +168,7 @@ class Hooks(object):
             if traced:
                 e.record()
                 self._event("generate", s, e)
-            self._scores[id(seqs)] = scores
+            self._last.scores = scores
             return seqs, scores
 
         self._wrap(model, "generate", generate)
@@ -150,14 +179,16 @@ class Hooks(object):
         dispatch = eng.dispatch_device_batch
 
         def dispatch_device_batch(imgs, pref, **kw):
+            self._last.scores = None
             t0 = time.perf_counter()
             seqs = dispatch(imgs, pref, **kw)
             t1 = time.perf_counter()
-            scores = self._scores.pop(id(seqs), None)
+            scores, self._last.scores = self._last.scores, None
             if self.recording:
                 with self.lock:
                     self.batches.append(dict(
-                        shape=tuple(np.shape(imgs)[1:3]), fp=fingerprint(imgs),
+                        frames=frames(imgs), shape=tuple(np.shape(imgs)[-3:-1]),
+                        fp=fingerprint(imgs),
                         prefix=np.array(pref, np.int64), seqs=seqs, scores=scores, t=t1,
                         rows=int(np.shape(imgs)[0])))
                     if traced:
@@ -275,7 +306,8 @@ class Hooks(object):
         """The records with their sequences and scores on the host, and each
         batch's real items: from its resolve, or, where the window was cut
         before it, its distinct (prefix, image) rows (a batch is padded with
-        copies of its last item)."""
+        copies of its last item).  A mesh's scores cover its rank 0's rows,
+        the batch's first: fewer than its sequences'."""
         out = []
         for b in self.batches:
             seqs = b["seqs"].cpu().numpy()

@@ -15,7 +15,6 @@ graph captured while it runs).
 
 from __future__ import annotations
 
-from . import trace as tr
 
 # the feeding thread's top-level spans (the thread that calls dispatch)
 FEED_TOP = ("tsv.pool_wait", "tsv.assemble", "engine.dispatch", "engine.resolve", "tsv.write")
@@ -115,18 +114,18 @@ def idle(ctx):
 
 
 def _searches(span, inside):
-    """The device intervals (ms after the opening marker's start) of the
+    """The device intervals (ms after the span's opening, `trace.Span.bounds`) of the
     `search.launch` spans among `inside`, each from its start stamp's
     kernel to its end stamp's, or None where the stamps do not pair."""
     from torch.autograd import DeviceType
 
     kernels = [e for e in span.events if e.device_type == DeviceType.CUDA]
-    marks = [e.time_range.start for e in kernels if tr.MARK in e.name]
+    ends = span.bounds(kernels)
     stamps = sorted((e for e in kernels if STAMP in e.name), key=lambda e: e.id)
     pairs = paired(inside, stamps)
-    if pairs is None or not marks:
+    if pairs is None or ends is None:
         return None
-    opening = min(marks)
+    opening = ends[0]
     return [((pairs[r.id][0].time_range.start - opening) / 1e3,
              (pairs[r.id][1].time_range.end - opening) / 1e3)
             for r in inside if r.name == "search.launch" and r.id in pairs]

@@ -194,6 +194,11 @@ class Reference(object):
     @torch.no_grad()
     def encode(self, arr):
         """uint8 [H, W, 3] -> the projected memory [1, S, D]."""
+        return self.project(self.vit(arr))
+
+    @torch.no_grad()
+    def vit(self, arr):
+        """uint8 [H, W, 3] -> the ViT's tokens after ln_post [1, S, W]."""
         cfg, w = self.cfg, self.w
         p, width, n_heads = cfg["patch_size"], cfg["encoder_width"], cfg["encoder_heads"]
         x = torch.from_numpy(normalized(arr)).to(self.device).permute(2, 0, 1)[None]
@@ -219,9 +224,13 @@ class Reference(object):
             x = x + self.linear(self.merge(self.attend(q, k, v)), b + "attn.out_proj")
             h = self.linear(self.ln(x, b + "ln_2", eps), b + "mlp.c_fc")
             x = x + self.linear(h * torch.sigmoid(1.702 * h), b + "mlp.c_proj")
-        x = self.ln(x, "image_encoder.ln_post", eps)
+        return self.ln(x, "image_encoder.ln_post", eps)
+
+    @torch.no_grad()
+    def project(self, x):
+        """The visual projection ('linearLn'): tokens [1, M, Dv] -> [1, M, D]."""
         x = self.linear(x, "textual.visual_projection.0")
-        return self.ln(x, "textual.visual_projection.1", cfg["projection_ln_eps"])
+        return self.ln(x, "textual.visual_projection.1", self.cfg["projection_ln_eps"])
 
     # -- the decoder -----------------------------------------------------------
     @torch.no_grad()

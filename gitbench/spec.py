@@ -2,14 +2,19 @@
 configuration file, its traffic file (`traffic/<traffic>.json`), its
 correctness limits (`workloads/<cell>.json`) and each metric's reader
 (`metrics/<metric>.py`, a `read(ctx)` that returns a number, or None when it
-finds nothing to read).  A new cell, traffic mix or metric is new files and
-new entries, never an edit."""
+finds nothing to read), a traffic kind's driver missing from
+`drivers.KINDS` (`kinds/<kind>.py`, its `Driver`) and a configuration's
+reference (the module its optional `reference` key names, `reference.py`
+by default).  A new cell, traffic mix, kind, reference or metric is new
+files and new entries, never an edit."""
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 import os
+import re
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -67,16 +72,37 @@ def metrics(bench, cell_name, kind):
     return [m for m in bench[kind] if reports(m, cell_name, bench)]
 
 
-_READERS = {}
-
-
 def reader(name):
     """metrics/<name>.py's `read`."""
-    if name not in _READERS:
-        path = os.path.join(HERE, "metrics", name + ".py")
+    return module("metrics/" + name).read
+
+
+MODULE = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]*(/[A-Za-z0-9_][A-Za-z0-9_.-]*)*$")
+_MODULES = {}
+
+
+def module(rel):
+    """The module file `<rel>.py` under gitbench/ (`rel` a relative path
+    with `/`, e.g. 'kinds/caption_tsv_mesh'), loaded once by its path."""
+    if not MODULE.match(rel):  # each part starts with a letter, digit or _: no '..', no '/x'
+        raise ValueError("{!r} does not name a module file under gitbench/".format(rel))
+    if rel not in _MODULES:
+        path = os.path.join(HERE, *rel.split("/")) + ".py"
+        if not os.path.isfile(path):
+            raise FileNotFoundError("no module file gitbench/{}.py".format(rel))
         mod_spec = importlib.util.spec_from_file_location(
-            "gitbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
+            "gitbench_file_" + re.sub(r"[^A-Za-z0-9_]", "_", rel), path)
         mod = importlib.util.module_from_spec(mod_spec)
         mod_spec.loader.exec_module(mod)
-        _READERS[name] = mod.read
-    return _READERS[name]
+        _MODULES[rel] = mod
+    return _MODULES[rel]
+
+
+def reference(cfg):
+    """The plain reference module a configuration names (`reference`, a
+    module file under gitbench/; default `reference.py`): its `Reference`
+    and `pixels` judge the configuration's outputs."""
+    rel = cfg.get("reference", "reference")
+    if rel == "reference":
+        return importlib.import_module("gitbench.reference")
+    return module(rel)

@@ -187,3 +187,59 @@ def test_idle_attribution_needs_every_stamp_kernel():
     ctx = idle_ctx(stamp_kernels=False)
     assert all(read("device.idle." + n, ctx) is None for n in (
         "pool_wait", "assemble", "dispatch", "resolve", "write", "unspanned", "capture"))
+
+
+def lost_marker_ctx(lost, counted=2):
+    """idle_ctx with the marker kernel at `lost` trace us gone, its two
+    busy kernels named as kernel 1's records, and `counted` launches of
+    kernel 1 (none of kernel 2) by the port's counter in the span."""
+    ctx = idle_ctx()
+    ctx.span.t_close = ctx.span.t_open + 0.010  # the markers' 10 ms on the host too
+    ctx.span.launched = {"decode_attention": counted, "flash_attention": 0}
+    for e in ctx.span.events:
+        if e.name == "k":
+            e.name = "decode_attention_kernel"
+    ctx.span.events = [e for e in ctx.span.events
+                       if not (tr.MARK in e.name and e.time_range.start == lost)]
+    return ctx
+
+
+def cuda_kernels(ctx):
+    return [e for e in ctx.span.events if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("lost", [1000, 11000])
+def test_a_lost_marker_kernel_is_replaced_by_the_host_clocks_length(lost):
+    """A trace that lost its opening or its closing marker kernel and kept a
+    record of each launch the port counted: the span ends at the kept
+    marker and the host clock's length of the span, on the side where the
+    other kernels lie; the shares are those of the whole trace, and the
+    result says which marker went."""
+    whole = idle_ctx()
+    whole.span.t_close = whole.span.t_open + 0.010
+    ctx = lost_marker_ctx(lost)
+    assert ctx.span.bounds(cuda_kernels(ctx)) == pytest.approx((1000, 11000))
+    for n in ("pool_wait", "dispatch", "unspanned", "capture"):
+        assert read("device.idle." + n, ctx) == pytest.approx(read("device.idle." + n, whole))
+    res = ctx.span.reduce([])
+    assert res["markers"] == 1 and res["window_s"] == pytest.approx(0.010)
+    assert res["lost"] == ("opening" if lost == 1000 else "closing")
+    assert whole.span.reduce([])["lost"] is None
+
+
+@pytest.mark.parametrize("lost", [1000, 11000])
+def test_a_lost_marker_kernel_is_refused_where_a_counted_launch_went_too(lost):
+    """One marker kept, but the port counted a launch whose record the trace
+    lacks (the end of the activity may have gone with the marker), or no
+    launch at all: no bounds, and the reduction raises; so it does with
+    neither marker."""
+    for counted in (3, 0):
+        ctx = lost_marker_ctx(lost, counted)
+        assert ctx.span.bounds(cuda_kernels(ctx)) is None
+        with pytest.raises(RuntimeError, match="1 of its 2 marker kernels"):
+            ctx.span.reduce([])
+        assert read("device.idle.pool_wait", ctx) is None
+    ctx = lost_marker_ctx(lost)
+    ctx.span.events = [e for e in ctx.span.events if tr.MARK not in e.name]
+    with pytest.raises(RuntimeError, match="0 of its 2 marker kernels"):
+        ctx.span.reduce([])

@@ -6,7 +6,7 @@ import re
 
 import pytest
 
-from gitbench import spec, weights
+from gitbench import drivers, spec, weights
 
 BENCH = spec.load()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -63,7 +63,7 @@ def test_each_cell_finds_its_files(cell):
     cfg = spec.config(BENCH, w["config"])
     traffic = spec.traffic(w["traffic"])
     limits = spec.workload(cell)
-    assert traffic["kind"] in ("caption_tsv", "vqa_tsv")
+    assert callable(drivers.driver_class(traffic["kind"]))
     assert {"unmatched", "missing", "score_gap_bf16"} <= set(limits["limits"]) \
         <= {"unmatched", "missing", "score_gap_bf16", "search_gap_nats"}
     assert cfg["assumed"]["eos_gate"] > 0

@@ -26,6 +26,8 @@ def tiny_config(name):
 TINY_TRAFFIC = {
     "coco_tsv": dict(payloads=8, rows=16),
     "vqa_tsv": dict(images=4, questions_per_image={"1": 1, "2": 1}),
+    # two gloo CPU ranks of 2 rows: the engine's batch of 4, as the tiny configurations'
+    "coco_tsv_dp4": dict(payloads=8, rows=16, mesh_shape=[2, 1], rows_per_rank=2),
 }
 
 

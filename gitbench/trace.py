@@ -23,6 +23,11 @@ import time
 
 MARK = "spin_kernel"  # the kernel of torch.cuda._sleep
 MARK_CYCLES = 1000
+# host time between the tracer's start and the opening marker, and between the closing marker
+# and the tracer's stop.  With none, a marker (and at times kernels near it) went missing in 12
+# of 450 start-stop cycles on an H100 with busy host threads or NCCL in the process; with 2 ms
+# in none of 450, with 10 ms in none of 300
+PAUSE_S = 0.01
 NAME_CHARS = 120  # a kernel's name in the breakdown, cut to this
 
 
@@ -43,6 +48,7 @@ class Span(object):
         self.steps = None  # decode steps run inside the span
         self.events = None
         self.result = None
+        self.lost = None  # the marker kernel the trace lost: 'opening', 'closing' or None
         self.launched = None  # each counted kernel's launches inside the span
         self._steps0 = self._launches0 = None
 
@@ -56,6 +62,7 @@ class Span(object):
             self._launches0 = self.launches()
             self.prof = profile(activities=[ProfilerActivity.CUDA])
             self.prof.start()
+            time.sleep(PAUSE_S)
             self.t_open = time.perf_counter()
             self._mark()
             self.ref = torch.cuda.Event(enable_timing=True)
@@ -80,8 +87,39 @@ class Span(object):
         torch.cuda.synchronize()
         self.steps = self.settle() - self._steps0
         self.launched = {k: v - self._launches0[k] for k, v in self.launches().items()}
+        time.sleep(PAUSE_S)
         self.prof.stop()
         self.events = self.prof.events()
+
+    def bounds(self, kernels):
+        """(lo, hi): the span's ends in trace microseconds, its two marker
+        kernels'; None where the trace lost one.  Only where it lost one
+        marker and kept a record of every launch the port counted in the
+        span (`all_kept`), so that nothing else at that end went with it:
+        the other marker and the span's length on the host clock
+        (`t_close - t_open`, the clock the idle gaps are mapped through),
+        the lost one told by the side of the kept one on which the span's
+        other kernels lie (`lost`)."""
+        marks = sorted(e.time_range.start for e in kernels if MARK in e.name)
+        if len(marks) >= 2:
+            return marks[0], marks[-1]
+        if len(marks) != 1 or not self.all_kept(kernels):
+            return None
+        mark, length = marks[0], (self.t_close - self.t_open) * 1e6
+        starts = [e.time_range.start for e in kernels if MARK not in e.name]
+        if 2 * sum(1 for t in starts if t >= mark) >= len(starts):
+            self.lost = "closing"
+            return mark, mark + length
+        self.lost = "opening"
+        return mark - length, mark
+
+    def all_kept(self, kernels):
+        """Whether the trace holds a record of each launch of the kernels
+        the port counts (`launched`: kernels 1 and 2), some launched."""
+        if not self.launched or not sum(self.launched.values()):
+            return False
+        return all(sum(1 for e in kernels if k in e.name) == n
+                   for k, n in self.launched.items())
 
     def reduce(self, spans, searches=()):
         """{busy_s, window_s, kernels {name: s}, calls {name: records},
@@ -94,10 +132,15 @@ class Span(object):
         if not self.events:
             raise RuntimeError("the profiler kept no events for the span")
         kernels = [e for e in self.events if e.device_type == DeviceType.CUDA]
-        marks = sorted(e.time_range.start for e in kernels if MARK in e.name)
-        if len(marks) < 2:
-            raise RuntimeError("the trace holds {} of its 2 marker kernels".format(len(marks)))
-        lo, hi = marks[0], marks[-1]
+        ends = self.bounds(kernels)
+        if ends is None:
+            raise RuntimeError(
+                "the trace holds {} of its 2 marker kernels and {} of the counted launches {}".format(
+                    sum(1 for e in kernels if MARK in e.name),
+                    {k: sum(1 for e in kernels if k in e.name) for k in self.launched or {}},
+                    self.launched))
+        lo, hi = ends
+        markers = sum(1 for e in kernels if MARK in e.name)
         ivals, by_name, calls = [], collections.Counter(), collections.Counter()
         for e in kernels:
             if MARK in e.name:
@@ -147,5 +190,5 @@ class Span(object):
         self.result = dict(
             busy_s=busy, window_s=(hi - lo) / 1e6, kernels=dict(by_name), calls=dict(calls),
             device_ops=[[n[:NAME_CHARS], s] for n, s in by_name.most_common(10)],
-            idle_gaps=idle_gaps, idle_by_host=dict(named))
+            idle_gaps=idle_gaps, idle_by_host=dict(named), markers=markers, lost=self.lost)
         return self.result

@@ -14,6 +14,11 @@ to a few memory tokens and captions depend on the image; the value and
 output maps keep their scale, so the positional signal the EOS gate reads
 survives the residual stream.
 
+A video configuration (`num_image_with_embedding` F > 0) adds the F temporal
+embeddings `img_temperal_embedding.{i}` [1, 1, Dv] (the port's and the
+reference checkpoint's spelling and shape), drawn last in the 'emb' group,
+so that no other parameter's draw moves; a file without the key has none.
+
 The names are the reference checkpoint's, which `GitModel.state_dict()` uses;
 the same dict is what the plain reference reads.
 """
@@ -78,6 +83,8 @@ def param_specs(cfg):
                   (b + "output.LayerNorm.weight", (D,), "one"),
                   (b + "output.LayerNorm.bias", (D,), "zero")]
     specs.append(("textual.output.bias", (w["V"],), "zero"))
+    specs += [("img_temperal_embedding.{}".format(i), (1, 1, w["Dv"]), "emb")
+              for i in range(int(cfg.get("num_image_with_embedding", 0)))]
     return specs
 
 
