@@ -181,10 +181,15 @@ class GitModel(nn.Module):
                      dtype=torch.float32, fast=None, flash=None, remat=False):
         """Encode images and, given text context, append it (gitax
         git.py:129-142).  Returns (memory, memory_valid or None).  The
-        encoder is the `model.encode` device span (its `tokens`: S)."""
+        encoder is the `model.encode` device span: its `tokens` the
+        memory's (F x S for a clip of F frames), `frames` F (1 for an
+        image) and `images` the encoder's, B x F."""
         with profiling.span("model.encode", device=images.is_cuda) as s:
             visual = self.encode_images(images, dtype, fast=fast, flash=flash, remat=remat)
-            s.set(tokens=visual.shape[1])
+            frames = images.shape[1] if images.dim() == 5 else 1
+            if self.cfg.num_image_with_embedding:
+                frames = min(frames, self.cfg.num_image_with_embedding)
+            s.set(tokens=visual.shape[1], frames=frames, images=images.shape[0] * frames)
         if context_tokens is None:
             return visual, None
         return self.append_text_context(visual, context_tokens, context_lengths, dtype)

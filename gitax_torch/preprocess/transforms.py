@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..io.image import pil_image
+from ..io.image import image_from_base64, pil_image
 
 CLIP_MEAN = np.asarray([0.48145466, 0.4578275, 0.40821073], dtype=np.float32)
 CLIP_STD = np.asarray([0.26862954, 0.26130258, 0.27577711], dtype=np.float32)
@@ -97,6 +97,27 @@ class TestTransform(object):
         return "TestTransform(crop_size={}, respect_ratio_max={})".format(
             self.crop_size, self.respect_ratio_max
         )
+
+
+def uint8_frame(img, crop_size: int, respect_ratio_max=None) -> np.ndarray:
+    """PIL image -> the uint8 HWC array `TestTransform` would normalise: the
+    MinMax size when `respect_ratio_max` is set, else the shorter side to
+    `crop_size` and the centre crop."""
+    if respect_ratio_max is not None:
+        img = min_max_resize(img, crop_size, respect_ratio_max)
+    else:
+        img = center_crop(resize_shorter(img, crop_size), crop_size)
+    return np.asarray(img, np.uint8)
+
+
+def decode_uint8(payloads, crop_size: int, respect_ratio_max=None):
+    """base64 payloads -> `uint8_frame` arrays, None for each that does not
+    decode.  A module-level function, so that a process pool can run it."""
+    out = []
+    for p in payloads:
+        img = image_from_base64(p)
+        out.append(None if img is None else uint8_frame(img, crop_size, respect_ratio_max))
+    return out
 
 
 def get_image_transform(param):

@@ -19,6 +19,12 @@ file-system barrier.  The port's engine, as gitax's:
     token length), so that a full bucket is one device batch of real
     rows; the buckets left at the pass's end are flushed, one padded
     batch each, and answers are emitted in the reference's row order.
+  * with a video model (`num_image_with_embedding` F > 0) a caption
+    TSV's row is a clip, its payload a JSON list of base64 frames in time
+    order; a device batch's clips are decoded on several of the pool's
+    threads at once, each handing its frames to a decode process of its
+    own, to uint8 normalised on the device, and grouped by (frames, grid)
+    (`dispatch_clips`).
 
 `CaptionEngine` takes gitax's `transform`: its mean and std normalise
 uint8 batches on the device (CLIP's when the transform has none or there
@@ -76,13 +82,14 @@ import datetime
 import itertools
 import json
 import logging
+import multiprocessing
 import os
 import os.path as op
 import threading
 import time
 import types
 import weakref
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -91,19 +98,27 @@ import torch
 from ..common import json_dump
 from ..decode.beam import BeamSearchConfig
 from ..io import fileio
-from ..io.image import image_from_base64
+from ..io.image import image_from_base64, pil_image
 from ..io.tsv import TSVFile, concat_tsv_files, tsv_writer
 from ..models.git import GitModel
 from ..ops.quant import quantize_git_model_
 from ..parallel import comm
 from ..parallel.mesh import broadcast_params, mesh_dims, shard_for_inference
-from ..preprocess.transforms import CLIP_MEAN, CLIP_STD
+from ..preprocess.transforms import CLIP_MEAN, CLIP_STD, decode_uint8, uint8_frame
 from ..tokenization import encode_prefix
 from . import distributed, profiling
 
 
 # the decode pool's chunks, numbered over the process (their spans' `chunk`)
 _chunk_ids = itertools.count(1)
+
+
+def _shut_pools(threads, procs):
+    """The engine's finalizer: its decode threads, then its frame processes
+    (idle between batches, so joining them is quick)."""
+    threads.shutdown(wait=False)
+    for p in procs:
+        p.shutdown(wait=True, cancel_futures=True)
 
 
 def resolve_use_native(use_native: Optional[bool]) -> bool:
@@ -345,11 +360,16 @@ class CaptionEngine(object):
                                                np.float32)).to(self.device)
         # the host decode stage; its threads start at the first submit
         self.pool = ThreadPoolExecutor(max_workers=decode_workers)
+        self.decode_workers = decode_workers
+        # the clip loop's frame decoders, processes started at its first
+        # batch (`_decode_frames`); a list, so that the finalizer sees them
+        self._frame_procs = []
+        self._frame_lock = threading.Lock()
         self._uploads = PinnedUploads()
         # the real rows of the device batch `_dispatch_batch` is dispatching,
         # on the thread that dispatches it (the rest are padding)
         self._feed = threading.local()
-        self._close = weakref.finalize(self, self.pool.shutdown, wait=False)
+        self._close = weakref.finalize(self, _shut_pools, self.pool, self._frame_procs)
         self._on_close = on_close
 
     @property
@@ -443,9 +463,10 @@ class CaptionEngine(object):
         pref = np.asarray(pref, np.int64)
         rows = imgs.shape[0]
         real = getattr(self._feed, "real", None) or rows
-        profiling.count(rows=rows, real_rows=real)
+        frames = imgs.shape[1] if imgs.ndim == 5 else 1
+        profiling.count(rows=rows, real_rows=real, frames=rows * frames)
         p = self.model.cfg.encoder.patch_size
-        with profiling.span("engine.device_batch", rows=rows, real=real,
+        with profiling.span("engine.device_batch", rows=rows, real=real, frames=frames,
                             grid=(imgs.shape[-3] // p, imgs.shape[-2] // p),
                             prefix=pref.shape[1]):
             if self.mesh is not None:
@@ -597,24 +618,42 @@ class CaptionEngine(object):
         prefixes of one call share one length.  Returns a handle for
         `resolve`."""
         with profiling.span("engine.dispatch", items=len(images)):
-            groups = collections.defaultdict(list)
-            for i, a in enumerate(images):
-                if a.ndim != 3:
-                    raise ValueError("dispatch_varshape takes images [H, W, 3], got {}".format(
-                        a.shape))
-                groups[self.whole_patches(a)].append(i)
-            dispatched = []
-            for (h, w), idxs in sorted(groups.items()):
-                seqs = self._dispatch_batch([images[i][:h, :w] for i in idxs],
-                                            [prefixes[i] for i in idxs])
-                dispatched.append((idxs, seqs))
-            return len(images), dispatched
+            if any(a.ndim != 3 for a in images):
+                raise ValueError("dispatch_varshape takes images [H, W, 3], got {}".format(
+                    sorted({a.shape for a in images if a.ndim != 3})))
+            return len(images), self._dispatch_grouped(images, prefixes)
+
+    def dispatch_clips(self, clips: List[np.ndarray], prefixes: List[List[int]]):
+        """Run generation over clips [F, H, W, 3] of varying frame counts
+        or frame shapes: each cut to whole patches and grouped into
+        (frames, grid) buckets, one batch program each, as
+        `dispatch_varshape` groups images.  The prefixes of one call share
+        one length.  Returns a handle for `resolve`."""
+        with profiling.span("engine.dispatch", items=len(clips)):
+            if any(a.ndim != 4 for a in clips):
+                raise ValueError("dispatch_clips takes clips [F, H, W, 3], got {}".format(
+                    sorted({a.shape for a in clips if a.ndim != 4})))
+            return len(clips), self._dispatch_grouped(clips, prefixes)
+
+    def _dispatch_grouped(self, items, prefixes):
+        """Items of one rank cut to whole patches and grouped by (frames,
+        grid), in the key's order: [(indices, device sequences)]."""
+        groups = collections.defaultdict(list)
+        for i, a in enumerate(items):
+            groups[a.shape[:-3] + self.whole_patches(a)].append(i)
+        dispatched = []
+        for key, idxs in sorted(groups.items()):
+            h, w = key[-2:]
+            seqs = self._dispatch_batch([items[i][..., :h, :w, :] for i in idxs],
+                                        [prefixes[i] for i in idxs])
+            dispatched.append((idxs, seqs))
+        return dispatched
 
     def whole_patches(self, image: np.ndarray) -> Tuple[int, int]:
-        """(H, W) of an image [H, W, 3] cut to whole patches: the exact grid
-        `dispatch_varshape` batches it at."""
+        """(H, W) of an image [H, W, 3] (or of a clip's frames) cut to whole
+        patches: the exact grid `dispatch_varshape` batches it at."""
         p = self.model.cfg.encoder.patch_size
-        return (image.shape[0] // p) * p, (image.shape[1] // p) * p
+        return (image.shape[-3] // p) * p, (image.shape[-2] // p) * p
 
     def to_host(self, seqs) -> np.ndarray:
         """Device sequences -> a numpy array: the one place where the
@@ -662,7 +701,6 @@ class CaptionEngine(object):
         if not self.use_native:
             return [self._decode_row(p) for p in payloads]
         from .. import native
-        from ..preprocess.transforms import center_crop, min_max_resize, resize_shorter
 
         raw = [p.encode() if isinstance(p, str) else p for p in payloads]
         crop = self.transform.crop_size
@@ -678,40 +716,105 @@ class CaptionEngine(object):
                 out.append(arr)
                 continue
             img = image_from_base64(payloads[i])
-            if img is None:
-                out.append(None)
-            elif ratio_max is not None:
-                out.append(np.asarray(min_max_resize(img, crop, ratio_max), np.uint8))
-            else:
-                out.append(np.asarray(center_crop(resize_shorter(img, crop), crop), np.uint8))
+            out.append(None if img is None else uint8_frame(img, crop, ratio_max))
         return out
 
-    def _prefetched_chunks(self, image_tsv, idxs, granule, depth=2):
+    def _decode_frames(self, payloads):
+        """Decode a clip part's base64 frames: uint8 arrays at the
+        transform's crop (normalised on the device, as the native loader's
+        are), None for a frame that does not decode.  With the native
+        loader as `_decode_chunk`; else with PIL in `decode_workers`
+        processes of their own (spawned at the first call), since PIL's
+        JPEG decode holds the interpreter lock: six frames an item decoded
+        on threads would starve the thread that enqueues the card's work."""
+        if self.use_native:
+            return self._decode_chunk(payloads)
+        with self._frame_lock:
+            if not self._frame_procs:
+                # each process imports PIL before it takes a part, so that a
+                # part waits for the first process free, not for an import
+                self._frame_procs.append(ProcessPoolExecutor(
+                    self.decode_workers, mp_context=multiprocessing.get_context("spawn"),
+                    initializer=pil_image))
+            procs = self._frame_procs[0]
+        return procs.submit(decode_uint8, payloads, self.transform.crop_size,
+                            getattr(self.transform, "respect_ratio_max", None)).result()
+
+    def _decode_clips(self, rows, frames):
+        """Decode TSV rows (key, payload) of clips, each payload a JSON list
+        of base64 frames in time order, of which the first `frames` are
+        kept, as `GitModel.encode_images` keeps them.  Returns (a clip
+        [f, H, W, 3] a row, None for a row whose frames do not all decode;
+        the frames decoded).  A payload that is not a list of frames
+        raises, naming its row."""
+        clips = []
+        for key, payload in rows:
+            try:
+                clip = json.loads(payload)
+            except ValueError:
+                clip = None
+            if not isinstance(clip, list) or not clip \
+                    or not all(isinstance(b, str) for b in clip):
+                raise ValueError("TSV row {!r}: a video model's row is a JSON list of base64 "
+                                 "frames".format(key))
+            clips.append(clip[:frames])
+        flat = self._decode_frames([b for clip in clips for b in clip])
+        out, at = [], 0
+        for (key, _), clip in zip(rows, clips):
+            got, at = flat[at:at + len(clip)], at + len(clip)
+            if any(a is None for a in got):
+                out.append(None)
+            elif len({a.shape for a in got}) > 1:
+                raise ValueError("TSV row {!r}: a clip's frames decode to one shape, got "
+                                 "{}".format(key, sorted({a.shape for a in got})))
+            else:
+                out.append(np.stack(got))
+        return out, len(flat)
+
+    def _prefetched_chunks(self, image_tsv, idxs, granule, depth=2, clips=0):
         """Iterate (chunk_row_indices, decoded_arrays) with `depth` chunks
         of host decode in flight on the thread pool while the device runs:
         the host stage of both TSV loops.  Each chunk's `decode.chunk` span
         (on the pool) and the `tsv.pool_wait` that waited for it share its
-        chunk id; reading a chunk's payloads is `tsv.assemble`."""
+        chunk id; reading a chunk's payloads is `tsv.assemble`.  clips:
+        F > 0 reads each row as a clip of at most F frames
+        (`_decode_clips`) and splits each chunk's rows over the pool's
+        `decode_workers`, one part a thread, so that a device batch's
+        frames decode at once (each thread handing its part's frames to a
+        process, `_decode_frames`); each part is a chunk of the spans."""
         chunks = [idxs[i:i + granule] for i in range(0, len(idxs), granule)]
         futures = collections.deque()
+        parts = self.decode_workers if clips else 1
 
-        def decode(chunk, payloads):
-            with profiling.span("decode.chunk", chunk=chunk, rows=len(payloads)):
-                return self._decode_chunk(payloads)
+        def decode(chunk, rows):
+            with profiling.span("decode.chunk", chunk=chunk, rows=len(rows)) as s:
+                if not clips:
+                    s.set(frames=len(rows))
+                    return self._decode_chunk(rows)
+                out, n = self._decode_clips(rows, clips)
+                s.set(frames=n)
+                return out
 
         def submit(batch_idxs):
-            chunk = next(_chunk_ids)
-            with profiling.span("tsv.assemble", items=len(batch_idxs), chunk=chunk):
-                payloads = [image_tsv[j][1] for j in batch_idxs]
-            futures.append((batch_idxs, chunk, self.pool.submit(decode, chunk, payloads)))
+            per = -(-len(batch_idxs) // parts)
+            tasks = []
+            for at in range(0, len(batch_idxs), per):
+                part = batch_idxs[at:at + per]
+                chunk = next(_chunk_ids)
+                with profiling.span("tsv.assemble", items=len(part), chunk=chunk):
+                    rows = [image_tsv[j] if clips else image_tsv[j][1] for j in part]
+                tasks.append((chunk, self.pool.submit(decode, chunk, rows)))
+            futures.append((batch_idxs, tasks))
 
         for c in chunks[:depth]:
             submit(c)
         ci = depth
         while futures:
-            batch_idxs, chunk, fut = futures.popleft()
-            with profiling.span("tsv.pool_wait", chunk=chunk):
-                decoded = fut.result()
+            batch_idxs, tasks = futures.popleft()
+            decoded = []
+            for chunk, fut in tasks:
+                with profiling.span("tsv.pool_wait", chunk=chunk):
+                    decoded += fut.result()
             if ci < len(chunks):
                 submit(chunks[ci])
                 ci += 1
@@ -725,13 +828,18 @@ class CaptionEngine(object):
     # -- TSV caption pipeline ---------------------------------------------
     def run_caption_tsv(self, image_tsv_path, out_tsv, rank=0, world_size=1):
         """Caption every decodable row of this rank's shard of a base64
-        image TSV; rows that do not decode are dropped."""
+        image TSV; rows that do not decode are dropped.  With a video
+        model (`num_image_with_embedding` F > 0) a row is a clip: its
+        payload a JSON list of base64 frames in time order, of which the
+        first F are captioned; a row whose frames do not all decode is
+        dropped, and one that is not such a list raises, naming the row."""
         self._require_transform()
         image_tsv = TSVFile(image_tsv_path)
         start, end = shard_range(len(image_tsv), rank, world_size)
         cur_out = ("{}.{}.{}.tsv".format(out_tsv, rank, world_size)
                    if world_size > 1 else out_tsv)
         cls = self.tokenizer.cls_token_id
+        frames = self.model.cfg.num_image_with_embedding
 
         def written(pending):
             # the writer's time between this loop's yields is `tsv.write`
@@ -747,15 +855,15 @@ class CaptionEngine(object):
             # this chunk || detokenization of the previous one (this thread)
             pending = None  # (keys, dispatch handle)
             for batch_idxs, decoded in self._prefetched_chunks(image_tsv, idxs,
-                                                               self.batch_size):
+                                                               self.batch_size, clips=frames):
                 with profiling.span("tsv.assemble", items=len(batch_idxs)):
                     arrs, keys = [], []
                     for j, a in zip(batch_idxs, decoded):
                         if a is not None:
                             arrs.append(a)
                             keys.append(image_tsv.get_key(j))
-                handle = (self.dispatch_varshape(arrs, [[cls]] * len(arrs))
-                          if arrs else None)
+                dispatch = self.dispatch_clips if frames else self.dispatch_varshape
+                handle = dispatch(arrs, [[cls]] * len(arrs)) if arrs else None
                 if pending is not None:
                     yield from written(pending)
                 pending = (keys, handle) if handle is not None else None

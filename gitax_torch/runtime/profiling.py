@@ -32,10 +32,10 @@ Never inside a stream capture (a conditional graph's body holds only what
 its step launches), so a span under capture keeps its host times only.
 
 Counters.  `count(name=n)` adds to a plain integer whether spans are on or
-off; `counters()` returns them (rows dispatched and real, graph captures
-and their seconds, evictions, upload waits, device spans lost, the VQA
-loop's full and flushed buckets) with the records made and those the ring
-dropped.
+off; `counters()` returns them (rows dispatched and real, their frames,
+graph captures and their seconds, evictions, upload waits, device spans
+lost, the VQA loop's full and flushed buckets) with the records made and
+those the ring dropped.
 
 Spans are on unless GITAX_TORCH_SPANS=0 (read at import; then `span` is
 one flag test and returns a shared no-op).
@@ -105,8 +105,9 @@ _pending = {}  # device spans not read yet, in the order they ended
 _lib = _slots = _owner = _launch = _raw_stream = _device = _capturing = None
 _seq = itertools.count(1)  # stamp numbers; stamp s writes slot s % SLOTS
 _count_lock = threading.Lock()
-_counts = {"rows": 0, "real_rows": 0, "captures": 0, "capture_s": 0.0, "evictions": 0,
-           "upload_waits": 0, "lost": 0, "full_buckets": 0, "flushed_buckets": 0}
+_counts = {"rows": 0, "real_rows": 0, "frames": 0, "captures": 0, "capture_s": 0.0,
+           "evictions": 0, "upload_waits": 0, "lost": 0, "full_buckets": 0,
+           "flushed_buckets": 0}
 
 
 def count(**n):
@@ -118,8 +119,9 @@ def count(**n):
 
 
 def counters():
-    """The process's counters: {rows, real_rows, captures, capture_s,
-    evictions, upload_waits, lost (device spans whose stamps were not
+    """The process's counters: {rows, real_rows, frames (the rows'
+    frames: F a clip, 1 an image), captures, capture_s, evictions,
+    upload_waits, lost (device spans whose stamps were not
     read), full_buckets and flushed_buckets (the VQA loop's device
     batches dispatched because their bucket filled, and by its pass-end
     flush), records (made), dropped (by the ring)}."""

@@ -3,7 +3,8 @@ a tiny model): the span tree and its attributes for one `run_caption_tsv`
 and one `run_vqa_tsv` pass, the feeding thread's top-level spans covering
 each loop's wall time, real and padded rows equal to the batches', the
 recorder switched off (no span, the counters still counting), the ring's
-bound, threads that lose no count and no span, `trace()`'s trace.json
+bound, threads that lose no count and no span, the frames an item
+(one an image, F a clip) on the spans and the counters, `trace()`'s trace.json
 holding the spans of its block on the profiler's clock, and the device
 spans' stamps, counters, slot ring and placement on a trace, on stand-ins
 for the card."""
@@ -12,6 +13,7 @@ import base64
 import collections
 import contextlib
 import ctypes
+import dataclasses
 import io
 import itertools
 import json
@@ -186,6 +188,62 @@ def test_off_records_no_span_and_still_counts(model, tmp_path, monkeypatch):
         s.counter("steps", torch.zeros((), dtype=torch.int64))
     profiling.mark("y")
     assert profiling.spans() == []
+
+
+@pytest.mark.parametrize("loop", ["caption", "vqa"])
+def test_image_passes_carry_one_frame(model, tmp_path, loop):
+    """The image loops' spans and counters count one frame an image:
+    `frames` on `decode.chunk` (its rows), `engine.device_batch` and
+    `model.encode` (1), `images` on `model.encode` (the batch's rows), and
+    the `frames` counter equal to the rows dispatched."""
+    img_tsv, q_tsv = write_tsvs(tmp_path)
+    out = str(tmp_path / "out.tsv")
+    if loop == "caption":
+        with engine(model, crop_size=32) as eng:
+            records, _, counts = run_pass(lambda: eng.run_caption_tsv(img_tsv, out))
+    else:
+        with engine(model, crop_size=32, respect_ratio_max=48) as eng:
+            records, _, counts = run_pass(lambda: eng.run_vqa_tsv(img_tsv, q_tsv, out))
+    chunks = [r for r in records if r.name == "decode.chunk"]
+    assert chunks and all(r.attrs["frames"] == r.attrs["rows"] for r in chunks)
+    batches = [r for r in records if r.name == "engine.device_batch"]
+    assert batches and all(b.attrs["frames"] == 1 for b in batches)
+    encodes = [r for r in records if r.name == "model.encode"]
+    assert len(encodes) == len(batches)
+    assert all(e.attrs["frames"] == 1 and e.attrs["images"] == BATCH for e in encodes)
+    assert counts["frames"] == counts["rows"] == len(batches) * BATCH
+
+
+def test_a_clip_pass_carries_its_frames(tmp_path):
+    """A video model's caption pass (2 frames a clip, 32 px): `frames` on
+    `decode.chunk` (the frames of its clips), on `engine.device_batch` and
+    `model.encode` (2), `images` on `model.encode` (rows x 2), the memory's
+    `tokens` 2 x S, and the `frames` counter 2 a row dispatched."""
+    cfg = dataclasses.replace(TINY, num_image_with_embedding=2)
+    m = GitModel(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
+    eos_gate_(m, gate=4)
+    rows = []
+    for i in range(4):
+        frames = []
+        for j in range(2):
+            buf = io.BytesIO()
+            Image.fromarray(np.random.RandomState(10 * i + j).randint(0, 255, (40, 36, 3),
+                                                                      np.uint8)).save(buf, "PNG")
+            frames.append(base64.b64encode(buf.getvalue()).decode("ascii"))
+        rows.append(["c{}".format(i), json.dumps(frames)])
+    path = str(tmp_path / "clips.tsv")
+    tsv_writer(rows, path)
+    with engine(m, crop_size=32) as eng:
+        records, _, counts = run_pass(lambda: eng.run_caption_tsv(path, str(tmp_path / "o.tsv")))
+    chunks = [r for r in records if r.name == "decode.chunk"]
+    assert sum(r.attrs["rows"] for r in chunks) == 4
+    assert all(r.attrs["frames"] == 2 * r.attrs["rows"] for r in chunks)
+    batches = [r for r in records if r.name == "engine.device_batch"]
+    assert [(b.attrs["frames"], b.attrs["real"]) for b in batches] == [(2, 3), (2, 1)]
+    encodes = [r for r in records if r.name == "model.encode"]
+    assert [(e.attrs["frames"], e.attrs["images"], e.attrs["tokens"]) for e in encodes] \
+        == [(2, 2 * BATCH, 2 * 5)] * 2
+    assert counts["frames"] == 2 * counts["rows"] == 2 * 2 * BATCH
 
 
 def test_the_ring_is_bounded():
