@@ -208,9 +208,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      phase 5) writes a Chrome trace that names kernel 1 and holds the
      port's spans on the kernels' timebase (`check_trace_spans`): each
      `model.encode` span holds the launch of the first kernel after its
-     start (and a layer's worth of launches) and its device span that
-     kernel, and the opening marker's launch lies within 0.2 ms of the
-     host time taken before it.
+     start (and a layer's worth of kernels' launches: the encoder's graph
+     launch, its key cached by phase 5) and its device span that kernel,
+     and the opening marker's launch lies within 0.2 ms of the host time
+     taken before it.
  30. the CLIP towers: RN50 at its published widths (layers (3, 4, 6, 3),
      width 64, heads 32, output 1024, 224 px) and its text tower (width
      512, 8 heads, 12 layers, context 77, vocab 49408), random weights
@@ -273,6 +274,20 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      0's device busy share and host launches, dispatch's host ms against
      the batch's device ms with no synchronising call; (d) VQA (30x40,
      [CLS]+13) the same: pairs/s; each rank's peak memory.
+ 36. the encoder's graph (`GitModel.encode_images` on a card in
+     inference replays its body from a CUDA graph a batch shape,
+     `decode.device_loop.encode`), against the eager body at full size:
+     (a) COCO at 224 px, VQA at 30x40 with kernel 2 forced on, and 6-frame
+     clips, 32 rows, bf16 and f32, 4 calls each (a capture, then hits on
+     the rows reversed, rolled and as first): outputs equal bit for bit,
+     encode_captures 1 and encode_replays 3, kernel 2's launches equal on
+     both paths; (b) f32 tokens and scores of
+     `generate` on 8 rows (COCO, VQA) with the encoder's graph = with the
+     eager body; (c) bf16 host and device ms of the `model.encode` span
+     on each path; (d) one VQA model's graphs at vqa.tsv's five grids in
+     the pool they share, each replayed after the others wrote it, bit
+     for bit against the eager body, and the reserved memory the five
+     keep.  `--phase 36` runs it alone (with the build).
 Every wait of phase 23 on its group (the group's start, each run, its
 close) has a deadline (P23_DEADLINE_S): past it every rank prints its
 Python stack, the spawned ranks are killed and the phase fails.
@@ -1168,14 +1183,16 @@ def phase_coco_slice(card, cpu_model, tok, trace_dir):
     return launches, images, 96 / seconds, step_ms
 
 
-LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+            "cudaGraphLaunch", "cuGraphLaunch")  # a graph's kernels share its launch's correlation
 
 
 def check_trace_spans(events, layers):
     """Phase 29's reading of the port's spans in `profiling.trace`'s
     trace.json: the spans are there; each `model.encode` host span holds
     the launch (a runtime event) of the first kernel launched after its
-    start, its stamps aside, and at least `layers` launches; the opening
+    start, its stamps aside, and launches of at least `layers` kernels
+    (one by one, or by the launch of the encoder's graph); the opening
     marker's launch lies within 0.2 ms of the host time taken before it
     (the `trace.open` mark); each encode's device span, placed by its
     stamp kernels, holds that first kernel on the card.  Logs both, and the
@@ -1187,7 +1204,10 @@ def check_trace_spans(events, layers):
     want = {"engine.dispatch", "engine.device_batch", "engine.upload", "model.encode",
             "model.prefill", "search.launch", "engine.resolve", "engine.to_host", "trace.open"}
     check(want <= names, "the trace lacks the spans {}".format(sorted(want - names)))
-    kernels = {e["args"].get("correlation"): e for e in events if e.get("cat") == "kernel"}
+    kernels, per_launch = {}, collections.Counter()  # the first kernel of each launch, and count
+    for e in sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"]):
+        kernels.setdefault(e["args"].get("correlation"), e)
+        per_launch[e["args"].get("correlation")] += 1
     # the device spans' own stamps (`csrc/span_clock.cu`) are not the model's kernels
     launches = sorted((e for e in events if e.get("name") in LAUNCHES and profiling.STAMP not in
                        kernels.get(e["args"].get("correlation"), {}).get("name", "")),
@@ -1198,10 +1218,11 @@ def check_trace_spans(events, layers):
     for e in encodes:
         a, b = e["ts"], e["ts"] + e["dur"]
         first = next((x for x in launches if x["ts"] >= a), None)
-        inside = sum(1 for x in launches if a <= x["ts"] <= b)
+        inside = sum(per_launch[x["args"].get("correlation")] for x in launches
+                     if a <= x["ts"] <= b)
         check(first is not None and first["ts"] <= b and inside >= layers,
-              "model.encode [{:.1f}, {:.1f}] us: its first launch at {} and {} launches inside "
-              "it".format(a, b, first and first["ts"], inside))
+              "model.encode [{:.1f}, {:.1f}] us: its first launch at {} and {} kernels launched "
+              "inside it".format(a, b, first and first["ts"], inside))
         kernel = kernels.get(first["args"].get("correlation"))
         dev = [d for d in mine if d.get("cat") == "gitax_torch_device"
                and d["args"]["id"] == e["args"]["id"]]
@@ -1209,9 +1230,10 @@ def check_trace_spans(events, layers):
         check(dev and kernel and dev[0]["ts"] <= kernel["ts"] <= dev[0]["ts"] + dev[0]["dur"],
               "model.encode's device span {} does not hold its first kernel {}".format(
                   dev and (dev[0]["ts"], dev[0]["dur"]), kernel and kernel["ts"]))
-        log("trace: model.encode host [{:.1f}, {:.1f}] us holds its first launch at +{:.1f} us "
-            "and {} launches; its first kernel on the card at {}, its device span from {}".format(
-                a, b, first["ts"] - a, inside, kernel and round(kernel["ts"] - a, 1),
+        log("trace: model.encode host [{:.1f}, {:.1f}] us holds its first launch ({}) at +{:.1f} "
+            "us and {} kernels' launches; its first kernel on the card at {}, its device span "
+            "from {}".format(
+                a, b, first["name"], first["ts"] - a, inside, kernel and round(kernel["ts"] - a, 1),
                 dev and round(dev[0]["ts"] - a, 1)))
     opened = [e for e in mine if e["name"] == "trace.open"]
     marker = [e for e in events if e.get("cat") == "kernel" and "spin_kernel" in e.get("name", "")]
@@ -6626,6 +6648,210 @@ def p35_tp_loop(card, group, work, seed, want, coco, coco_tok, coco_items, coco_
                       "vqa_rate": vqa_rate, "kernels": kernels}
 
 
+# ---------------------------------------------------------------------------
+# 36. the encoder replayed from a CUDA graph
+# ---------------------------------------------------------------------------
+
+P36_CASES = (("COCO 224 px", "coco", (224, 224), 0, None),
+             ("VQA 30x40", "vqa", (420, 560), 0, True),  # kernel 2 on in both dtypes
+             ("clips 6 x 224 px", "video", (224, 224), FRAMES, None))
+P36_ROWS = 32
+P36_REPS = 5  # (c): timed calls of `build_memory` on each path
+P36_TOKEN_ROWS = 8  # (b): f32 rows through generate
+
+
+def p36_inputs(size, frames, dtype, seed):
+    """Four batches of P36_ROWS normalised-range images (or clips of
+    `frames`) on the card, the calls of each path (the graph's capture,
+    then its hits): one draw, then its rows reversed, rolled by one, and
+    the first again."""
+    import torch
+
+    shape = (P36_ROWS,) + ((frames,) if frames else ()) + tuple(size) + (3,)
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(seed)).to("cuda", dtype)
+    return [x, x.flip(0), x.roll(1, 0), x]
+
+
+def p36_eager(model):
+    """Point the model's `encode_images` at its eager body (undo: `del
+    model.encode_images`)."""
+    def encode_images(images, dtype, fast=None, flash=None, remat=False):
+        return model._encode(images, dtype, fast, flash, remat)
+
+    model.encode_images = encode_images
+
+
+def p36_parity(label, model, xs, dtype, flash):
+    """(a) The graph path's outputs against the eager body's, bit for bit;
+    the encoder's counters (one capture, then hits); kernel 2's launches
+    equal on both paths; the memory the graph keeps."""
+    import torch
+
+    from gitax_torch.ops import flash_attention as fa
+    from gitax_torch.runtime import profiling
+
+    torch.cuda.synchronize()
+    c0, f0 = profiling.counters(), fa.launches
+    held0, reserved0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    with torch.inference_mode():
+        graph = [model.encode_images(x, dtype, flash=flash) for x in xs]
+    torch.cuda.synchronize()
+    c1, f1 = profiling.counters(), fa.launches
+    held = torch.cuda.memory_allocated() - held0 - sum(g.numel() * g.element_size()
+                                                       for g in graph)
+    reserved = torch.cuda.memory_reserved() - reserved0
+    with torch.inference_mode():
+        eager = [model._encode(x, dtype, None, flash) for x in xs]
+    torch.cuda.synchronize()
+    f2 = fa.launches
+    caps = c1["encode_captures"] - c0["encode_captures"]
+    hits = c1["encode_replays"] - c0["encode_replays"]
+    check(caps == 1 and hits == len(xs) - 1, "{}: encode_captures {} and encode_replays {} over "
+          "{} calls of one key".format(label, caps, hits, len(xs)))
+    for i, (a, b) in enumerate(zip(graph, eager)):
+        check(torch.equal(a, b), "{}: call {}'s graph output differs from the eager body's by "
+              "{}".format(label, i, (a.float() - b.float()).abs().max().item()))
+    check(f1 - f0 == f2 - f1, "{}: kernel 2's launches {} on the graph path, {} on the eager "
+          "path".format(label, f1 - f0, f2 - f1))
+    log("encoder graph (a) {} {}: {} calls, graph = eager body bit for bit, encode_captures {} "
+        "encode_replays {}; flash_attention launches {} eager, {} graph; the graph keeps {:.1f} "
+        "MiB allocated (its static input and output), reserved memory {:+.1f} MiB (its pool, "
+        "less what the capture's empty_cache returned)".format(
+            label, str(dtype).replace("torch.", ""), len(xs), caps, hits, f2 - f1, f1 - f0,
+            held / 2**20, reserved / 2**20))
+
+
+def p36_timed(label, card, model, x, dtype, flash):
+    """(c) The `model.encode` span of `build_memory` on each path, graph
+    first (its key cached), each call after a drained card: host ms and
+    device ms (its stamps), medians of P36_REPS."""
+    import torch
+
+    from gitax_torch.runtime import profiling
+
+    rows = {}
+    for path in ("graph", "eager", "eager", "graph"):
+        if path == "eager":
+            p36_eager(model)
+        try:
+            profiling.clear()
+            for _ in range(P36_REPS):
+                torch.cuda.synchronize()
+                with torch.inference_mode():
+                    model.build_memory(x, dtype=dtype, flash=flash)
+            torch.cuda.synchronize()
+            recs = [r for r in profiling.spans() if r.name == "model.encode"]
+        finally:
+            if path == "eager":
+                del model.encode_images
+        rows.setdefault(path, []).extend(recs)
+    med = {}
+    for path, recs in rows.items():
+        host = sorted((r.t1 - r.t0) / 1e6 for r in recs)
+        dev = sorted(r.device_ms for r in recs if r.device_ms is not None)
+        med[path] = (host[len(host) // 2], dev[len(dev) // 2] if dev else float("nan"))
+    log("encoder graph (c) {} {}: model.encode host ms {:.3f} graph, {:.3f} eager; device ms "
+        "{:.3f} graph, {:.3f} eager (medians of {} calls each, in turns graph, eager, eager, "
+        "graph) [{}]".format(label, str(dtype).replace("torch.", ""), med["graph"][0],
+                             med["eager"][0], med["graph"][1], med["eager"][1], 2 * P36_REPS,
+                             card))
+    return med
+
+
+def p36_tokens(label, model, x, flash):
+    """(b) f32 tokens of `generate` with the encoder on the graph path
+    (a cached key) against the eager body."""
+    import torch
+
+    from gitax_torch.decode.beam import BeamSearchConfig
+
+    beam = BeamSearchConfig(num_beams=4, max_steps=24)
+    x = x[:P36_TOKEN_ROWS]
+    model.generate(x, beam=beam, flash=flash)
+    graph = model.generate(x, beam=beam, flash=flash)
+    p36_eager(model)
+    try:
+        eager = model.generate(x, beam=beam, flash=flash)
+    finally:
+        del model.encode_images
+    check(torch.equal(graph[0], eager[0]) and torch.equal(graph[1], eager[1]),
+          "{}: f32 generate with the encoder's graph differs from the eager encoder's".format(
+              label))
+    log("encoder graph (b) {} f32: generate's tokens and scores with the encoder's graph = the "
+        "eager encoder's on {} rows".format(label, x.shape[0]))
+
+
+# (d): vqa.tsv's five MinMax grids (30x40, 40x30, 26x40, 30x30, 22x40 patches)
+P36_GRIDS = ((420, 560), (560, 420), (364, 560), (420, 420), (308, 560))
+
+
+def p36_shared(card, model, seed):
+    """(d) One model's graphs at P36_GRIDS in bf16, in the one pool they
+    share: each captured in turn, then each replayed in the reverse order
+    (so every graph runs after others wrote the pool), against the eager
+    body bit for bit; the reserved memory the five keep."""
+    import torch
+
+    from gitax_torch.runtime import profiling
+
+    dtype = torch.bfloat16
+    g = torch.Generator().manual_seed(seed)
+    xs = [torch.randn((P36_ROWS,) + size + (3,), generator=g).to("cuda", dtype)
+          for size in P36_GRIDS]
+    torch.cuda.synchronize()
+    c0, reserved0 = profiling.counters(), torch.cuda.memory_reserved()
+    with torch.inference_mode():
+        first = [model.encode_images(x, dtype) for x in xs]
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved() - reserved0
+        again = [model.encode_images(x, dtype) for x in xs[::-1]][::-1]
+        eager = [model._encode(x, dtype, None, None) for x in xs]
+    torch.cuda.synchronize()
+    c1 = profiling.counters()
+    caps = c1["encode_captures"] - c0["encode_captures"]
+    hits = c1["encode_replays"] - c0["encode_replays"]
+    check(caps == len(xs) and hits == len(xs), "shared pool: encode_captures {} and "
+          "encode_replays {} over {} keys called twice".format(caps, hits, len(xs)))
+    for size, a, b, e in zip(P36_GRIDS, first, again, eager):
+        check(torch.equal(a, e) and torch.equal(b, e), "shared pool: the graph at {} differs "
+              "from the eager body by {} (captured), {} (replayed after the others)".format(
+                  size, (a.float() - e.float()).abs().max().item(),
+                  (b.float() - e.float()).abs().max().item()))
+    log("encoder graph (d) VQA bfloat16, {} grids in one model's shared pool: each captured, "
+        "then replayed after the others, = the eager body bit for bit; reserved memory "
+        "{:+.1f} MiB for the {} graphs [{}]".format(len(xs), reserved / 2**20, len(xs), card))
+
+
+def phase_encoder_graph(card, models, seed):
+    """36. The encoder replayed from a CUDA graph (`GitModel.encode_images`
+    through `decode.device_loop.encode`) against its eager body on the
+    card, at full size: (a) each of P36_CASES in bf16 and f32, outputs bit
+    for bit, the counters, kernel 2's launches; (b) f32 tokens of
+    `generate` (COCO, VQA); (c) bf16 host and device ms of `model.encode`
+    on each path; (d) five grids' graphs in one shared pool.  models: {'coco', 'vqa', 'video': CPU models}."""
+    import torch
+
+    t0 = time.perf_counter()
+    for label, name, size, frames, flash in P36_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            model = build_model("cuda", dtype, models[name])
+            xs = p36_inputs(size, frames, dtype, seed)
+            p36_parity(label, model, xs, dtype, flash)
+            if dtype == torch.bfloat16:
+                p36_timed(label, card, model, xs[0], dtype, flash)
+            elif not frames:
+                p36_tokens(label, model, xs[0], flash)
+            del model, xs
+            gc.collect()
+            torch.cuda.empty_cache()
+    model = build_model("cuda", torch.bfloat16, models["vqa"])
+    p36_shared(card, model, seed)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 36 (the encoder's graph) {:.1f} s".format(time.perf_counter() - t0))
+
+
 def mesh_phase_alone(card, seed):
     """`python3 chip_smoke.py --phase 23`: phase 23 alone, inference on a
     mesh with phase 35 inside it (the device-side search on a [1, 2] model
@@ -6661,7 +6887,7 @@ def mesh_phase_alone(card, seed):
     shutil.rmtree(work)
 
 
-USAGE = "usage: python3 chip_smoke.py [--profile] [--seed N] [--phase 23]"
+USAGE = "usage: python3 chip_smoke.py [--profile] [--seed N] [--phase 23|36]"
 
 
 def main(argv):
@@ -6680,7 +6906,7 @@ def main(argv):
         else:
             phase = int(args[1])
         args = args[2:]
-    check(phase in (None, 23), USAGE)
+    check(phase in (None, 23, 36), USAGE)
     check(os.path.isdir(os.path.join(ROOT, "gitax_torch")),
           "gitax_torch/ not found beside chip_smoke.py")
     check(torch.cuda.is_available(), "no CUDA device")
@@ -6692,8 +6918,13 @@ def main(argv):
         card, torch.__version__, torch.version.cuda, torch.cuda.device_count()))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if phase == 23:
-        mesh_phase_alone(card, seed)
+    if phase in (23, 36):
+        if phase == 23:
+            mesh_phase_alone(card, seed)
+        else:
+            phase_build(card)
+            phase_encoder_graph(card, {"coco": coco_model(), "vqa": vqa_model(),
+                                       "video": video_model(seed=2)}, seed)
         log(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
@@ -6772,7 +7003,12 @@ def main(argv):
     del model, engine
     torch.cuda.empty_cache()
     phase_video_f32_parity(video, clips, beam)
-    del video, clips
+    del clips
+    torch.cuda.empty_cache()
+
+    # 36: the encoder's graph against its eager body
+    phase_encoder_graph(card, {"coco": coco_model(), "vqa": vqa_model(), "video": video}, seed)
+    del video
     torch.cuda.empty_cache()
 
     # 20: text context

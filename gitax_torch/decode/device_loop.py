@@ -87,6 +87,31 @@ pair up (`GitModel._search_run`).  A failed capture raises there as
 anywhere: a rank that fell back to the eager loop would leave the
 others' collectives unpaired.
 
+The encoder (`encode`): the body of `GitModel.encode_images` on a card
+in inference, which eagerly enqueues some 60 small kernels a ViT-L
+block, is one CUDA graph a key: the caller's key (the activation dtype,
+`fast` and `flash` as resolved) with the input's shape and dtype and
+TF32's switch.  A miss copies the input into a static one, runs the body
+once eagerly on the side stream (the warm-up), captures it there (a
+`model.encode_capture` span), then replays it; a hit copies the input in
+and replays.  Either returns a clone of the static output, made before
+the lock is let go: an owner's encoder graphs share one memory pool, so
+the next replay of any of them may write where this one's output lies.
+At most MAX_ENCODER_GRAPHS an owner, least recently used first out; a
+full cache evicts for a miss only once it has replayed
+ENCODER_REPLAYS_A_CAPTURE times since its last capture, and runs other
+misses eagerly, so traffic of more keys than the bound captures at a
+bounded rate and does not thrash.  A call that sees the encoder's
+weights (the image encoder's and the clips' temporal embeddings'
+addresses) elsewhere than the cache's drops the cache.  Counted in
+`profiling.counters()` as encode_captures, encode_replays (hits),
+encode_evictions and encode_eager (misses run eagerly), apart from the
+search's captures and evictions.  The launches the warm-up and the
+capture counted are taken back, and the capture's are added at each
+replay, so the wrappers' counts (kernel 2's, the w8a8 encoder's) count
+each call's launches as the eager body does (the warm-up's kernels run
+uncounted, once a key).
+
 The eager loop (`run_eager`, one host read a step) serves CPU tensors,
 gloo model groups (a gloo all-reduce is a host round trip, which a
 graph cannot capture) and the reference the graph is held against;
@@ -110,6 +135,12 @@ import torch
 from ..runtime import profiling
 
 MAX_GRAPHS = 32
+# an owner's encoder graphs, one a batch shape (vqa.tsv's five MinMax grids)
+MAX_ENCODER_GRAPHS = 8
+# a full encoder cache evicts for a new key only after this many replays
+# since its last capture: traffic of more keys (a VQA server's buckets x
+# grids) runs its other keys eagerly rather than capturing at every miss
+ENCODER_REPLAYS_A_CAPTURE = 64
 
 # every run, capture and settle, one at a time (the host side of a run is
 # short: copies and replays enqueued)
@@ -121,25 +152,35 @@ _LIVE = weakref.WeakSet()
 # owner -> its StepGraphs by key, least recently used first (not an
 # attribute of the owner: a copy of the model does not copy its graphs)
 _GRAPHS = weakref.WeakKeyDictionary()
+# owner -> its _EncoderCache
+_ENCODERS = weakref.WeakKeyDictionary()
 
 
 def _counts(owner):
-    """The launch counts of the kernel wrappers a step can reach, and the
-    owner's decode_step_calls."""
-    from ..ops import vocab_topk
+    """The launch counts of the kernel wrappers a step or an encoder call
+    can reach (kernels 1-3 and the w8a8 encoder's two), and the owner's
+    decode_step_calls."""
+    from ..ops import flash_attention, vocab_topk
     from ..ops.decode_attention import decode_attention
+    from ..ops.int8_dynamic import quantize_rows, scale_rows
 
     return {"decode_attention": decode_attention.launches, "vocab_topk": vocab_topk.launches,
+            "flash_attention": flash_attention.launches,
+            "quantize_rows": quantize_rows.launches, "scale_rows": scale_rows.launches,
             "decode_step_calls": getattr(owner, "decode_step_calls", 0)}
 
 
 def _add_counts(owner, delta):
     """Add `delta` to the counts; an owner that is gone (None) keeps none."""
-    from ..ops import vocab_topk
+    from ..ops import flash_attention, vocab_topk
     from ..ops.decode_attention import decode_attention
+    from ..ops.int8_dynamic import quantize_rows, scale_rows
 
     decode_attention.launches += delta.get("decode_attention", 0)
     vocab_topk.launches += delta.get("vocab_topk", 0)
+    flash_attention.launches += delta.get("flash_attention", 0)
+    quantize_rows.launches += delta.get("quantize_rows", 0)
+    scale_rows.launches += delta.get("scale_rows", 0)
     if hasattr(owner, "decode_step_calls"):
         owner.decode_step_calls += delta.get("decode_step_calls", 0)
 
@@ -225,14 +266,18 @@ def copy_state(dst, src):
         raise ValueError("states differ: {!r} != {!r}".format(dst, src))
 
 
-def _weights_signature(owner):
-    """The addresses of the owner's decoder tensors (its textual head, or
-    the owner itself): a graph reads them where they were at capture."""
-    mod = getattr(owner, "textual", owner)
-    if not isinstance(mod, torch.nn.Module):
-        return ()
-    return tuple((t.data_ptr(), t.dtype, tuple(t.shape))
-                 for t in itertools.chain(mod.parameters(), mod.buffers()))
+def _weights_signature(owner, parts=("textual",)):
+    """The addresses of the owner's tensors in its submodules named in
+    `parts` (the decoder's: its textual head), or of the owner's own where
+    it has none of them: a graph reads them where they were at capture."""
+    mods = [m for m in (getattr(owner, p, None) for p in parts) if isinstance(m, torch.nn.Module)]
+    if not mods and isinstance(owner, torch.nn.Module):
+        mods = [owner]
+    # each module's own tensors, walked directly: a third of the cost of
+    # parameters() and buffers() (~0.4 ms for ViT-L's ~300 on a host core)
+    return tuple((t.data_ptr(), t.dtype, t.shape) for m in mods for sub in m.modules()
+                 for t in itertools.chain(sub._parameters.values(), sub._buffers.values())
+                 if t is not None)
 
 
 def _body(state, step, running, noise, pred, steps=None):
@@ -521,6 +566,123 @@ def _settle_loops(loops):
 
 
 def release(owner):
-    """Settle and drop the owner's graphs (their static states and pools):
-    the next search of each key captures again."""
+    """Settle and drop the owner's graphs (their static states and pools),
+    the encoder's too: the next search or encoder call of each key
+    captures again."""
     _settle_loops(_GRAPHS.pop(owner, {}))
+    with _LOCK:
+        _ENCODERS.pop(owner, None)
+
+
+# -- the encoder's graphs ------------------------------------------------------
+
+
+# one captured encoder call: its torch.cuda.CUDAGraph, static input and
+# output, the wrappers' launches a replay makes ({kernel: n}) and its label
+EncoderGraph = collections.namedtuple("EncoderGraph",
+                                      ("graph", "static_in", "static_out", "per_call", "label"))
+
+
+class _EncoderCache(object):
+    """An owner's encoder graphs for one set of weights: by key, least
+    recently used first; the pool they share (None until the first
+    capture); the replays since the last capture."""
+
+    def __init__(self, weights):
+        self.weights = weights
+        self.graphs = collections.OrderedDict()
+        self.pool = None
+        self.replays = 0
+
+
+def _warm_up(fn, x):
+    """fn(x) once on the side stream of x's device, after the current
+    stream's work and before its next (cuBLAS's workspace for that
+    stream and the kernels' first-call set-up, before a capture there)."""
+    side = _side_stream(x.device)
+    current = torch.cuda.current_stream(x.device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        fn(x)
+    current.wait_stream(side)
+
+
+def _capture_encoder(fn, x, pool):
+    """fn(x) captured on the side stream into a CUDAGraph in the memory
+    pool `pool` (a graph's `pool()`; None: a new one).  Returns (graph,
+    fn's output: the static output)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool, stream=_side_stream(x.device),
+                          capture_error_mode="thread_local"):
+        out = fn(x)
+    return graph, out
+
+
+def _capture_into(cache, owner, key, images, fn):
+    """A miss's warm-up and capture of fn for `key` into `cache`, with
+    the LRU eviction it makes room by; returns the new EncoderGraph."""
+    label = "{}:{:08x}".format("x".join(str(n) for n in images.shape[:-1]),
+                               hash(key) & 0xffffffff)
+    with profiling.span("model.encode_capture", key=label):
+        static_in = images.clone()
+        while len(cache.graphs) >= MAX_ENCODER_GRAPHS:
+            _, old = cache.graphs.popitem(last=False)
+            del old  # its static tensors go back to the shared pool
+            profiling.count(encode_evictions=1)
+        before = _counts(owner)
+        try:
+            _warm_up(fn, static_in)
+            warm = _counts(owner)
+            graph, static_out = _capture_encoder(fn, static_in, cache.pool)
+        finally:
+            after = _counts(owner)
+            # the capture launched nothing, and the warm-up is no call's
+            # work: take back what the wrappers counted
+            _add_counts(owner, {k: before[k] - after[k] for k in after})
+        cache.pool = graph.pool()
+        per_call = {k: after[k] - warm[k] for k in after if after[k] != warm[k]}
+        g = cache.graphs[key] = EncoderGraph(graph, static_in, static_out, per_call, label)
+    cache.replays = 0
+    profiling.count(encode_captures=1)
+    return g
+
+
+def encode(owner, key, images, fn):
+    """fn(images), an encoder call's body, replayed from the owner's graph
+    for `key` (hashable: what fixes the body's code beyond the input's
+    shape and dtype) and the input, captured on a miss while the cache
+    has room or has paid for its last capture (see the module
+    docstring); other misses run fn eagerly.  Returns a new tensor.
+    images: on a CUDA device; fn launches no device span and reads
+    nothing on the host."""
+    weights = _weights_signature(owner, ("image_encoder", "img_temperal_embedding"))
+    full_key = (key, tuple(images.shape), images.dtype, torch.backends.cuda.matmul.allow_tf32)
+    with _LOCK:
+        cache = _ENCODERS.get(owner)
+        if cache is None or cache.weights != weights:
+            # graphs of other weights never hit again: dropped at once
+            if cache is not None and cache.graphs:
+                profiling.count(encode_evictions=len(cache.graphs))
+            cache = _ENCODERS[owner] = _EncoderCache(weights)
+        g = cache.graphs.get(full_key)
+        if g is None and (len(cache.graphs) < MAX_ENCODER_GRAPHS
+                          or cache.replays >= ENCODER_REPLAYS_A_CAPTURE):
+            # in inference mode whoever calls: the static tensors are
+            # inference tensors, written in place at every call
+            with torch.inference_mode():
+                g = _capture_into(cache, owner, full_key, images, fn)
+                g.graph.replay()
+        elif g is not None:
+            cache.graphs.move_to_end(full_key)
+            cache.replays += 1
+            with torch.inference_mode():
+                g.static_in.copy_(images)
+                g.graph.replay()
+            profiling.count(encode_replays=1)
+        if g is not None:
+            _add_counts(owner, g.per_call)
+            # cloned before the lock goes: the next replay of any graph in
+            # the shared pool may write over this one's output
+            return g.static_out.clone()
+    profiling.count(encode_eager=1)
+    return fn(images)

@@ -37,6 +37,7 @@ from ..decode import device_loop
 from ..decode.beam import BeamSearchConfig, beam_search
 from ..decode.greedy import greedy_search
 from ..decode.trie import trie_greedy_search
+from ..ops.flash_attention import auto_flash
 from ..ops.vocab_topk import TILE
 from ..parallel import comm
 from ..runtime import profiling
@@ -129,13 +130,38 @@ class GitModel(nn.Module):
         the token axis ([B, F*S, Dv]) or, with pooling_images='avg',
         averaged ([B, S, Dv]) (gitax git.py:56-90).  Frames beyond
         num_image_with_embedding are dropped, as the reference's zip does.
-        flash and remat: `vit_forward`'s (flash None: auto)."""
+        flash and remat: `vit_forward`'s (flash None: auto).
+
+        On a card in inference (grad off), without remat and with no model
+        group on the encoder, the body is replayed from a CUDA graph, one a
+        batch shape (`decode.device_loop.encode`, keyed also by the
+        activation dtype, fast and flash as resolved, for the encoder's
+        weights where they lie; a bounded cache, whose misses past its
+        bound run eagerly), in place of some 1,400 eager launches for
+        ViT-L; it returns a new tensor all the same.  Every other call
+        (the CPU, training, a tensor-parallel encoder) runs the body
+        eagerly."""
+        if images.dim() not in (4, 5):
+            raise ValueError("images must be [B, H, W, 3] or [B, F, H, W, 3], got {}".format(
+                tuple(images.shape)))
+        if (not images.is_cuda or remat or torch.is_grad_enabled()
+                or self.image_encoder.tp_group is not None):
+            return self._encode(images, dtype, fast, flash, remat)
+        enc = self.image_encoder.cfg
+        fast = enc.fast_softmax if fast is None else bool(fast)
+        if flash is None:
+            p = enc.patch_size
+            flash = auto_flash((images.shape[-3] // p) * (images.shape[-2] // p) + 1, dtype,
+                               images.device)
+        flash = bool(flash)
+        return device_loop.encode(self, (dtype, fast, flash), images,
+                                  lambda x: self._encode(x, dtype, fast, flash))
+
+    def _encode(self, images, dtype, fast, flash, remat=False):
+        """`encode_images`' body, eager."""
         if images.dim() == 4:
             return vit_forward(self.image_encoder, images, dtype, fast=fast, flash=flash,
                                remat=remat)
-        if images.dim() != 5:
-            raise ValueError("images must be [B, H, W, 3] or [B, F, H, W, 3], got {}".format(
-                tuple(images.shape)))
         b, f = images.shape[:2]
         n_emb = self.cfg.num_image_with_embedding
         if n_emb:

@@ -48,7 +48,10 @@ goes through page-locked buffers (`PinnedUploads`), so `dispatch`
 returns before the search ends, as gitax's asynchronous dispatch does:
 the TSV loops' three stages (decode of chunk i+1, the search of chunk i,
 detokenisation of chunk i-1) overlap, and `resolve` (`to_host`) is the
-first host wait.
+first host wait.  A batch's sequences are copied to page-locked host
+memory behind its work as it is dispatched, so that `to_host` waits for
+that copy alone, and the card runs the batches dispatched since while
+the host detokenises, decodes and dispatches the next.
 
 On a mesh (`mesh=`, gitax pipeline.py:166-182 and 334-378) the engine is
 one process per rank, not gitax's one SPMD program.  Rank 0 is the
@@ -470,7 +473,7 @@ class CaptionEngine(object):
                             grid=(imgs.shape[-3] // p, imgs.shape[-2] // p),
                             prefix=pref.shape[1]):
             if self.mesh is not None:
-                return self._mesh_dispatch(imgs, pref, generate)
+                return self._copy_to_host(self._mesh_dispatch(imgs, pref, generate))
             dev_imgs = torch.from_numpy(imgs)
             if dev_imgs.dtype != torch.uint8:  # cast on the host: the upload is activation-width
                 with profiling.span("engine.host_cast"):
@@ -478,7 +481,22 @@ class CaptionEngine(object):
             with profiling.span("engine.upload", bytes=dev_imgs.nbytes + pref.nbytes):
                 dev_imgs, pref = self._upload(dev_imgs), self._upload(torch.from_numpy(pref))
             seqs, _ = self._caption_fn(pref.shape[1], generate)(dev_imgs, pref)
-            return seqs
+            return self._copy_to_host(seqs)
+
+    @staticmethod
+    def _copy_to_host(seqs):
+        """Enqueue the copy of a batch's device sequences into page-locked
+        host memory behind the batch's work, and an event after it, so
+        that `to_host` waits for this batch alone and not for the batches
+        dispatched after it; returns seqs (None and host tensors as they
+        are)."""
+        if seqs is not None and seqs.is_cuda:
+            host = torch.empty(seqs.shape, dtype=seqs.dtype, pin_memory=True)
+            host.copy_(seqs, non_blocking=True)
+            landed = torch.cuda.Event()
+            landed.record()
+            seqs._on_host = (host, landed)
+        return seqs
 
     # -- the mesh ------------------------------------------------------------
     def _mesh_dispatch(self, imgs, pref, generate):
@@ -658,9 +676,17 @@ class CaptionEngine(object):
     def to_host(self, seqs) -> np.ndarray:
         """Device sequences -> a numpy array: the one place where the
         engine's device results reach the host (gitax's batcher reads them
-        with np.asarray, serving.py:297, 436)."""
+        with np.asarray, serving.py:297, 436).  A dispatch's sequences
+        are read from the copy it enqueued (`_copy_to_host`), once that
+        has landed; any other tensor is copied here, after all the work
+        on the stream."""
         with profiling.span("engine.to_host"):
-            return seqs.cpu().numpy()
+            copied = getattr(seqs, "_on_host", None)
+            if copied is None:
+                return seqs.cpu().numpy()
+            host, landed = copied
+            landed.synchronize()
+            return host.numpy()
 
     def resolve(self, handle):
         """Copy a dispatched handle's sequences to the host and detokenize
@@ -669,7 +695,7 @@ class CaptionEngine(object):
         results = [None] * n
         with profiling.span("engine.resolve", items=n):
             for idxs, seqs in dispatched:
-                arr = self.to_host(torch.cat(seqs, dim=0))[:len(idxs)]
+                arr = np.concatenate([self.to_host(s) for s in seqs])[:len(idxs)]
                 with profiling.span("engine.detokenize", items=len(idxs)):
                     for i, row in zip(idxs, arr):
                         results[i] = self.tokenizer.decode(row.tolist(),
@@ -854,8 +880,12 @@ class CaptionEngine(object):
             # host decode of the next chunks (thread pool) || the search of
             # this chunk || detokenization of the previous one (this thread)
             pending = None  # (keys, dispatch handle)
-            for batch_idxs, decoded in self._prefetched_chunks(image_tsv, idxs,
-                                                               self.batch_size, clips=frames):
+            # images: a batch a pool thread, four in flight (with two, the
+            # card waits on the pool once the encoder replays from a graph);
+            # clips: a batch spread over the pool, two in flight
+            for batch_idxs, decoded in self._prefetched_chunks(image_tsv, idxs, self.batch_size,
+                                                               depth=2 if frames else 4,
+                                                               clips=frames):
                 with profiling.span("tsv.assemble", items=len(batch_idxs)):
                     arrs, keys = [], []
                     for j, a in zip(batch_idxs, decoded):

@@ -107,7 +107,8 @@ _seq = itertools.count(1)  # stamp numbers; stamp s writes slot s % SLOTS
 _count_lock = threading.Lock()
 _counts = {"rows": 0, "real_rows": 0, "frames": 0, "captures": 0, "capture_s": 0.0,
            "evictions": 0, "upload_waits": 0, "lost": 0, "full_buckets": 0,
-           "flushed_buckets": 0}
+           "flushed_buckets": 0, "encode_captures": 0, "encode_replays": 0,
+           "encode_evictions": 0, "encode_eager": 0}
 
 
 def count(**n):
@@ -120,11 +121,15 @@ def count(**n):
 
 def counters():
     """The process's counters: {rows, real_rows, frames (the rows'
-    frames: F a clip, 1 an image), captures, capture_s, evictions,
-    upload_waits, lost (device spans whose stamps were not
-    read), full_buckets and flushed_buckets (the VQA loop's device
+    frames: F a clip, 1 an image), captures, capture_s, evictions (the
+    search's graphs), upload_waits, lost (device spans whose stamps were
+    not read), full_buckets and flushed_buckets (the VQA loop's device
     batches dispatched because their bucket filled, and by its pass-end
-    flush), records (made), dropped (by the ring)}."""
+    flush), encode_captures, encode_replays, encode_evictions and
+    encode_eager (the encoder's graphs, `decode.device_loop.encode`:
+    misses captured, hits, graphs dropped, and misses run eagerly; the
+    hit share is replays / (replays + captures + eager)), records
+    (made), dropped (by the ring)}."""
     out = dict(_counts)
     # the ids handed out, read from the counter's repr without taking one
     out["records"] = made = int(repr(_ids)[len("count("):-1]) - 1

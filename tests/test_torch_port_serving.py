@@ -243,6 +243,31 @@ def test_to_host_on_a_cpu_engine(engine):
     np.testing.assert_array_equal(out, seqs.numpy())
 
 
+def test_to_host_reads_a_dispatch_s_copy_once_it_has_landed(engine):
+    """A card's dispatch hands `to_host` the page-locked copy it enqueued
+    and the event after it: `to_host` waits on that event and reads the
+    copy, not the device tensor (stood in for by CPU tensors here), and
+    `resolve` joins a handle's batches in order."""
+    waited = []
+
+    class Landed(object):
+        def synchronize(self):
+            waited.append(1)
+
+    first, second = torch.tensor([[101, 7, 102]]), torch.tensor([[101, 8, 102], [101, 9, 102]])
+    for seqs in (first, second):
+        seqs._on_host = (seqs + 1, Landed())  # the copy differs, to show which is read
+    np.testing.assert_array_equal(engine.to_host(first), first.numpy() + 1)
+    assert waited == [1]
+    tok = engine.tokenizer
+    got = engine.resolve((3, [([2, 0, 1], [first, second])]))
+    # rows in dispatch order go to items 2, 0, 1
+    want = [tok.decode(r, skip_special_tokens=True) for r in ([102, 9, 103], [102, 10, 103],
+                                                               [102, 8, 103])]
+    assert got == want and waited == [1, 1, 1]
+    assert engine._copy_to_host(None) is None and engine._copy_to_host(first) is first
+
+
 # ---------------------------------------------------------------------------
 # replies equal to gitax's batcher on the same weights
 # ---------------------------------------------------------------------------
